@@ -18,10 +18,29 @@ Phases, each of which raises on failure (exit code 1):
    3 `resident_ensemble_step`s on synthetic I420 rows (20 frames, 256²
    staging → 224², B=16): launch counts, finite probabilities summing to 1;
    then noise gates off, through the kernels and through the plain versions
-   on the card: fused argmax equal, max |Δprob| ≤ 1e-2.
+   on the card: fused argmax equal, max |Δprob| ≤ 1e-2;
+7. stem kernel == its plain version: f32 (TF32 off) at two small shapes,
+   atol 1e-4 (summation order); bf16 at (16,20,224,224,3) × F=64, x ~ N(0,1),
+   w ~ N(0,0.05), atol 0.0625 (the JAX on-TPU bound,
+   tests/test_pallas_ops.py:189-197); timed beside the library route on
+   the same inputs (s2d staging + cuDNN, `library_ms`), s2d staging alone,
+   and cuDNN's conv alone on the padded input, canonical and prestaged forms;
+8. the per-member path: 4 full-width I3D members from
+   `build_model("I3D", stem_impl="pallas")` on the default device (the
+   card), `make_member_forward` unshared over 3 batches of 16 uint8
+   20×224² clips: launch counts, probabilities; then the same members in
+   the shared-staging (cuDNN stem) form: max |Δprob| ≤ 1e-2, fused argmax
+   equal where the top-2 gap exceeds twice the largest fused difference,
+   and, since random-init probabilities sit near uniform, the two stems'
+   outputs within 1e-2 and member 0's logits within 5e-2 relative error;
+9. the serving export of those members: export, save, load, serve the same
+   batches: probabilities within 1e-2 of the eager forward, equal
+   predictions, the kernels' launches counted from the loaded program.
 
-The line before last is the kernels' JSON record; the last line is
-`{"ok": true, "device": {...}}`.  Needs one card and no network.
+Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 67 TFLOP/s
+f32 outside the tensor cores, 3.35 TB/s.  The line before last is the
+kernels' JSON record; the last line is `{"ok": true, "device": {...}}`.
+Needs one card and no network.
 """
 
 from __future__ import annotations
@@ -29,7 +48,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -55,6 +76,17 @@ POOL_SHAPES = (
 )
 ODD_POOL_SHAPES = [(2, 1, 5, 5, 64), (2, 3, 5, 7, 3), (2, 3, 5, 7, 130)]
 NOISE_SHAPE = (BATCH, FRAMES, SIZE, SIZE, 3)
+STEM_F32_CASES = [((2, 4, 28, 28, 3), 16), ((1, 6, 28, 36, 3), 16)]
+STEM_FEATURES = 64
+INPUT_SCALE = 1 / 255.0  # the per-member path's pixel scale: unsaturated softmax
+BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12  # H100 SXM data sheet, per second
+
+
+def bound(bytes_moved: float, ops: float, rate: float) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of bytes over HBM rate and
+    operations over the peak rate for their type."""
+    by_bytes, by_ops = bytes_moved / HBM_BYTES * 1e3, ops / rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def check(ok: bool, what: str) -> None:
@@ -92,19 +124,29 @@ def check_maxpool(torch, dev) -> dict:
             torch.cuda.synchronize()
             err = max(err, (got.float() - ref.float()).abs().max().item())
             check(torch.equal(got, ref), f"max-pool kernel != plain at {shape} {dtype}")
-    ms = plain_ms = 0.0
+    ms = plain_ms = library_ms = bytes_moved = ops = 0.0
     for shape in POOL_SHAPES:
         x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        xc = x.permute(0, 4, 1, 2, 3)  # channels_last_3d NCDHW view
+        library = lambda: torch.nn.functional.max_pool3d(xc, 3, 1, padding=1)  # noqa: E731
+        check(torch.equal(library().permute(0, 2, 3, 4, 1), max_pool_3x3x3_same(x)),
+              f"F.max_pool3d(padding=1) != the kernel at {shape}")
         k, p = cuda_ms(lambda: max_pool_3x3x3_same(x)), cuda_ms(lambda: max_pool_3x3x3_reference(x))
+        lib = cuda_ms(library)
         mb = 2 * x.numel() * x.element_size() / 1e6
-        print(f"maxpool bf16 {shape}: kernel {k:.4f} ms ({mb / k:.1f} GB/s of 1 read + 1 write), plain {p:.4f} ms")
-        ms, plain_ms = ms + k, plain_ms + p
+        print(f"maxpool bf16 {shape}: kernel {k:.4f} ms ({mb / k:.1f} GB/s of 1 read + 1 write), "
+              f"plain {p:.4f} ms, F.max_pool3d {lib:.4f} ms")
+        ms, plain_ms, library_ms = ms + k, plain_ms + p, library_ms + lib
+        bytes_moved, ops = bytes_moved + mb * 1e6, ops + 26 * x.numel()  # 26 maxes per output
+    bound_ms, bound_by = bound(bytes_moved, ops, F32_FLOPS)
     print(f"maxpool: all {len(POOL_SHAPES + ODD_POOL_SHAPES)} shapes x 2 dtypes equal; "
-          f"9 Mixed-block pools of one member at B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"9 Mixed-block pools of one member at B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"F.max_pool3d {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "max_pool_3x3x3_same", "route": "cuda",
             "source": f"{PORT}/csrc/maxpool3x3x3.cu",
             "replaces": "crowded_scenes_ensemble_classification_tpu/ops/pallas/maxpool.py:51",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def check_noise(torch, dev) -> dict:
@@ -145,12 +187,84 @@ def check_noise(torch, dev) -> dict:
     ms = cuda_ms(lambda: salt_pepper(x, 5, salt, pepper, 100))
     plain_ms = cuda_ms(lambda: salt_pepper_plain(x, 5, salt, pepper, 100), iters=5)
     mb = 2 * x.numel() * 4 / 1e6
+    # about 31 32-bit integer operations per element (Philox4x32-10 per 4
+    # elements, two compares), counted at the f32 rate outside the tensor cores
+    bound_ms, bound_by = bound(mb * 1e6 + 2 * BATCH, 31 * x.numel(), F32_FLOPS)
     print(f"noise: identity, gating, odd length, kernel == plain ok; density salt {salt_density:.5f} "
           f"pepper {pepper_density:.5f}; {NOISE_SHAPE} f32: kernel {ms:.4f} ms ({mb / ms:.1f} GB/s), "
-          f"plain {plain_ms:.4f} ms")
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "salt_pepper", "route": "cuda", "source": f"{PORT}/csrc/salt_pepper.cu",
             "replaces": "crowded_scenes_ensemble_classification_tpu/ops/pallas/noise.py:52",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def check_stem(torch, dev) -> dict:
+    import torch.nn.functional as F
+
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import s2d_stem_conv, to_ncdhw
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import (
+        s2d_stem_kernel,
+        s2d_stem_stage,
+        stem_conv_7x7x7_s2,
+        stem_conv_7x7x7_s2_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for shape, f in STEM_F32_CASES:
+        x = torch.randn(shape, device=dev, generator=gen)
+        w = torch.randn((f, shape[-1], 7, 7, 7), device=dev, generator=gen) * 0.1
+        got, ref = stem_conv_7x7x7_s2(x, w), stem_conv_7x7x7_s2_reference(x, w)
+        torch.cuda.synchronize()
+        err32 = (got - ref).abs().max().item()
+        print(f"stem f32 {shape} x F={f}: max |kernel - plain| {err32:.3g}")
+        check(got.shape == ref.shape and err32 <= 1e-4, f"stem kernel != plain in f32 at {shape}")
+
+    x = torch.randn(NOISE_SHAPE, device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn((STEM_FEATURES, 3, 7, 7, 7), device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+    got, ref = stem_conv_7x7x7_s2(x, w), stem_conv_7x7x7_s2_reference(x, w)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    print(f"stem bf16 {NOISE_SHAPE} x F={STEM_FEATURES}: max |kernel - plain| {err:.4g}, "
+          f"max |plain| {ref.float().abs().max().item():.3g}")
+    check(err <= 0.0625, f"stem kernel != plain in bf16: {err}")
+
+    # The library route on the kernel's own inputs (x, w) → NTHWC y: s2d
+    # staging, temporal pad and cuDNN on the prestaged form (`s2d_stem_conv`,
+    # what the port's s2d stems run).  It is the fastest library route
+    # measured, so it is `library_ms`.  Beside it, for the breakdown, cuDNN's
+    # conv alone on inputs already padded (canonical) or staged and padded
+    # (prestaged), both in channels_last_3d.
+    library = lambda: s2d_stem_conv(x, w)  # noqa: E731
+    check((library().float() - ref.float()).abs().max().item() <= 0.0625,
+          "s2d staging + cuDNN disagrees with the plain version")
+    cl = torch.channels_last_3d
+    xp = F.pad(to_ncdhw(x), (2, 3, 2, 3, 2, 3)).contiguous(memory_format=cl)
+    wc = w.contiguous(memory_format=cl)
+    xs = F.pad(to_ncdhw(s2d_stem_stage(x)), (0, 0, 0, 0, 2, 3)).contiguous(memory_format=cl)
+    w8 = s2d_stem_kernel(w).contiguous(memory_format=cl)
+    canonical = lambda: F.conv3d(xp, wc, stride=2)  # noqa: E731
+    prestaged = lambda: F.conv3d(xs, w8, stride=(2, 1, 1))  # noqa: E731
+    check((canonical().permute(0, 2, 3, 4, 1).float() - ref.float()).abs().max().item() <= 0.0625,
+          "cuDNN's canonical stem disagrees with the plain version")
+    ms = cuda_ms(lambda: stem_conv_7x7x7_s2(x, w))
+    plain_ms = cuda_ms(lambda: stem_conv_7x7x7_s2_reference(x, w))
+    staging_ms = cuda_ms(lambda: s2d_stem_stage(x))
+    library_ms = cuda_ms(library)
+    canonical_ms, prestaged_ms = cuda_ms(canonical), cuda_ms(prestaged)
+    n, t, h, w_, c = NOISE_SHAPE
+    flops = 2 * (n * t * h * w_ // 8) * STEM_FEATURES * 343 * c
+    bytes_moved = (x.numel() + w.numel() + got.numel()) * 2
+    bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
+    print(f"stem bf16 B={BATCH}: kernel wrapper {ms:.4f} ms (s2d staging alone {staging_ms:.4f} ms; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library route (s2d staging + cuDNN) "
+          f"{library_ms:.4f} ms; cuDNN alone: canonical on padded input {canonical_ms:.4f} ms, prestaged "
+          f"form {prestaged_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return {"name": "stem_conv_7x7x7_s2", "route": "cuda", "source": f"{PORT}/csrc/stem_conv7x7x7s2.cu",
+            "replaces": "crowded_scenes_ensemble_classification_tpu/ops/pallas/stem_conv_v8.py:140 and "
+                        "crowded_scenes_ensemble_classification_tpu/ops/pallas/stem_conv.py:81",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def spread_batchnorm(model, gen) -> None:
@@ -261,7 +375,8 @@ def check_main_path(torch, np, dev, kernels) -> None:
         check(bool(torch.isfinite(probs).all()), "non-finite probabilities")
         check(bool(((probs.sum(-1) - 1.0).abs() <= 1e-2).all()), "probabilities do not sum to 1")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if k["name"] in launches:
+            k["launches"] = launches[k["name"]]
 
     quiet_kernel, cps_kernel = quiet_steps(members, resident, 5, torch)
     with mock.patch.object(i3d_mod, "max_pool_3x3x3_same", max_pool_3x3x3_reference), \
@@ -275,6 +390,125 @@ def check_main_path(torch, np, dev, kernels) -> None:
           f"max |dprob| {dprob:.3g}; fused argmax equal: {same_argmax}")
     check(same_argmax, "fused argmax differs between kernel and plain runs")
     check(dprob <= 1e-2, f"kernel and plain probabilities differ by {dprob}")
+
+
+def fused_argmax_agrees(probs_a, probs_b, torch) -> tuple[bool, float]:
+    """Fused (SUM) argmax equal wherever the top-2 gap of `probs_a`'s fused
+    scores exceeds twice the largest fused difference: a closer pair may
+    swap places.  Returns (agrees, largest fused difference)."""
+    fa, fb = probs_a.float().sum(0), probs_b.float().sum(0)
+    dfused = (fa - fb).abs().max().item()
+    top2 = fa.topk(2, dim=-1).values
+    differ = fa.argmax(-1) != fb.argmax(-1)
+    return bool((top2[:, 0] - top2[:, 1])[differ].lt(2 * dfused).all()), dfused
+
+
+def check_member_path(torch, np, dev, kernels) -> tuple:
+    """The per-member path through `build_model` and the unshared member
+    forward; returns (bundles, batches, eager probabilities, clips/s)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import (
+        make_member_forward,
+        prepare_member_inputs,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import s2d_stem_stage, to_ncdhw
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import stem_conv_7x7x7_s2
+
+    gen = torch.Generator().manual_seed(6)
+    bundles = [build_model("I3D", dtype=torch.bfloat16, generator=gen, stem_impl="pallas") for _ in range(MEMBERS)]
+    check(all(p.is_cuda for b in bundles for p in b.module.parameters()), "build_model left weights off the card")
+    clips = np.random.default_rng(7).integers(0, 256, (STEPS, BATCH, FRAMES, SIZE, SIZE, 3), dtype=np.uint8)
+    batches = [{"rgb": torch.from_numpy(c).to(dev)} for c in clips]
+    forward = make_member_forward([b.module for b in bundles], (SIZE, SIZE), input_scale=INPUT_SCALE)
+    forward(batches[0])  # warm-up: cuDNN plans, allocator
+    max_pool_3x3x3_same.launches = stem_conv_7x7x7_s2.launches = 0
+    outs, cps = timed_steps(lambda i: forward(batches[i]), torch)
+    launches = {"stem_conv_7x7x7_s2": stem_conv_7x7x7_s2.launches, "max_pool_3x3x3_same": max_pool_3x3x3_same.launches}
+    print(f"per-member path (unshared, kernel stem): {STEPS} batches, {MEMBERS} members, B={BATCH}, bf16: "
+          f"{cps:.2f} clips/s; launches {launches}")
+    check(launches["stem_conv_7x7x7_s2"] == MEMBERS * STEPS, "stem launch count")
+    check(launches["max_pool_3x3x3_same"] == 9 * MEMBERS * STEPS, "max-pool launch count on the per-member path")
+    for probs in outs:
+        check(probs.shape == (MEMBERS, BATCH, CLASSES), "per-member output shape")
+        check(bool(torch.isfinite(probs).all()), "non-finite probabilities")
+        check(bool(((probs.sum(-1) - 1.0).abs() <= 1e-2).all()), "probabilities do not sum to 1")
+    next(k for k in kernels if k["name"] == "stem_conv_7x7x7_s2")["launches"] = launches["stem_conv_7x7x7_s2"]
+
+    twins = [build_model("I3D", dtype=torch.bfloat16, stem_prestaged=True) for _ in bundles]
+    for twin, b in zip(twins, bundles):
+        twin.module.load_state_dict(b.module.state_dict())
+    shared = make_member_forward([t.module for t in twins], (SIZE, SIZE), share_stem_staging=True,
+                                 input_scale=INPUT_SCALE)
+    shared(batches[0])
+    shared_outs, shared_cps = timed_steps(lambda i: shared(batches[i]), torch)
+    dprob = max((a - b).abs().max().item() for a, b in zip(outs, shared_outs))
+    agree = [fused_argmax_agrees(a, b, torch) for a, b in zip(outs, shared_outs)]
+    same = sum(int(torch.equal(a.sum(0).argmax(-1), b.sum(0).argmax(-1))) for a, b in zip(outs, shared_outs))
+    fused = torch.stack(outs).float().sum(1)  # (STEPS, B, C)
+    top2 = fused.topk(2, dim=-1).values
+    print(f"same members, shared staging (cuDNN stem): {shared_cps:.2f} clips/s; max |dprob| {dprob:.3g}, "
+          f"max |dfused| {max(d for _, d in agree):.3g}; fused argmax equal in {same} of {STEPS} batches; "
+          f"spread: max |p - 1/{CLASSES}| {(torch.stack(outs) - 1 / CLASSES).abs().max().item():.3g}, "
+          f"fused top-2 gap median {(top2[..., 0] - top2[..., 1]).median().item():.3g}")
+    check(dprob <= 1e-2, f"kernel-stem and cuDNN-stem probabilities differ by {dprob}")
+    check(all(ok for ok, _ in agree), "fused argmax differs where the top-2 gap is wide")
+
+    # Random-init probabilities sit near uniform, so |dprob| alone cannot
+    # tell a wrong stem from a right one.  Hold the two stems' outputs and
+    # member 0's logits to each other by relative error, ||a - b|| / ||b||:
+    # a wrong stem moves both by O(1), bf16 rounding by about 1e-3.
+    x = prepare_member_inputs(batches[0], (SIZE, SIZE), False, INPUT_SCALE)["rgb"].to(torch.bfloat16)
+    kernel_member, cudnn_member = bundles[0].module, twins[0].module
+    with torch.inference_mode():
+        xs = s2d_stem_stage(x)
+        stem_k = kernel_member.trunk.Conv3d_1a_7x7(to_ncdhw(x)).float()
+        stem_c = cudnn_member.trunk.Conv3d_1a_7x7(xs).float()
+        logit_k, logit_c = kernel_member(x), cudnn_member(xs)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    stem_rel, logit_rel = rel(stem_k, stem_c), rel(logit_k, logit_c)
+    print(f"member 0, batch 0, kernel vs cuDNN stem: stem output rel err {stem_rel:.3g} (|y| mean "
+          f"{stem_c.abs().mean().item():.3g}, max {stem_c.abs().max().item():.3g}); logits rel err "
+          f"{logit_rel:.3g} (max |logit| {logit_c.abs().max().item():.3g}, std over classes "
+          f"{logit_c.std(-1).mean().item():.3g})")
+    check(stem_c.abs().max().item() > 0 and stem_rel <= 1e-2, f"kernel stem output differs from cuDNN's: {stem_rel}")
+    check(logit_c.std(-1).min().item() > 0 and logit_rel <= 5e-2, f"kernel-stem logits differ from cuDNN's: {logit_rel}")
+    return bundles, batches, outs, cps
+
+
+def check_serving(torch, bundles, batches, eager, eager_cps) -> None:
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import stem_conv_7x7x7_s2
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    t0 = time.perf_counter()
+    program = export_ensemble(bundles, serving_batch_example(bundles[0], BATCH), input_scale=INPUT_SCALE)
+    export_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_serving_artifact(os.path.join(tmp, "ensemble.zip"), program,
+                                     {"model_type": "I3D", "members": [f"m{i}" for i in range(MEMBERS)]})
+        size_mb = os.path.getsize(path) / 1e6
+        serve, meta = load_serving_artifact(path)
+    convs = [p for p in serve.module.parameters() if p.dim() == 5]
+    cl = sum(p.is_contiguous(memory_format=torch.channels_last_3d) for p in convs)
+    serve(batches[0])  # warm-up
+    max_pool_3x3x3_same.launches = stem_conv_7x7x7_s2.launches = 0
+    outs, cps = timed_steps(lambda i: serve(batches[i]), torch)
+    launches = {"stem_conv_7x7x7_s2": stem_conv_7x7x7_s2.launches, "max_pool_3x3x3_same": max_pool_3x3x3_same.launches}
+    dprob = max((o["probs"] - e).abs().max().item() for o, e in zip(outs, eager))
+    same = all(torch.equal(o["preds"], e.sum(0).argmax(-1)) for o, e in zip(outs, eager))
+    print(f"serving: export {export_s:.1f} s, artifact {size_mb:.1f} MB on {meta['device']}, "
+          f"{cl} of {len(convs)} loaded conv weights channels_last_3d; {cps:.2f} clips/s served vs "
+          f"{eager_cps:.2f} eager; max |dprob| vs eager {dprob:.3g}; preds equal: {same}; launches {launches}")
+    check(launches["stem_conv_7x7x7_s2"] == MEMBERS * STEPS, "stem launches from the loaded program")
+    check(launches["max_pool_3x3x3_same"] == 9 * MEMBERS * STEPS, "max-pool launches from the loaded program")
+    check(dprob <= 1e-2, f"served probabilities differ from eager by {dprob}")
+    check(same, "served predictions differ from eager")
 
 
 def main() -> int:
@@ -299,9 +533,11 @@ def main() -> int:
     load_library()
     print(f"kernels built: {lib.name} (nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s)")
 
-    kernels = [check_maxpool(torch, dev), check_noise(torch, dev)]
+    kernels = [check_maxpool(torch, dev), check_noise(torch, dev), check_stem(torch, dev)]
     check_small_model(torch, dev)
     check_main_path(torch, np, dev, kernels)
+    bundles, batches, eager, eager_cps = check_member_path(torch, np, dev, kernels)
+    check_serving(torch, bundles, batches, eager, eager_cps)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

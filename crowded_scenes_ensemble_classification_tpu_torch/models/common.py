@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.stem_conv import s2d_stem_kernel, s2d_stem_stage, stem_conv_7x7x7_s2
+
 # JAX models/common.py:24-25 (Keras 2.2.4 defaults); torch counts momentum
 # from the other side: 1 - 0.99.
 KERAS_BN_EPS = 1e-3
@@ -117,34 +119,27 @@ class ConvBN(nn.Module):
 
 
 # ----------------------------------------------------------------------
-# Space-to-depth stem (JAX models/common.py:450-484, 601-667)
+# The stem variants (JAX models/common.py:424-484, 554-692).  All hold the
+# canonical 7³ `conv.weight` and `bn`, so their state dicts equal the
+# canonical stem's `ConvBN` and checkpoints load into any of them.  The s2d
+# staging and weight rearrangement (`s2d_stem_stage`, `s2d_stem_kernel`)
+# live beside the stem kernel in ops/kernels/stem_conv.py.
 # ----------------------------------------------------------------------
 
 
-def s2d_stem_stage(x: torch.Tensor) -> torch.Tensor:
-    """The input half of the s2d stem rewrite: NTHWC (N, T, H, W, C) →
-    xs (N, T, H/2+3, W/2+3, 4C), channels in (dy, dx, c) order.  Computed
-    once per batch and shared by every ensemble member."""
-    n, t, h, w, c = x.shape
-    if h % 2 or w % 2:
-        raise ValueError(f"s2d stem needs even spatial dims, got {h}x{w}")
-    xp = F.pad(x, (0, 0, 2, 4, 2, 4))
-    hp, wp = h + 6, w + 6
-    xs = xp.reshape(n, t, hp // 2, 2, wp // 2, 2, c)
-    return xs.permute(0, 1, 2, 4, 3, 5, 6).reshape(n, t, hp // 2, wp // 2, 4 * c)
+def _s2d_conv(xs: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The (7,4,4)/(2,1,1) conv of an NTHWC s2d staging with temporal pads
+    (2, 3) → NCDHW (channels_last_3d memory)."""
+    x = F.pad(to_ncdhw(xs), (0, 0, 0, 0, 2, 3))  # temporal SAME pads (2, 3)
+    w = s2d_stem_kernel(weight).contiguous(memory_format=torch.channels_last_3d)
+    return F.conv3d(x, w, stride=(2, 1, 1))
 
 
-def s2d_stem_kernel(weight: torch.Tensor) -> torch.Tensor:
-    """The weight half: canonical (F, C, 7, 7, 7) → (F, 4C, 7, 4, 4) such
-    that the 7³/2 TF-SAME stem conv of x equals the (2,1,1)-strided conv of
-    `s2d_stem_stage(x)` with temporal pads (2, 3)."""
-    f, c, kt, kh, kw = weight.shape
-    if (kt, kh, kw) != (7, 7, 7):
-        raise ValueError(f"s2d stem needs a 7x7x7 kernel, got {(kt, kh, kw)}")
-    k = weight.permute(2, 3, 4, 1, 0)  # (kt, kh, kw, C, F) as in the reference
-    k = F.pad(k, (0, 0, 0, 0, 0, 1, 0, 1))
-    k = k.reshape(kt, 4, 2, 4, 2, c, f).permute(0, 1, 3, 2, 4, 5, 6)
-    return k.reshape(kt, 4, 4, 4 * c, f).permute(4, 3, 0, 1, 2)
+def s2d_stem_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The 7³/2 TF-SAME stem conv of NTHWC clips (even T, H, W) as the
+    exact s2d rewrite: NTHWC (N, T, H, W, C) × canonical (F, C, 7, 7, 7) →
+    NTHWC (N, T/2, H/2, W/2, F) (JAX models/common.py:424-447)."""
+    return to_nthwc(_s2d_conv(s2d_stem_stage(x), weight))
 
 
 class PrestagedS2DStemConvBN(nn.Module):
@@ -159,10 +154,35 @@ class PrestagedS2DStemConvBN(nn.Module):
         self.bn = _make_bn(features)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
-        x = F.pad(to_ncdhw(xs), (0, 0, 0, 0, 2, 3))  # temporal SAME pads (2, 3)
-        w = s2d_stem_kernel(self.conv.weight).contiguous(memory_format=torch.channels_last_3d)
-        x = F.conv3d(x, w, stride=(2, 1, 1))
-        return F.relu(self.bn(x))
+        return F.relu(self.bn(_s2d_conv(xs, self.conv.weight)))
+
+
+class S2DStemConvBN(ConvBN):
+    """The 7³/2 stem ConvBN with its conv done as `s2d_stem_conv` on NCDHW
+    clips (JAX models/common.py:670-692)."""
+
+    def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, features, (7, 7, 7), (2, 2, 2), generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = s2d_stem_conv(to_nthwc(x), self.conv.weight)
+        return F.relu(self.bn(to_ncdhw(y)))
+
+
+class PallasStemConvBN(ConvBN):
+    """The 7³/2 stem ConvBN with its conv done by the hand-written stem
+    kernel, `ops/kernels/stem_conv.stem_conv_7x7x7_s2`, on NCDHW clips (JAX
+    models/common.py:554-598, where the kernel is Pallas).  Always the
+    kernel, for inference: clips with an odd T, H or W raise through the
+    kernel's checks rather than falling back to another conv; build such
+    models with the canonical stem (`stem_impl='auto'`)."""
+
+    def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, features, (7, 7, 7), (2, 2, 2), generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = stem_conv_7x7x7_s2(to_nthwc(x), self.conv.weight)
+        return F.relu(self.bn(to_ncdhw(y)))
 
 
 def cast_for_inference(module: nn.Module, dtype: torch.dtype) -> nn.Module:

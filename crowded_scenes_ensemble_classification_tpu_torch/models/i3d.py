@@ -6,7 +6,8 @@ so `models/convert.py` maps a flax checkpoint key for key.
 
 The 3³/1 pool branch of every Mixed_* block runs the hand-written kernel
 `ops/kernels/maxpool.max_pool_3x3x3_same` (the JAX `pool_impl='pallas'`
-route, i3d.py:158-170); there is no switch.
+route, i3d.py:158-170); there is no switch.  `stem_impl='pallas'` runs the
+stem's conv on the hand-written kernel `ops/kernels/stem_conv` at inference.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import torch.nn as nn
 from ..ops.kernels.maxpool import max_pool_3x3x3_same
 from .common import (
     ConvBN,
+    PallasStemConvBN,
     PrestagedS2DStemConvBN,
+    S2DStemConvBN,
     avg_pool_3d,
     flatten,
     lecun_normal_,
@@ -85,17 +88,32 @@ class InceptionBlock(nn.Module):
 class I3DTrunk(nn.Module):
     """Stem + Mixed_3b..Mixed_5c on NCDHW (JAX models/i3d.py:175-281).
 
+    The stem, in the order of precedence of JAX i3d.py:255-267:
     stem_prestaged=True takes the `s2d_stem_stage` layout (NTHWC, 4C
     channels), computed once per batch and shared by ensemble members;
-    otherwise the canonical 7³/2 ConvBN stem takes NTHWC clips.  Both stems
-    hold the same `Conv3d_1a_7x7` state."""
+    stem_impl='pallas' runs the hand-written stem kernel on NTHWC clips
+    (inference only; 'auto' is the default and does not); s2d_stem=True
+    runs the exact s2d rewrite; otherwise the canonical 7³/2 ConvBN.  Every
+    stem holds the same `Conv3d_1a_7x7` state."""
 
-    def __init__(self, stem_prestaged: bool = False, generator: Optional[torch.Generator] = None):
+    def __init__(
+        self,
+        stem_prestaged: bool = False,
+        s2d_stem: bool = False,
+        stem_impl: str = "auto",
+        generator: Optional[torch.Generator] = None,
+    ):
         super().__init__()
+        if stem_impl not in ("auto", "pallas"):
+            raise ValueError(f"stem_impl must be 'auto' or 'pallas', got {stem_impl!r}")
         g = generator
         self.stem_prestaged = stem_prestaged
         if stem_prestaged:
             self.Conv3d_1a_7x7 = PrestagedS2DStemConvBN(RGB_CHANNELS, 64, generator=g)
+        elif stem_impl == "pallas":
+            self.Conv3d_1a_7x7 = PallasStemConvBN(RGB_CHANNELS, 64, generator=g)
+        elif s2d_stem:
+            self.Conv3d_1a_7x7 = S2DStemConvBN(RGB_CHANNELS, 64, generator=g)
         else:
             self.Conv3d_1a_7x7 = ConvBN(RGB_CHANNELS, 64, (7, 7, 7), (2, 2, 2), generator=g)
         self.Conv3d_2b_1x1 = ConvBN(64, 64, (1, 1, 1), generator=g)
@@ -142,17 +160,20 @@ class I3D(nn.Module):
     """Single-stream I3D classifier: trunk → feature head → Flatten in
     (T', H', W', C) order → Dense(num_classes) (JAX models/i3d.py:291-331).
     Takes NTHWC clips (or, with stem_prestaged, their s2d staging) and
-    returns float32 logits."""
+    returns float32 logits.  stem_impl and s2d_stem pick the stem
+    (`I3DTrunk`)."""
 
     def __init__(
         self,
         num_classes: int = 11,
         frames: int = 20,
         stem_prestaged: bool = False,
+        s2d_stem: bool = False,
+        stem_impl: str = "auto",
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.trunk = I3DTrunk(stem_prestaged, generator=generator)
+        self.trunk = I3DTrunk(stem_prestaged, s2d_stem, stem_impl, generator=generator)
         features = head_features(frames)
         self.predictions = nn.Linear(features, num_classes)
         lecun_normal_(self.predictions.weight, features, generator)

@@ -1,7 +1,8 @@
 """Build the package's CUDA sources into one shared library and load it.
 
 `csrc/*.cu` expose a plain C interface, so they compile with `nvcc` alone,
-without PyTorch's headers, in seconds.  The library lands in
+without PyTorch's headers, in seconds: one `nvcc -c` per source, all
+started together, then one link.  The library lands in
 `<repo>/build/kernels/`, named by a hash of the sources and flags: a changed
 source rebuilds, an unchanged one loads the library already built.  Nothing
 is built when this module is imported; the first kernel launch builds.
@@ -24,7 +25,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +38,7 @@ SIGNATURES = {
         [_P, _P, _P, _P, _I64, _I64, ctypes.c_uint64, ctypes.c_uint32, _P],
         ctypes.c_int,
     ),
+    "stem_conv_s2d": ([_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_int, _P], ctypes.c_int),
 }
 
 
@@ -66,24 +68,32 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float]:
     """Compile the sources unless the library for them exists.  Returns the
-    library path and the seconds spent compiling (0.0 when it existed)."""
+    library path and the seconds spent compiling and linking (0.0 when it
+    existed)."""
     lib = library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
-    return lib, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for obj, src in zip(objs, _sources())
+        ]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        outputs = [proc.communicate() for proc in procs]  # wait for every compile
+        for cmd, proc, (out, err) in zip(compiles, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}{err}")
+        so = str(Path(tmp) / "lib.so")
+        link = [nvcc, "-shared", "-o", so, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        os.replace(so, lib)  # atomic: a concurrent build never loads a partial file
+    return lib, time.perf_counter() - t0
 
 
 @functools.cache

@@ -1,7 +1,8 @@
 """3×3×3 stride-1 SAME max pool: the CUDA kernel and its plain version.
 
 Counterpart of `crowded_scenes_ensemble_classification_tpu/ops/pallas/maxpool.py`
-(`max_pool_3x3x3_same`, line 51).  The kernel is `csrc/maxpool3x3x3.cu`.
+(`max_pool_3x3x3_same`, line 51).  The kernel is `csrc/maxpool3x3x3.cu`,
+behind the custom op `csec::max_pool_3x3x3_same`.
 """
 
 from __future__ import annotations
@@ -23,15 +24,13 @@ def max_pool_3x3x3_reference(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def max_pool_3x3x3_same(x: torch.Tensor) -> torch.Tensor:
-    """(B, T, H, W, C) contiguous → same shape; equals the JAX package's
-    `nn.max_pool(x, (3, 3, 3), (1, 1, 1), 'SAME')`.  bf16 or f32.
+@torch.library.custom_op("csec::max_pool_3x3x3_same", mutates_args=(), device_types="cpu")
+def _max_pool_op(x: torch.Tensor) -> torch.Tensor:
+    return max_pool_3x3x3_reference(x)
 
-    CUDA tensors run the kernel; CPU tensors run the plain version."""
-    if x.device.type == "cpu":
-        return max_pool_3x3x3_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"max_pool_3x3x3_same: unsupported device {x.device}")
+
+@_max_pool_op.register_kernel("cuda")
+def _max_pool_cuda(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 5:
         raise ValueError(f"max_pool_3x3x3_same: expected (B,T,H,W,C), got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
@@ -48,6 +47,22 @@ def max_pool_3x3x3_same(x: torch.Tensor) -> torch.Tensor:
     check_launch("maxpool3x3x3_same", err)
     max_pool_3x3x3_same.launches += 1
     return y
+
+
+@_max_pool_op.register_fake
+def _max_pool_fake(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def max_pool_3x3x3_same(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, C) contiguous → same shape; equals the JAX package's
+    `nn.max_pool(x, (3, 3, 3), (1, 1, 1), 'SAME')`.  bf16 or f32.
+
+    CUDA tensors run the kernel; CPU tensors run the plain version.
+    `.launches` counts kernel launches, also those of an exported program."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"max_pool_3x3x3_same: unsupported device {x.device}")
+    return _max_pool_op(x)
 
 
 max_pool_3x3x3_same.launches = 0

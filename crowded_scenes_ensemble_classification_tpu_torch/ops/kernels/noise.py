@@ -1,7 +1,8 @@
 """Fused per-clip-gated salt/pepper noise: the CUDA kernel and its plain version.
 
 Counterpart of `crowded_scenes_ensemble_classification_tpu/ops/pallas/noise.py`
-(`salt_pepper_pallas`, line 52).  The kernel is `csrc/salt_pepper.cu`.
+(`salt_pepper_pallas`, line 52).  The kernel is `csrc/salt_pepper.cu`,
+behind the custom op `csec::salt_pepper`.
 
 Each element takes one 32-bit draw; its low 16 bits against
 `max(65536 // ratio, 1)` decide salt (→255), its high 16 bits pepper (→0),
@@ -18,6 +19,7 @@ import torch
 from ._build import check_launch, load_library
 
 _MASK32 = 0xFFFFFFFF
+_MASK64 = (1 << 64) - 1
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
@@ -94,20 +96,19 @@ def salt_pepper_plain(
     return salt_pepper_reference(x, bits, salt_gates, pepper_gates, ratio)
 
 
-def salt_pepper(
-    x: torch.Tensor,
-    seed: int,
-    salt_gates: torch.Tensor,
-    pepper_gates: torch.Tensor,
-    ratio: int,
+# The op's schema carries the 64-bit seed as a signed int64: the wrapper
+# passes its two's complement, the implementations mask it back.
+@torch.library.custom_op("csec::salt_pepper", mutates_args=(), device_types="cpu")
+def _salt_pepper_op(
+    x: torch.Tensor, seed: int, salt_gates: torch.Tensor, pepper_gates: torch.Tensor, ratio: int
 ) -> torch.Tensor:
-    """x (B, ...) float32, seed a 64-bit int, gates (B,) bool → x with each
-    element of a gated clip set to 255 (salt) / 0 (pepper) with probability
-    ≈ 1/ratio.  CUDA tensors run the kernel; CPU tensors the plain version."""
-    if x.device.type == "cpu":
-        return salt_pepper_plain(x, seed, salt_gates, pepper_gates, ratio)
-    if x.device.type != "cuda":
-        raise ValueError(f"salt_pepper: unsupported device {x.device}")
+    return salt_pepper_plain(x, seed & _MASK64, salt_gates, pepper_gates, ratio)
+
+
+@_salt_pepper_op.register_kernel("cuda")
+def _salt_pepper_cuda(
+    x: torch.Tensor, seed: int, salt_gates: torch.Tensor, pepper_gates: torch.Tensor, ratio: int
+) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise TypeError(f"salt_pepper: expected float32, got {x.dtype}")
     if not x.is_contiguous():
@@ -118,8 +119,6 @@ def salt_pepper(
         raise ValueError("salt_pepper: gates must have shape (B,)")
     if b > 65535 or length >= 4 << 32:
         raise ValueError(f"salt_pepper: batch {b} × length {length} out of range")
-    if not 0 <= seed < 1 << 64:
-        raise ValueError("salt_pepper: seed must fit 64 unsigned bits")
     lib = load_library()
     salt = salt_gates.to(device=x.device, dtype=torch.uint8).contiguous()
     pepper = pepper_gates.to(device=x.device, dtype=torch.uint8).contiguous()
@@ -128,11 +127,35 @@ def salt_pepper(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.salt_pepper_f32(
             x.data_ptr(), y.data_ptr(), salt.data_ptr(), pepper.data_ptr(),
-            b, length, seed, noise_threshold(ratio), stream,
+            b, length, seed & _MASK64, noise_threshold(ratio), stream,
         )
     check_launch("salt_pepper_f32", err)
     salt_pepper.launches += 1
     return y
+
+
+@_salt_pepper_op.register_fake
+def _salt_pepper_fake(x, seed, salt_gates, pepper_gates, ratio):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def salt_pepper(
+    x: torch.Tensor,
+    seed: int,
+    salt_gates: torch.Tensor,
+    pepper_gates: torch.Tensor,
+    ratio: int,
+) -> torch.Tensor:
+    """x (B, ...) float32, seed a 64-bit int, gates (B,) bool → x with each
+    element of a gated clip set to 255 (salt) / 0 (pepper) with probability
+    ≈ 1/ratio.  CUDA tensors run the kernel; CPU tensors the plain version.
+    `.launches` counts kernel launches."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"salt_pepper: unsupported device {x.device}")
+    if not 0 <= seed < 1 << 64:
+        raise ValueError("salt_pepper: seed must fit 64 unsigned bits")
+    signed = seed - (1 << 64) if seed >= 1 << 63 else seed
+    return _salt_pepper_op(x, signed, salt_gates, pepper_gates, ratio)
 
 
 salt_pepper.launches = 0

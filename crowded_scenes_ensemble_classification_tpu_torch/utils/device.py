@@ -18,3 +18,12 @@ def require_cuda() -> str:
         capture_output=True, text=True, check=True,
     )
     return proc.stdout.strip().splitlines()[0]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another (the tests name "cpu").  With none named and no card, raises."""
+    if device is None:
+        require_cuda()
+        return torch.device("cuda")
+    return torch.device(device)

@@ -82,3 +82,91 @@ def test_noise_kernel_equals_plain(torch, shape):
     torch.cuda.synchronize()
     assert noise.salt_pepper.launches == before + 1
     assert torch.equal(got, noise.salt_pepper_plain(x, 2**50 + 3, salt, pepper, 100))
+
+
+@pytest.fixture
+def no_tf32(torch):
+    """f32 convolutions in full f32 on the card (cuDNN defaults to TF32)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize(
+    "dtype,shape,features,atol",
+    [
+        ("float32", (2, 4, 28, 28, 3), 16, 1e-4),  # summation order
+        ("float32", (1, 6, 28, 36, 3), 16, 1e-4),
+        ("bfloat16", (2, 4, 28, 28, 3), 16, 0.0625),  # bf16 rounding of the output
+        ("bfloat16", (1, 6, 28, 36, 3), 64, 0.0625),
+    ],
+)
+def test_stem_kernel_equals_plain(torch, no_tf32, dtype, shape, features, atol):
+    """The stem kernel against its plain version (TF-SAME pad + conv3d),
+    f32 FMA path and bf16 tensor-core path, output tiles cut at the
+    28- and 36-wide edges; one launch counted per call."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import (
+        stem_conv_7x7x7_s2,
+        stem_conv_7x7x7_s2_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    x = torch.randn(shape, device="cuda", generator=gen).to(dt)
+    w = (torch.randn((features, shape[-1], 7, 7, 7), device="cuda", generator=gen) * 0.05).to(dt)
+    before = stem_conv_7x7x7_s2.launches
+    got = stem_conv_7x7x7_s2(x, w)
+    torch.cuda.synchronize()
+    assert stem_conv_7x7x7_s2.launches == before + 1
+    ref = stem_conv_7x7x7_s2_reference(x, w)
+    assert got.shape == ref.shape and got.dtype == dt
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=atol)
+
+
+def test_stem_kernel_rejects_what_it_does_not_take(torch):
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import stem_conv_7x7x7_s2
+
+    w = torch.zeros(16, 3, 7, 7, 7, device="cuda")
+    with pytest.raises(TypeError):
+        stem_conv_7x7x7_s2(torch.zeros(1, 4, 8, 8, 3, device="cuda", dtype=torch.float16), w.half())
+    with pytest.raises(ValueError):
+        stem_conv_7x7x7_s2(torch.zeros(1, 8, 4, 8, 3, device="cuda").transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        stem_conv_7x7x7_s2(torch.zeros(1, 4, 7, 8, 3, device="cuda"), w)
+    with pytest.raises(ValueError):
+        stem_conv_7x7x7_s2(torch.zeros(1, 4, 8, 8, 3, device="cuda"), w[:, :2])
+    with pytest.raises(ValueError):
+        stem_conv_7x7x7_s2(torch.zeros(1, 4, 8, 8, 3, device="cuda", dtype=torch.bfloat16),
+                           torch.zeros(12, 3, 7, 7, 7, device="cuda", dtype=torch.bfloat16))
+
+
+def test_exported_model_launches_the_kernels(torch, no_tf32, tmp_path):
+    """A tiny I3D with the kernel stem, exported on the card, saved and
+    loaded: the loaded program launches the stem once and the max pool 9
+    times per call, and serves what the eager model computes."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ClipSpec
+    from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.registry import ModelBundle
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import stem_conv_7x7x7_s2
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    model = I3D(11, frames=16, stem_impl="pallas", generator=torch.Generator().manual_seed(0))
+    bundle = ModelBundle("I3D", model.cuda().eval(), ClipSpec(16, 32, 32), 11, False)
+    example = serving_batch_example(bundle, 2)
+    program = export_ensemble([bundle], example, input_scale=1 / 255.0)
+    serve, _ = load_serving_artifact(save_serving_artifact(str(tmp_path / "a.zip"), program, {}))
+    batch = {"rgb": torch.randint(0, 256, example["rgb"].shape, dtype=torch.uint8, device="cuda")}
+    launches = (stem_conv_7x7x7_s2.launches, max_pool_3x3x3_same.launches)
+    out = serve(batch)
+    torch.cuda.synchronize()
+    assert (stem_conv_7x7x7_s2.launches - launches[0], max_pool_3x3x3_same.launches - launches[1]) == (1, 9)
+    with torch.no_grad():
+        eager = torch.softmax(model(batch["rgb"].float() * (1 / 255.0)), dim=-1)
+    torch.testing.assert_close(out["probs"][0], eager, rtol=1e-5, atol=1e-5)

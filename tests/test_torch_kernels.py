@@ -34,6 +34,16 @@ def noise(torch):
     return importlib.import_module(f"{PORT}.ops.kernels.noise")
 
 
+@pytest.fixture(scope="module")
+def stem(torch):
+    return importlib.import_module(f"{PORT}.ops.kernels.stem_conv")
+
+
+@pytest.fixture(scope="module")
+def tcommon(torch):
+    return importlib.import_module(f"{PORT}.models.common")
+
+
 def _pallas_maxpool_interpret(x: jax.Array) -> jax.Array:
     """The Pallas max-pool kernel body in interpret mode, full-C slabs
     (the grid of tests/test_pallas_ops.py:99-126)."""
@@ -105,7 +115,7 @@ def test_tf_same_pools_match_flax(torch, window, strides, shape):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_wrappers_refuse_devices_they_do_not_run(torch, maxpool, noise):
+def test_wrappers_refuse_devices_they_do_not_run(torch, maxpool, noise, stem):
     """No silent fallback: a tensor that is neither CPU nor CUDA raises."""
     x = torch.empty(1, 2, 3, 3, 8, device="meta")
     with pytest.raises(ValueError):
@@ -113,6 +123,67 @@ def test_wrappers_refuse_devices_they_do_not_run(torch, maxpool, noise):
     gates = torch.zeros(1, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError):
         noise.salt_pepper(x, 1, gates, gates, 100)
+    with pytest.raises(ValueError):
+        stem.stem_conv_7x7x7_s2(torch.empty(1, 2, 4, 4, 3, device="meta"),
+                                torch.empty(8, 3, 7, 7, 7, device="meta"))
+
+
+# ----------------------------------------------------------------------
+# the 7³/2 stem
+# ----------------------------------------------------------------------
+
+
+def _stem_inputs(torch, x_shape, features, seed):
+    """numpy-seeded clips and a DHWIO kernel (JAX layout), with the kernel
+    also as the port's OIDHW tensor."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 1.0, x_shape).astype(np.float32)
+    k = rng.normal(0.0, 0.1, (7, 7, 7, x_shape[-1], features)).astype(np.float32)
+    return x, k, torch.from_numpy(np.ascontiguousarray(k.transpose(4, 3, 0, 1, 2)))
+
+
+@pytest.mark.parametrize("assembly", ["concat", "scratch"])
+def test_stem_reference_matches_pallas_v8_interpret(torch, stem, assembly):
+    """Plain stem == the Pallas v8 kernel (interpret) at (2,4,28,28,3) ×
+    (7,7,7,3,16), atol 1e-5: f32 sums of 1029 products in another order
+    (the bound of tests/test_pallas_ops.py:161-176)."""
+    from crowded_scenes_ensemble_classification_tpu.ops.pallas.stem_conv_v8 import (
+        stem_conv_7x7x7_s2_v8,
+    )
+
+    x, k, w = _stem_inputs(torch, (2, 4, 28, 28, 3), 16, seed=5)
+    ref = np.asarray(stem_conv_7x7x7_s2_v8(jnp.asarray(x), jnp.asarray(k), assembly=assembly, interpret=True))
+    got = stem.stem_conv_7x7x7_s2_reference(torch.from_numpy(x), w).numpy()
+    assert got.shape == ref.shape == (2, 2, 14, 14, 16)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_stem_reference_matches_pallas_interpret(torch, stem):
+    """Plain stem == the unpadded Pallas stem kernel (interpret) at
+    (1,8,56,56,3) × (7,7,7,3,16), atol 1e-4 (the bound of
+    tests/test_pallas_ops.py:143-157)."""
+    from crowded_scenes_ensemble_classification_tpu.ops.pallas.stem_conv import stem_conv_7x7x7_s2
+
+    x, k, w = _stem_inputs(torch, (1, 8, 56, 56, 3), 16, seed=6)
+    ref = np.asarray(stem_conv_7x7x7_s2(jnp.asarray(x), jnp.asarray(k), interpret=True))
+    got = stem.stem_conv_7x7x7_s2_reference(torch.from_numpy(x), w).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_stem_wrapper_on_cpu_is_the_plain_version(torch, stem, tcommon):
+    """A CPU tensor takes the plain version exactly and counts no launch;
+    the s2d rewrite the kernel computes agrees to 1e-5 (another summation
+    order), at an H ≠ W shape; odd T, H or W raise."""
+    x, _, w = _stem_inputs(torch, (1, 6, 28, 36, 3), 16, seed=7)
+    x = torch.from_numpy(x)
+    before = stem.stem_conv_7x7x7_s2.launches
+    got = stem.stem_conv_7x7x7_s2(x, w)
+    assert stem.stem_conv_7x7x7_s2.launches == before
+    assert torch.equal(got, stem.stem_conv_7x7x7_s2_reference(x, w))
+    torch.testing.assert_close(tcommon.s2d_stem_conv(x, w), got, rtol=1e-5, atol=1e-5)
+    for odd in ((1, 5, 28, 36, 3), (1, 6, 27, 36, 3), (1, 6, 28, 35, 3)):
+        with pytest.raises(ValueError):
+            stem.stem_conv_7x7x7_s2(torch.zeros(odd), w)
 
 
 # ----------------------------------------------------------------------

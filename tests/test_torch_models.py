@@ -160,6 +160,87 @@ def test_port_prestaged_matches_port_canonical(torch, tcommon, ti3d, i3d_pair):
     torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize(
+    "variant,stem_class",
+    [({"stem_impl": "pallas"}, "PallasStemConvBN"), ({"s2d_stem": True}, "S2DStemConvBN")],
+    ids=["pallas", "s2d"],
+)
+def test_i3d_stem_variants_match_flax(torch, ti3d, i3d_pair, variant, stem_class):
+    """I3D(stem_impl='pallas') (the stem kernel's plain version on the CPU)
+    and I3D(s2d_stem=True) on the same converted variables against the
+    canonical flax forward, rtol = atol = 1e-4 as for the canonical port.
+    The flax stems share ConvBN's tree, so the canonical apply is their
+    reference (JAX's Pallas stem runs only on a TPU outside interpret mode)."""
+    v, apply, _ = i3d_pair
+    port = port_module(ti3d.I3D(11, frames=16, **variant), v)
+    assert type(port.trunk.Conv3d_1a_7x7).__name__ == stem_class
+    x = np.random.default_rng(8).normal(0.0, 50.0, size=(2, 16, 32, 32, 3)).astype(np.float32)
+    ref = np.asarray(apply(v, x))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 16, 16, 3), (1, 6, 15, 16, 3), (1, 6, 16, 17, 3)],
+                         ids=["odd_t", "odd_h", "odd_w"])
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
+def test_kernel_stem_raises_where_the_kernel_does_not_take_the_clips(torch, tcommon, shape, training):
+    """PallasStemConvBN always calls the stem kernel's op: clips with an
+    odd T, H or W raise through its checks, in eval and in train mode,
+    instead of running the canonical conv."""
+    stem = tcommon.PallasStemConvBN(3, 16, generator=torch.Generator().manual_seed(0)).train(training)
+    with torch.no_grad(), pytest.raises(ValueError, match="must be even"):
+        stem(tcommon.to_ncdhw(torch.zeros(shape)))
+
+
+def test_build_model_round_trips_flax_state_dict(torch):
+    """build_model("I3D", device="cpu") builds the canonical 20-frame I3D in
+    eval mode; a converted flax state dict loads strictly and reads back
+    unchanged; bf16 holds conv and dense weights in bf16 (channels_last_3d
+    convs) and BN in f32; predict_proba gives rows summing to 1."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model, predict_proba
+    from crowded_scenes_ensemble_classification_tpu_torch.models.convert import (
+        i3d_state_dict_from_flax,
+    )
+
+    sd = i3d_state_dict_from_flax(random_flax_variables(ji3d.I3D(num_classes=11), (1, 20, 32, 32, 3), seed=30))
+    bundle = build_model("I3D", device="cpu", stem_impl="pallas")
+    assert (bundle.model_type, bundle.num_classes, bundle.two_stream) == ("I3D", 11, False)
+    assert bundle.clip.rgb_shape == (20, 224, 224, 3) and bundle.device.type == "cpu"
+    assert not bundle.module.training
+    dummy = bundle.dummy_batch(2)["rgb"]
+    assert dummy.shape == (2, 20, 224, 224, 3) and dummy.device.type == "cpu" and not dummy.any()
+    bundle.module.load_state_dict(sd, strict=True)
+    back = bundle.module.state_dict()
+    assert back.keys() == sd.keys()
+    assert all(torch.equal(back[k], sd[k]) for k in sd)
+
+    low = build_model("I3D", dtype=torch.bfloat16, device="cpu")
+    low.module.load_state_dict(sd, strict=True)
+    stem = low.module.trunk.Conv3d_1a_7x7
+    assert stem.conv.weight.dtype == low.module.predictions.weight.dtype == torch.bfloat16
+    assert stem.conv.weight.is_contiguous(memory_format=torch.channels_last_3d)
+    assert stem.bn.running_var.dtype == torch.float32
+    x = np.random.default_rng(31).normal(0.0, 1.0, (2, 20, 32, 32, 3)).astype(np.float32)
+    probs = predict_proba(bundle, {"rgb": torch.from_numpy(x)})
+    assert probs.shape == (2, 11)
+    torch.testing.assert_close(probs.sum(-1), torch.ones(2))
+
+
+def test_build_model_runs_on_the_card_unless_told(torch, monkeypatch):
+    """With no device named, build_model needs a card and raises without
+    one; a family not ported yet and an unknown one raise too."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("I3D")
+    with pytest.raises(NotImplementedError):
+        build_model("C3D", device="cpu")
+    with pytest.raises(ValueError):
+        build_model("I3D_XL", device="cpu")
+
+
 def test_port_init_matches_flax_scale(torch, ti3d):
     """The port's own init is flax's lecun-normal: kernel std ≈ 1/sqrt(fan_in)
     (within 5% for the 1024×11 dense and a Mixed_5c conv); BN mean 0,

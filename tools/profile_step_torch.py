@@ -7,6 +7,11 @@ At B=16 (chip_smoke.py's batch) and at B=48 it builds chip_smoke.py's
 configuration (4 full-width random-init I3D members in bf16, 20×224² clips
 from 256² I420 rows), warms up, times 3 calls of `resident_ensemble_step`
 without the profiler, then times and profiles 3 more under torch.profiler.
+Then, at B=16, the same for chip_smoke.py's per-member paths over uint8
+20×224² batches at input scale 1/255: the unshared member forward with the
+stem kernel (members from `build_model(stem_impl='pallas')`), the same
+members in shared-staging form (cuDNN stem), and the loaded serving
+artifact of the unshared forward.
 
 - Busy time is the union of the intervals of every kernel, memcpy and
   memset on the card, so it cannot exceed the wall clock of the profiled
@@ -38,7 +43,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FRAMES, SIZE, STAGING, MEMBERS, CLASSES = 20, 224, 256, 4, 11  # as in chip_smoke.py
 BATCHES, STEPS = (16, 48), 3
-OWN_KERNELS = {"maxpool3x3x3_kernel": "max_pool_3x3x3_same", "salt_pepper_kernel": "salt_pepper"}
+OWN_KERNELS = {"maxpool3x3x3_kernel": "max_pool_3x3x3_same", "salt_pepper_kernel": "salt_pepper",
+               "stem_bf16_kernel": "stem"}
 
 
 def busy_us(intervals) -> float:
@@ -87,12 +93,12 @@ def label_stages(torch):
 
 def stage_of(event, labels) -> str:
     """Innermost label range above `event`, joined with the outermost aten
-    op between the two."""
+    or kernel custom op (`csec::`) between the two."""
     outer_op = None
     while event is not None:
         if event.name in labels:
             return f"{event.name}/{outer_op}" if outer_op else event.name
-        if event.name.startswith("aten::"):
+        if event.name.startswith(("aten::", "csec::")):
             outer_op = event.name
         event = event.cpu_parent
     return f"unlabeled/{outer_op}"
@@ -184,6 +190,76 @@ def profile_batch(batch: int, steps: int, labels, torch, np) -> dict:
     return out
 
 
+def profile_member_paths(batch: int, steps: int, torch, np) -> list:
+    """chip_smoke.py's per-member paths at `batch`, one record each.  Runs
+    before `label_stages`, whose ranges `torch.export` would trace into the
+    served graph, so its device time is charged to aten ops only."""
+    import tempfile
+
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import make_member_forward
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    gen = torch.Generator().manual_seed(6)
+    bundles = [build_model("I3D", dtype=torch.bfloat16, generator=gen, stem_impl="pallas")
+               for _ in range(MEMBERS)]
+    twins = [build_model("I3D", dtype=torch.bfloat16, stem_prestaged=True) for _ in bundles]
+    for twin, b in zip(twins, bundles):
+        twin.module.load_state_dict(b.module.state_dict())
+    clips = np.random.default_rng(7).integers(0, 256, (steps, batch, FRAMES, SIZE, SIZE, 3), dtype=np.uint8)
+    batches = [{"rgb": torch.from_numpy(c).cuda()} for c in clips]
+    scale = 1 / 255.0
+    program = export_ensemble(bundles, serving_batch_example(bundles[0], batch), input_scale=scale)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_serving_artifact(os.path.join(tmp, "ensemble.zip"), program, {})
+        serve, _ = load_serving_artifact(path)
+    forwards = {
+        "member_unshared_kernel_stem": make_member_forward(
+            [b.module for b in bundles], (SIZE, SIZE), input_scale=scale),
+        "member_shared_cudnn_stem": make_member_forward(
+            [t.module for t in twins], (SIZE, SIZE), share_stem_staging=True, input_scale=scale),
+        "served_unshared_kernel_stem": serve,
+    }
+    out = []
+    for name, fn in forwards.items():
+        def run() -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches:
+                fn(b)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        run()  # warm-up
+        plain_s = run()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            wall_s = run()
+        r = {"path": name, "batch": batch, "steps": steps,
+             "wall_ms_per_step_unprofiled": plain_s * 1e3 / steps,
+             "clips_per_s_unprofiled": steps * batch / plain_s}
+        r.update(breakdown(prof.events(), set(), wall_s, steps))
+        r["busy_share_of_unprofiled_wall"] = r["busy_ms_per_step"] / r["wall_ms_per_step_unprofiled"]
+        out.append(r)
+    del bundles, twins, batches, program, serve, forwards
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_record(title: str, r: dict) -> None:
+    print(f"{title}: {r['clips_per_s_unprofiled']:.2f} clips/s unprofiled "
+          f"({r['wall_ms_per_step_unprofiled']:.3f} ms/step); profiled wall {r['wall_ms_per_step']:.3f} "
+          f"ms/step, device busy {r['busy_ms_per_step']:.3f} ms/step, idle share {r['idle_share']:.4f}")
+    for name, s in r["stages"].items():
+        if s["share_of_busy"] >= 1e-3:
+            print(f"  {name:50s} {s['ms_per_step']:9.3f} ms/step  {100 * s['share_of_busy']:6.2f} %")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/profile_step_torch.json")
@@ -196,18 +272,18 @@ def main() -> int:
 
     smi = require_cuda()
     print(smi)
+    member_records = profile_member_paths(BATCHES[0], STEPS, torch, np)
     labels = label_stages(torch)
     results = []
     for batch in BATCHES:
         r = profile_batch(batch, STEPS, labels, torch, np)
         r["device"] = smi
         results.append(r)
-        print(f"B={batch}: {r['clips_per_s_unprofiled']:.2f} clips/s unprofiled "
-              f"({r['wall_ms_per_step_unprofiled']:.3f} ms/step); profiled wall {r['wall_ms_per_step']:.3f} "
-              f"ms/step, device busy {r['busy_ms_per_step']:.3f} ms/step, idle share {r['idle_share']:.4f}")
-        for name, s in r["stages"].items():
-            if s["share_of_busy"] >= 1e-3:
-                print(f"  {name:50s} {s['ms_per_step']:9.3f} ms/step  {100 * s['share_of_busy']:6.2f} %")
+        print_record(f"B={batch}", r)
+    for r in member_records:
+        r["device"] = smi
+        results.append(r)
+        print_record(f"{r['path']} B={r['batch']}", r)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
