@@ -22,9 +22,12 @@ Phases, each of which raises on failure (exit code 1):
 7. stem kernel == its plain version: f32 (TF32 off) at two small shapes,
    atol 1e-4 (summation order); bf16 at (16,20,224,224,3) × F=64, x ~ N(0,1),
    w ~ N(0,0.05), atol 0.0625 (the JAX on-TPU bound,
-   tests/test_pallas_ops.py:189-197); timed beside the library route on
-   the same inputs (s2d staging + cuDNN, `library_ms`), s2d staging alone,
-   and cuDNN's conv alone on the padded input, canonical and prestaged forms;
+   tests/test_pallas_ops.py:189-197), and at ragged shapes and F values
+   (`STEM_BF16_CASES`); timed beside the library route on the same inputs
+   (s2d staging + cuDNN, `library_ms`), s2d staging alone, the bf16 kernel
+   alone on inputs already staged and packed (with its grid and shared
+   memory), and cuDNN's conv alone on the padded input, canonical and
+   prestaged forms;
 8. the per-member path: 4 full-width I3D members from
    `build_model("I3D", stem_impl="pallas")` on the default device (the
    card), `make_member_forward` unshared over 3 batches of 16 uint8
@@ -77,6 +80,11 @@ POOL_SHAPES = (
 ODD_POOL_SHAPES = [(2, 1, 5, 5, 64), (2, 3, 5, 7, 3), (2, 3, 5, 7, 130)]
 NOISE_SHAPE = (BATCH, FRAMES, SIZE, SIZE, 3)
 STEM_F32_CASES = [((2, 4, 28, 28, 3), 16), ((1, 6, 28, 36, 3), 16)]
+# bf16 shapes the persistent tiler must mask: H/2 and W/2 not multiples of
+# 16, T=2 (every tile skips taps at both ends), F-parts of 8, 32, 40 and 64
+# channels, and C = 2 and 1 (the 4C = 8 and 4 kernels).
+STEM_BF16_CASES = [((2, 2, 40, 52, 3), f) for f in (8, 32, 64)] + [
+    ((1, 6, 70, 46, 3), 64), ((2, 4, 36, 38, 3), 40), ((1, 4, 34, 30, 2), 64), ((1, 2, 30, 28, 1), 16)]
 STEM_FEATURES = 64
 INPUT_SCALE = 1 / 255.0  # the per-member path's pixel scale: unsaturated softmax
 BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12  # H100 SXM data sheet, per second
@@ -204,10 +212,14 @@ def check_stem(torch, dev) -> dict:
 
     from crowded_scenes_ensemble_classification_tpu_torch.models.common import s2d_stem_conv, to_ncdhw
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import (
+        pack_stem_weights,
         s2d_stem_kernel,
         s2d_stem_stage,
+        s2d_stem_stage_even,
+        stem_bf16_launch_config,
         stem_conv_7x7x7_s2,
         stem_conv_7x7x7_s2_reference,
+        stem_conv_s2d_bf16,
     )
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -220,6 +232,15 @@ def check_stem(torch, dev) -> dict:
         print(f"stem f32 {shape} x F={f}: max |kernel - plain| {err32:.3g}")
         check(got.shape == ref.shape and err32 <= 1e-4, f"stem kernel != plain in f32 at {shape}")
 
+    for shape, f in STEM_BF16_CASES:
+        x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        w = (torch.randn((f, shape[-1], 7, 7, 7), device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+        got, ref = stem_conv_7x7x7_s2(x, w), stem_conv_7x7x7_s2_reference(x, w)
+        torch.cuda.synchronize()
+        e = (got.float() - ref.float()).abs().max().item()
+        print(f"stem bf16 {shape} x F={f}: max |kernel - plain| {e:.4g}")
+        check(got.shape == ref.shape and e <= 0.0625, f"stem kernel != plain in bf16 at {shape} x F={f}: {e}")
+
     x = torch.randn(NOISE_SHAPE, device=dev, generator=gen).to(torch.bfloat16)
     w = (torch.randn((STEM_FEATURES, 3, 7, 7, 7), device=dev, generator=gen) * 0.05).to(torch.bfloat16)
     got, ref = stem_conv_7x7x7_s2(x, w), stem_conv_7x7x7_s2_reference(x, w)
@@ -228,6 +249,9 @@ def check_stem(torch, dev) -> dict:
     print(f"stem bf16 {NOISE_SHAPE} x F={STEM_FEATURES}: max |kernel - plain| {err:.4g}, "
           f"max |plain| {ref.float().abs().max().item():.3g}")
     check(err <= 0.0625, f"stem kernel != plain in bf16: {err}")
+    xs_even, wp = s2d_stem_stage_even(x), pack_stem_weights(w)
+    alone = lambda: stem_conv_s2d_bf16(xs_even, wp, SIZE, STEM_FEATURES)  # noqa: E731
+    check(torch.equal(alone(), got), "the bf16 kernel alone differs from its wrapper")
 
     # The library route on the kernel's own inputs (x, w) → NTHWC y: s2d
     # staging, temporal pad and cuDNN on the prestaged form (`s2d_stem_conv`,
@@ -248,18 +272,24 @@ def check_stem(torch, dev) -> dict:
     check((canonical().permute(0, 2, 3, 4, 1).float() - ref.float()).abs().max().item() <= 0.0625,
           "cuDNN's canonical stem disagrees with the plain version")
     ms = cuda_ms(lambda: stem_conv_7x7x7_s2(x, w))
+    kernel_ms = cuda_ms(alone)
     plain_ms = cuda_ms(lambda: stem_conv_7x7x7_s2_reference(x, w))
     staging_ms = cuda_ms(lambda: s2d_stem_stage(x))
+    even_ms = cuda_ms(lambda: s2d_stem_stage_even(x))
+    grid, smem = stem_bf16_launch_config(dev, 3, STEM_FEATURES)
     library_ms = cuda_ms(library)
     canonical_ms, prestaged_ms = cuda_ms(canonical), cuda_ms(prestaged)
     n, t, h, w_, c = NOISE_SHAPE
     flops = 2 * (n * t * h * w_ // 8) * STEM_FEATURES * 343 * c
     bytes_moved = (x.numel() + w.numel() + got.numel()) * 2
     bound_ms, bound_by = bound(bytes_moved, flops, BF16_FLOPS)
-    print(f"stem bf16 B={BATCH}: kernel wrapper {ms:.4f} ms (s2d staging alone {staging_ms:.4f} ms; "
-          f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library route (s2d staging + cuDNN) "
-          f"{library_ms:.4f} ms; cuDNN alone: canonical on padded input {canonical_ms:.4f} ms, prestaged "
-          f"form {prestaged_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"stem bf16 B={BATCH}: kernel wrapper {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), of which "
+          f"the kernel alone {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s of real taps; grid "
+          f"{grid} blocks, {smem} B dynamic shared memory) and the even-width s2d staging {even_ms:.4f} ms; "
+          f"plain {plain_ms:.4f} ms, library route (s2d staging + cuDNN) {library_ms:.4f} ms "
+          f"(s2d staging alone {staging_ms:.4f} ms); cuDNN alone: canonical on padded input "
+          f"{canonical_ms:.4f} ms, prestaged form {prestaged_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}); wrapper below library route: {ms < library_ms}")
     return {"name": "stem_conv_7x7x7_s2", "route": "cuda", "source": f"{PORT}/csrc/stem_conv7x7x7s2.cu",
             "replaces": "crowded_scenes_ensemble_classification_tpu/ops/pallas/stem_conv_v8.py:140 and "
                         "crowded_scenes_ensemble_classification_tpu/ops/pallas/stem_conv.py:81",

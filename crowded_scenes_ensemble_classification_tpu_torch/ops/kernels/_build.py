@@ -38,7 +38,12 @@ SIGNATURES = {
         [_P, _P, _P, _P, _I64, _I64, ctypes.c_uint64, ctypes.c_uint32, _P],
         ctypes.c_int,
     ),
-    "stem_conv_s2d": ([_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_int, _P], ctypes.c_int),
+    "stem_conv_s2d_f32": ([_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P], ctypes.c_int),
+    "stem_conv_s2d_bf16": ([_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P], ctypes.c_int),
+    "stem_conv_s2d_bf16_config": (
+        [_I64, _I64, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
+        ctypes.c_int,
+    ),
 }
 
 

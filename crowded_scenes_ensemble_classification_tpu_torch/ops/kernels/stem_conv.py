@@ -6,21 +6,28 @@ Counterpart of the two Pallas TPU kernels that compute this function:
 (`stem_conv_7x7x7_s2`, line 81).  The kernel is `csrc/stem_conv7x7x7s2.cu`,
 behind the custom op `csec::stem_conv_7x7x7_s2`.
 
-The kernel reads the spatial space-to-depth staging of the clips
-(`s2d_stem_stage`) and the weights rearranged to match (`s2d_stem_kernel`);
-both live here, beside the kernel that reads their layout, and
-`models/common.py` uses them for the prestaged stem too.
+The kernel reads the spatial space-to-depth staging of the clips and the
+weights rearranged to match.  `s2d_stem_stage` and `s2d_stem_kernel` give
+them as the s2d rewrite defines them (`models/common.py` uses both for the
+prestaged stem, and the f32 kernel reads them); the bf16 kernel reads
+`s2d_stem_stage_even` (the staged width padded to even, so every row is a
+whole number of 16-byte copies) and `pack_stem_weights` (per 32-channel
+part, the image of its shared memory).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, load_library
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CHANNELS = 4  # input channels the kernel's shared-memory slab is sized for
+MAX_CHANNELS = 4  # input channels of the f32 kernel (4C = 16 s2d channels)
+BF16_MAX_CHANNELS = 3  # the bf16 kernel's weights and two slabs fit 227 KB up to 4C = 12
+PART = 32  # output channels of one bf16 block (an F-part)
+WEIGHT_ROW_PAD = 8  # bf16 after each packed weight row: the kernel's bank spread
 
 
 def s2d_stem_stage(x: torch.Tensor) -> torch.Tensor:
@@ -51,6 +58,36 @@ def s2d_stem_kernel(weight: torch.Tensor) -> torch.Tensor:
     return k.reshape(kt, 4, 4, 4 * c, f).permute(4, 3, 0, 1, 2)
 
 
+def s2d_stem_stage_even(x: torch.Tensor) -> torch.Tensor:
+    """`s2d_stem_stage` with its width W/2+3 rounded up to even by zero
+    columns on the right: (N, T, H/2+3, W2p, 4C), W2p even.  A staged row
+    is then 8C·W2p bytes in bf16, a multiple of 16, so the bf16 kernel
+    copies every row in 16-byte chunks.  The extra column feeds no
+    output."""
+    n, t, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"s2d stem needs even spatial dims, got {h}x{w}")
+    extra = 2 * ((w // 2 + 3) % 2)
+    xp = F.pad(x, (0, 0, 2, 4 + extra, 2, 4))
+    hp, wp = h + 6, w + 6 + extra
+    xs = xp.reshape(n, t, hp // 2, 2, wp // 2, 2, c)
+    return xs.permute(0, 1, 2, 4, 3, 5, 6).reshape(n, t, hp // 2, wp // 2, 4 * c)
+
+
+def pack_stem_weights(weight: torch.Tensor) -> torch.Tensor:
+    """Canonical (F, C, 7, 7, 7) → (⌈F/32⌉, 7, 32, 16·4C + 8), contiguous:
+    for each part of 32 output channels and each temporal tap dt, the rows
+    f of `s2d_stem_kernel` with K in the kernel's (dy, dx, ch) order, then
+    8 zeros (the bank spread of the kernel's B loads).  Channels past F in
+    the last part are zero rows.  One part is the image of a bf16 block's
+    resident weights."""
+    f = weight.shape[0]
+    wk = s2d_stem_kernel(weight).permute(2, 0, 3, 4, 1).reshape(7, f, -1)  # (dt, f, (dy, dx, ch))
+    parts = -(-f // PART)
+    wk = F.pad(wk, (0, WEIGHT_ROW_PAD, 0, parts * PART - f))
+    return wk.reshape(7, parts, PART, -1).permute(1, 0, 2, 3).contiguous()
+
+
 def _check_shapes(x: torch.Tensor, weight: torch.Tensor) -> None:
     if x.dim() != 5:
         raise ValueError(f"stem_conv_7x7x7_s2: expected (N,T,H,W,C), got {tuple(x.shape)}")
@@ -77,29 +114,64 @@ def _stem_op(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return stem_conv_7x7x7_s2_reference(x, weight)
 
 
+def stem_bf16_launch_config(device: torch.device, channels: int, features: int) -> tuple[int, int]:
+    """(grid, dynamic shared-memory bytes) of the bf16 kernel on `device`
+    for C = `channels` and F = `features`: one block per SM, split evenly
+    over the F-parts.  Raises where the kernel does not take them."""
+    grid, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = load_library().stem_conv_s2d_bf16_config(4 * channels, features, ctypes.byref(grid),
+                                                       ctypes.byref(smem))
+    check_launch("stem_conv_s2d_bf16_config", err)
+    return grid.value, smem.value
+
+
+def stem_conv_s2d_bf16(xs: torch.Tensor, wp: torch.Tensor, width: int, features: int) -> torch.Tensor:
+    """The bf16 kernel on CUDA tensors already staged and packed: xs =
+    `s2d_stem_stage_even(x)`, wp = `pack_stem_weights(weight)` for clips of
+    width `width` and F = `features` → NTHWC (N, T/2, H/2, W/2, F).
+    Counts the launch in `stem_conv_7x7x7_s2.launches`."""
+    if xs.dtype != torch.bfloat16 or wp.dtype != torch.bfloat16 or not xs.is_cuda or wp.device != xs.device:
+        raise TypeError("stem_conv_s2d_bf16: xs and wp must be bf16 on one CUDA device")
+    if not (xs.is_contiguous() and wp.is_contiguous()):
+        raise ValueError("stem_conv_s2d_bf16: xs and wp must be contiguous")
+    n, t, h2, w2p, c4 = xs.shape
+    if wp.shape != (-(-features // PART), 7, PART, 16 * c4 + WEIGHT_ROW_PAD):
+        raise ValueError(f"stem_conv_s2d_bf16: wp {tuple(wp.shape)} is not packed for 4C={c4}, F={features}")
+    y = torch.empty((n, t // 2, h2 - 3, width // 2, features), dtype=xs.dtype, device=xs.device)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        err = load_library().stem_conv_s2d_bf16(
+            xs.data_ptr(), wp.data_ptr(), y.data_ptr(), n, t, h2, w2p, c4, width // 2, features, stream
+        )
+    check_launch("stem_conv_s2d_bf16", err)
+    stem_conv_7x7x7_s2.launches += 1
+    return y
+
+
 @_stem_op.register_kernel("cuda")
 def _stem_cuda(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     _check_shapes(x, weight)
-    if x.dtype not in _DTYPE_CODES or weight.dtype != x.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16) or weight.dtype != x.dtype:
         raise TypeError(f"stem_conv_7x7x7_s2: unsupported dtypes {x.dtype}, {weight.dtype}")
     if not x.is_contiguous():
         raise ValueError("stem_conv_7x7x7_s2: input must be contiguous NTHWC")
     n, t, h, w, c = x.shape
     f = weight.shape[0]
+    if x.dtype == torch.bfloat16:
+        if c > BF16_MAX_CHANNELS or f % 8 or f > 2 * PART:
+            raise ValueError(f"stem_conv_7x7x7_s2: bf16 needs C <= {BF16_MAX_CHANNELS}, F % 8 == 0 and "
+                             f"F <= {2 * PART}, got C={c}, F={f}")
+        return stem_conv_s2d_bf16(s2d_stem_stage_even(x), pack_stem_weights(weight), w, f)
     if c > MAX_CHANNELS:
         raise ValueError(f"stem_conv_7x7x7_s2: at most {MAX_CHANNELS} input channels, got {c}")
-    if x.dtype == torch.bfloat16 and (f % 8 or f > 64):
-        raise ValueError(f"stem_conv_7x7x7_s2: bf16 needs F % 8 == 0 and F <= 64, got {f}")
     xs = s2d_stem_stage(x).contiguous()
     wk = s2d_stem_kernel(weight).permute(2, 0, 3, 4, 1).contiguous()  # (7, F, 4, 4, 4C)
     y = torch.empty((n, t // 2, h // 2, w // 2, f), dtype=x.dtype, device=x.device)
-    lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.stem_conv_s2d(
-            xs.data_ptr(), wk.data_ptr(), y.data_ptr(), *xs.shape, f, _DTYPE_CODES[x.dtype], stream
-        )
-    check_launch("stem_conv_s2d", err)
+        err = load_library().stem_conv_s2d_f32(xs.data_ptr(), wk.data_ptr(), y.data_ptr(), *xs.shape, f, stream)
+    check_launch("stem_conv_s2d_f32", err)
     stem_conv_7x7x7_s2.launches += 1
     return y
 
@@ -113,9 +185,10 @@ def _stem_fake(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 def stem_conv_7x7x7_s2(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The 7³ stride-(2,2,2) TF-SAME conv, NTHWC (N, T, H, W, C) × canonical
     (F, C, 7, 7, 7) → NTHWC (N, T/2, H/2, W/2, F); T, H, W even.  No
-    BatchNorm, no ReLU.  CUDA tensors (f32 or bf16, C ≤ 4; bf16 needs
-    F % 8 == 0 and F ≤ 64) run the kernel on `s2d_stem_stage(x)`; CPU
-    tensors run the plain version.  `.launches` counts kernel launches."""
+    BatchNorm, no ReLU.  CUDA tensors run a kernel: f32 (C ≤ 4) on
+    `s2d_stem_stage(x)`, bf16 (C ≤ 3, F % 8 == 0, F ≤ 64) on
+    `s2d_stem_stage_even(x)` and `pack_stem_weights(weight)`; CPU tensors
+    run the plain version.  `.launches` counts kernel launches."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stem_conv_7x7x7_s2: unsupported device {x.device}")
     return _stem_op(x, weight)

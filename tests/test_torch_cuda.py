@@ -100,12 +100,21 @@ def no_tf32(torch):
         ("float32", (1, 6, 28, 36, 3), 16, 1e-4),
         ("bfloat16", (2, 4, 28, 28, 3), 16, 0.0625),  # bf16 rounding of the output
         ("bfloat16", (1, 6, 28, 36, 3), 64, 0.0625),
+        # ragged for the persistent bf16 tiler: H/2, W/2 not multiples of
+        # 16, T=2 (taps skipped at both ends), F-parts of 8, 32, 40, 64
+        ("bfloat16", (2, 2, 40, 52, 3), 8, 0.0625),
+        ("bfloat16", (2, 2, 40, 52, 3), 32, 0.0625),
+        ("bfloat16", (2, 2, 40, 52, 3), 64, 0.0625),
+        ("bfloat16", (1, 6, 70, 46, 3), 64, 0.0625),
+        ("bfloat16", (2, 4, 36, 38, 3), 40, 0.0625),
+        ("bfloat16", (1, 4, 34, 30, 2), 64, 0.0625),  # C=2: the 4C = 8 kernel
+        ("bfloat16", (1, 2, 30, 28, 1), 16, 0.0625),  # C=1: the 4C = 4 kernel
     ],
 )
 def test_stem_kernel_equals_plain(torch, no_tf32, dtype, shape, features, atol):
     """The stem kernel against its plain version (TF-SAME pad + conv3d),
-    f32 FMA path and bf16 tensor-core path, output tiles cut at the
-    28- and 36-wide edges; one launch counted per call."""
+    f32 FMA path and bf16 tensor-core path, output tiles cut at ragged
+    edges; one launch counted per call."""
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import (
         stem_conv_7x7x7_s2,
         stem_conv_7x7x7_s2_reference,
@@ -139,6 +148,22 @@ def test_stem_kernel_rejects_what_it_does_not_take(torch):
     with pytest.raises(ValueError):
         stem_conv_7x7x7_s2(torch.zeros(1, 4, 8, 8, 3, device="cuda", dtype=torch.bfloat16),
                            torch.zeros(12, 3, 7, 7, 7, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # 4C = 16: the weights and two slabs exceed 227 KB
+        stem_conv_7x7x7_s2(torch.zeros(1, 4, 8, 8, 4, device="cuda", dtype=torch.bfloat16),
+                           torch.zeros(16, 4, 7, 7, 7, device="cuda", dtype=torch.bfloat16))
+
+
+def test_stem_bf16_launch_config(torch):
+    """One block per SM split evenly over the F-parts; RGB takes 89,600 B of
+    resident weights plus two 61,712 B slabs; a request above the device's
+    limit (4C = 16) raises rather than launching nothing."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import stem_bf16_launch_config
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert stem_bf16_launch_config(torch.device("cuda"), 3, 64) == (sms // 2 * 2, 89_600 + 2 * 61_712)
+    assert stem_bf16_launch_config(torch.device("cuda"), 3, 32)[0] == sms
+    with pytest.raises(RuntimeError):
+        stem_bf16_launch_config(torch.device("cuda"), 4, 64)
 
 
 def test_exported_model_launches_the_kernels(torch, no_tf32, tmp_path):

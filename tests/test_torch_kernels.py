@@ -186,6 +186,71 @@ def test_stem_wrapper_on_cpu_is_the_plain_version(torch, stem, tcommon):
             stem.stem_conv_7x7x7_s2(torch.zeros(odd), w)
 
 
+def _emulate_bf16_stem_kernel(torch, xs, wp, width, features):
+    """The bf16 kernel's GEMM in plain f32 torch over exactly its inputs:
+    per F-part and temporal tap inside [0, T), the A row of output (ho, wo)
+    is, for dy = 0..3, the run of 4·C4 elements of staged row ho + dy that
+    starts at element wo·C4 (so K is in (dy, dx, ch) order), times the
+    part's packed weight rows without their pad.  It sums in float64, so
+    the comparisons below measure the f32 rounding of the reference and of
+    the Pallas kernel alone."""
+    xs, wp = xs.double(), wp.double()
+    n, t, h2, w2p, c4 = xs.shape
+    parts, kd = wp.shape[0], 16 * c4
+    to_, ho, wo = t // 2, h2 - 3, width // 2
+    runs = xs.reshape(n, t, h2, w2p * c4).unfold(-1, 4 * c4, c4)[..., :wo, :]  # (n, t, h2, wo, 4·C4)
+    y = torch.zeros(n, to_, ho, wo, parts * 32, dtype=torch.float64)
+    for part in range(parts):
+        for dt in range(7):
+            w_dt = wp[part, dt, :, :kd]
+            for o in range(to_):
+                t_in = 2 * o - 2 + dt
+                if 0 <= t_in < t:
+                    a = torch.cat([runs[:, t_in, dy : dy + ho] for dy in range(4)], dim=-1)
+                    y[:, o, ..., part * 32 : (part + 1) * 32] += a @ w_dt.T
+    return y[..., :features].float()
+
+
+@pytest.mark.parametrize(
+    "x_shape,features",
+    [
+        ((1, 2, 28, 28, 3), 8),  # T=2: taps skipped at both ends; W/2 even, so W2 17 is padded to 18
+        ((2, 4, 28, 30, 3), 40),  # W/2 odd: W2 18 already even; a second part of 8 channels
+        ((1, 6, 28, 26, 3), 64),  # W/2 odd; two full parts
+        ((1, 2, 56, 36, 2), 32),  # C=2 (4C = 8, the flow stream's width); one part
+    ],
+)
+def test_bf16_kernel_layout_matches_reference_and_pallas(torch, stem, x_shape, features):
+    """The staging and weight packing the bf16 kernel reads, run through a
+    plain emulation of its GEMM, equal the plain stem and the Pallas v8
+    kernel (interpret) to 1e-5 on f32 inputs.  The emulation and the plain
+    stem sum in float64 (CPU conv3d's own f32 rounding reaches 1.3e-5 at
+    F=64); the Pallas kernel sums in f32.  Staged rows are whole 16-byte chunks in bf16; packed
+    rows carry zero pads and zero channels past F."""
+    from crowded_scenes_ensemble_classification_tpu.ops.pallas.stem_conv_v8 import (
+        stem_conv_7x7x7_s2_v8,
+    )
+
+    x, k, w = _stem_inputs(torch, x_shape, features, seed=8)
+    n, t, h, width, c = x_shape
+    xs = stem.s2d_stem_stage_even(torch.from_numpy(x))
+    wp = stem.pack_stem_weights(w)
+    w2p = xs.shape[3]
+    assert xs.shape == (n, t, h // 2 + 3, w2p, 4 * c) and w2p % 2 == 0 and w2p - 3 - width // 2 in (0, 1)
+    assert (w2p * 4 * c * 2) % 16 == 0
+    assert torch.equal(xs[:, :, :, : width // 2 + 3], stem.s2d_stem_stage(torch.from_numpy(x)))
+    parts = -(-features // 32)
+    assert wp.shape == (parts, 7, 32, 64 * c + stem.WEIGHT_ROW_PAD) and wp.is_contiguous()
+    assert not wp[..., 64 * c :].any()
+    assert not wp.permute(1, 0, 2, 3).reshape(7, parts * 32, -1)[:, features:].any()
+    got = _emulate_bf16_stem_kernel(torch, xs, wp, width, features).numpy()
+    ref = stem.stem_conv_7x7x7_s2_reference(torch.from_numpy(x).double(), w.double()).float().numpy()
+    assert got.shape == ref.shape == (n, t // 2, h // 2, width // 2, features)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    pallas = np.asarray(stem_conv_7x7x7_s2_v8(jnp.asarray(x), jnp.asarray(k), interpret=True))
+    np.testing.assert_allclose(got, pallas, atol=1e-5)
+
+
 # ----------------------------------------------------------------------
 # salt/pepper
 # ----------------------------------------------------------------------
