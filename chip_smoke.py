@@ -7,8 +7,12 @@ Phases, each of which raises on failure (exit code 1):
 
 1. require a CUDA card; print its `nvidia-smi` name and power limit;
 2. build the hand-written kernels from `csrc/` (timed);
-3. max-pool kernel == its plain version (`torch.equal`) at every shape the
-   main path gives it, bf16 and f32, plus T=1, C=3 and C=130; timed;
+3. max-pool kernel == its plain version and F.max_pool3d (`torch.equal`) at
+   every shape the main path gives it, bf16 and f32, plus the tiler's
+   ragged cases (`ODD_POOL_SHAPES`) and a misaligned input; timed at the
+   main path's shapes warm (the same input again and again, as the main
+   path finds its block input in L2) and cold (a rotation of inputs over
+   twice the L2);
 4. salt/pepper kernel: gates off is identity, only gated clips change and
    only to 0/255, a length not divisible by 4 works, density in
    (0.005, 0.016), and kernel == plain version on the same Philox seed; timed;
@@ -49,6 +53,7 @@ Needs one card and no network.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -77,7 +82,10 @@ POOL_SHAPES = (
     + [(BATCH, _half(_T3), _half(_S3), _half(_S3), c) for c in (480, 512, 512, 512, 528)]
     + [(BATCH, _half(_half(_T3)), _half(_half(_S3)), _half(_half(_S3)), c) for c in (832, 832)]
 )
-ODD_POOL_SHAPES = [(2, 1, 5, 5, 64), (2, 3, 5, 7, 3), (2, 3, 5, 7, 130)]
+# T=1 and 2, C not a multiple of the 16-byte unit (3, 130), H not a multiple
+# of the H-tile (30, 5), a partial last C-block (528), H and W under a tile
+ODD_POOL_SHAPES = [(2, 1, 5, 5, 64), (2, 3, 5, 7, 3), (2, 3, 5, 7, 130), (2, 4, 30, 28, 64),
+                   (2, 5, 14, 14, 528), (1, 2, 6, 6, 16)]
 NOISE_SHAPE = (BATCH, FRAMES, SIZE, SIZE, 3)
 STEM_F32_CASES = [((2, 4, 28, 28, 3), 16), ((1, 6, 28, 36, 3), 16)]
 # bf16 shapes the persistent tiler must mask: H/2 and W/2 not multiples of
@@ -88,6 +96,7 @@ STEM_BF16_CASES = [((2, 2, 40, 52, 3), f) for f in (8, 32, 64)] + [
 STEM_FEATURES = 64
 INPUT_SCALE = 1 / 255.0  # the per-member path's pixel scale: unsaturated softmax
 BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12  # H100 SXM data sheet, per second
+L2_BYTES = 50e6  # H100 SXM data sheet
 
 
 def bound(bytes_moved: float, ops: float, rate: float) -> tuple[float, str]:
@@ -102,59 +111,112 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call, by CUDA events around `iters` calls."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, queue_ahead: bool = True) -> float:
+    """Mean device milliseconds per call, by CUDA events around `iters` calls.
+
+    With `queue_ahead` the device first spins for twice the host's time to
+    queue the calls, so that every call is queued before the first one
+    runs: the events then time the device's work back to back, not the
+    host's launch overhead (which exceeds the device time of a small
+    kernel).  It spins longer if the host fell behind, and fails if it
+    still does.  Without it (for a function of more launches than the
+    device's queue holds) the events time the calls as the host issues them."""
     import torch
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    host_s = (time.perf_counter() - t0) / warmup * iters  # the host's time to queue `iters` calls
+    for spin in (2, 8) if queue_ahead else (0,):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(int((spin * host_s + 1e-3) * 2e9))  # cycles, at most 2 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()  # the device has not reached `start`: every call was queued in time
+        torch.cuda.synchronize()
+        if ahead or not queue_ahead:
+            return start.elapsed_time(end) / iters
+    raise RuntimeError("chip_smoke check failed: cuda_ms: the host fell behind the device's spin")
+
+
+def cold_inputs(x) -> list:
+    """Distinct copies of x whose total exceeds twice the card's 50 MB L2, so
+    that a rotation over them finds each input out of L2."""
+    n = max(2, math.ceil(2 * L2_BYTES / (x.numel() * x.element_size())) + 1)
+    return [x] + [x.clone() for _ in range(n - 1)]
+
+
+def cuda_ms_cold(fn, inputs, iters: int = 20) -> float:
+    """Mean device milliseconds per call of fn(x), x rotating over `inputs`."""
+    rotation = itertools.cycle(inputs)
+    return cuda_ms(lambda: fn(next(rotation)), iters=max(iters, len(inputs)))
 
 
 def check_maxpool(torch, dev) -> dict:
+    import torch.nn.functional as F
+
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
         max_pool_3x3x3_reference,
         max_pool_3x3x3_same,
+        max_pool_tiling,
     )
+
+    def library(x):  # F.max_pool3d on the channels_last_3d NCDHW view
+        return F.max_pool3d(x.permute(0, 4, 1, 2, 3), 3, 1, padding=1)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     err = 0.0
-    for shape in POOL_SHAPES + ODD_POOL_SHAPES:
+    cases = [(s, 0) for s in POOL_SHAPES + ODD_POOL_SHAPES] + [((2, 3, 9, 7, 64), 1)]  # (shape, offset)
+    for shape, offset in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            # an offset of one element starts x 2 or 4 bytes off a 16-byte boundary
+            flat = torch.randn(offset + math.prod(shape), device=dev, generator=gen).to(dtype)
+            x = flat[offset:].view(shape)
             got, ref = max_pool_3x3x3_same(x), max_pool_3x3x3_reference(x)
             torch.cuda.synchronize()
             err = max(err, (got.float() - ref.float()).abs().max().item())
-            check(torch.equal(got, ref), f"max-pool kernel != plain at {shape} {dtype}")
-    ms = plain_ms = library_ms = bytes_moved = ops = 0.0
+            what = f"{shape} {dtype}{' misaligned' if offset else ''}"
+            check(torch.equal(got, ref), f"max-pool kernel != plain at {what}")
+            check(torch.equal(library(x).permute(0, 2, 3, 4, 1), got), f"F.max_pool3d(padding=1) != the kernel at {what}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tot = dict.fromkeys(("warm", "cold", "plain", "lib_warm", "lib_cold", "bytes", "ops"), 0.0)
     for shape in POOL_SHAPES:
         x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
-        xc = x.permute(0, 4, 1, 2, 3)  # channels_last_3d NCDHW view
-        library = lambda: torch.nn.functional.max_pool3d(xc, 3, 1, padding=1)  # noqa: E731
-        check(torch.equal(library().permute(0, 2, 3, 4, 1), max_pool_3x3x3_same(x)),
-              f"F.max_pool3d(padding=1) != the kernel at {shape}")
-        k, p = cuda_ms(lambda: max_pool_3x3x3_same(x)), cuda_ms(lambda: max_pool_3x3x3_reference(x))
-        lib = cuda_ms(library)
-        mb = 2 * x.numel() * x.element_size() / 1e6
-        print(f"maxpool bf16 {shape}: kernel {k:.4f} ms ({mb / k:.1f} GB/s of 1 read + 1 write), "
-              f"plain {p:.4f} ms, F.max_pool3d {lib:.4f} ms")
-        ms, plain_ms, library_ms = ms + k, plain_ms + p, library_ms + lib
-        bytes_moved, ops = bytes_moved + mb * 1e6, ops + 26 * x.numel()  # 26 maxes per output
-    bound_ms, bound_by = bound(bytes_moved, ops, F32_FLOPS)
-    print(f"maxpool: all {len(POOL_SHAPES + ODD_POOL_SHAPES)} shapes x 2 dtypes equal; "
-          f"9 Mixed-block pools of one member at B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"F.max_pool3d {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        xs = cold_inputs(x)
+        warm, cold = cuda_ms(lambda: max_pool_3x3x3_same(x)), cuda_ms_cold(max_pool_3x3x3_same, xs)
+        plain = cuda_ms(lambda: max_pool_3x3x3_reference(x))
+        lib_warm, lib_cold = cuda_ms(lambda: library(x)), cuda_ms_cold(library, xs)
+        nbytes = 2 * x.numel() * x.element_size()  # one read and one write
+        shape_bound = nbytes / HBM_BYTES * 1e3
+        t = max_pool_tiling(shape, 2, sms=sms)
+        print(f"maxpool bf16 {shape} (ht {t.ht}, wt {t.wt}, cb {t.cb}, grid {t.grid} x {t.threads} threads, "
+              f"{t.smem} B shared): kernel warm {warm:.4f} ms ({nbytes / warm / 1e6:.1f} GB/s, "
+              f"{shape_bound / warm:.1%} of bound), cold {cold:.4f} ms ({nbytes / cold / 1e6:.1f} GB/s, "
+              f"{shape_bound / cold:.1%} of bound) over {len(xs)} inputs; plain {plain:.4f} ms; "
+              f"F.max_pool3d warm {lib_warm:.4f} ms, cold {lib_cold:.4f} ms; bound {shape_bound:.4f} ms")
+        for k, v in zip(tot, (warm, cold, plain, lib_warm, lib_cold, nbytes, 26 * x.numel())):
+            tot[k] += v  # ops: 26 maxes per output
+        del xs
+    bound_ms, bound_by = bound(tot["bytes"], tot["ops"], F32_FLOPS)
+    print(f"maxpool: all {len(cases)} shapes x 2 dtypes equal to the plain version "
+          f"and to F.max_pool3d; {len(POOL_SHAPES)} Mixed-block pools of one member at B={BATCH}: kernel cold {tot['cold']:.4f} ms "
+          f"({bound_ms / tot['cold']:.1%} of bound), warm {tot['warm']:.4f} ms ({bound_ms / tot['warm']:.1%}); "
+          f"plain {tot['plain']:.4f} ms; F.max_pool3d cold {tot['lib_cold']:.4f} ms, warm {tot['lib_warm']:.4f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {tot['bytes'] / 1e6:.1f} MB); "
+          f"kernel vs F.max_pool3d cold {tot['lib_cold'] / tot['cold']:.2f}x")
+    if tot["warm"] < bound_ms:
+        print("maxpool: the warm sum beats the HBM bound: inputs under 50 MB stay in L2 between calls")
     return {"name": "max_pool_3x3x3_same", "route": "cuda",
             "source": f"{PORT}/csrc/maxpool3x3x3.cu",
             "replaces": "crowded_scenes_ensemble_classification_tpu/ops/pallas/maxpool.py:51",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "max_abs_err": err, "ms": tot["cold"], "warm_ms": tot["warm"], "plain_ms": tot["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": tot["lib_cold"],
+            "library_warm_ms": tot["lib_warm"]}
 
 
 def check_noise(torch, dev) -> dict:
@@ -193,7 +255,8 @@ def check_noise(torch, dev) -> dict:
     err = (got - ref).abs().max().item()
     check(torch.equal(got, ref), "noise kernel != plain on the same seed")
     ms = cuda_ms(lambda: salt_pepper(x, 5, salt, pepper, 100))
-    plain_ms = cuda_ms(lambda: salt_pepper_plain(x, 5, salt, pepper, 100), iters=5)
+    # the plain Philox is some hundred launches a call: timed as issued
+    plain_ms = cuda_ms(lambda: salt_pepper_plain(x, 5, salt, pepper, 100), iters=5, queue_ahead=False)
     mb = 2 * x.numel() * 4 / 1e6
     # about 31 32-bit integer operations per element (Philox4x32-10 per 4
     # elements, two compares), counted at the f32 rate outside the tensor cores

@@ -27,11 +27,14 @@ def torch():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "shape",
-    [(2, 10, 28, 28, 192), (2, 5, 14, 14, 528), (1, 1, 3, 3, 3), (2, 3, 5, 7, 130), (1, 4, 6, 6, 12)],
+    [(2, 10, 28, 28, 192), (2, 5, 14, 14, 528), (1, 1, 3, 3, 3), (2, 3, 5, 7, 130), (1, 4, 6, 6, 12),
+     (2, 4, 30, 28, 64), (16, 5, 14, 14, 528), (2, 1, 5, 5, 64), (1, 2, 6, 6, 16), (2, 2, 7, 7, 832)],
 )
 def test_maxpool_kernel_equals_plain(torch, shape, dtype):
-    """Kernel == plain version exactly, vector path and masked tail, and one
-    launch counted per call."""
+    """Kernel == plain version exactly, 16-byte and single-element units,
+    and one launch counted per call.  The ragged cases of the tiler: H not
+    a multiple of the H-tile (30), a partial last C-block (528), T = 1 and
+    T = 2, C not a multiple of the unit (3, 130, 12 in bf16)."""
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
         max_pool_3x3x3_reference,
         max_pool_3x3x3_same,
@@ -55,6 +58,46 @@ def test_maxpool_kernel_propagates_nan(torch):
     x[0, 1, 1, 1, 0] = float("nan")
     got = max_pool_3x3x3_same(x)
     assert torch.isnan(got[..., 0]).all() and not torch.isnan(got[..., 1:]).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_maxpool_kernel_propagates_nan_across_tiles(torch, dtype):
+    """A NaN on an H-tile's halo row (the first row of the next tile) and
+    NaNs in the first and the last temporal plane come out where the plain
+    version puts them, and nowhere else."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_reference,
+        max_pool_3x3x3_same,
+        max_pool_tiling,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((2, 4, 30, 28, 64), device="cuda", generator=gen).to(getattr(torch, dtype))
+    ht = max_pool_tiling(x.shape, x.element_size(), sms=torch.cuda.get_device_properties(0).multi_processor_count).ht
+    assert ht < 30
+    x[1, 1, ht, 5, 3] = x[0, 0, 0, 0, 0] = x[0, 3, 29, 27, 63] = float("nan")
+    got, ref = max_pool_3x3x3_same(x), max_pool_3x3x3_reference(x)
+    assert torch.equal(got.isnan(), ref.isnan()) and int(ref.isnan().sum()) == 27 + 8 + 8
+    assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_maxpool_kernel_misaligned_input(torch, dtype):
+    """An input that starts off a 16-byte boundary takes the single-element
+    units of the same kernel and still equals the plain version."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_reference,
+        max_pool_3x3x3_same,
+    )
+
+    shape = (2, 3, 9, 7, 64)
+    flat = torch.randn(1 + torch.Size(shape).numel(), device="cuda").to(getattr(torch, dtype))
+    x = flat[1:].view(shape)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    before = max_pool_3x3x3_same.launches
+    got = max_pool_3x3x3_same(x)
+    assert max_pool_3x3x3_same.launches == before + 1
+    assert torch.equal(got, max_pool_3x3x3_reference(x))
 
 
 def test_maxpool_kernel_rejects_what_it_does_not_take(torch):

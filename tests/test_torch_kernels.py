@@ -88,6 +88,134 @@ def test_maxpool_wrapper_on_cpu_is_the_plain_version(torch, maxpool, dtype):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
 
 
+# (B, T, H, W, C) of the 3³/1 pool branch of the 9 Mixed blocks at 20×224², B=16
+# (chip_smoke.py's POOL_SHAPES), and shapes the tiler has to mask: T=1 and 2,
+# C not a multiple of the 16-byte unit (3, 130 f32 and bf16), H not a
+# multiple of the H-tile (30, 14 at B=2, 5), a partial last C-block (528).
+MIXED_POOL_SHAPES = {
+    "Mixed_3b": (16, 10, 28, 28, 192), "Mixed_3c": (16, 10, 28, 28, 256),
+    "Mixed_4b": (16, 5, 14, 14, 480), "Mixed_4c": (16, 5, 14, 14, 512), "Mixed_4d": (16, 5, 14, 14, 512),
+    "Mixed_4e": (16, 5, 14, 14, 512), "Mixed_4f": (16, 5, 14, 14, 528),
+    "Mixed_5b": (16, 3, 7, 7, 832), "Mixed_5c": (16, 3, 7, 7, 832),
+}
+ODD_POOL_SHAPES = [(2, 1, 5, 5, 64), (2, 3, 5, 7, 3), (2, 3, 5, 7, 130), (2, 4, 30, 28, 64),
+                   (2, 5, 14, 14, 528), (1, 2, 6, 6, 16)]
+POOL_CASES = [pytest.param(s, id=name) for name, s in MIXED_POOL_SHAPES.items()] + [
+    pytest.param(s, id="x".join(map(str, s))) for s in ODD_POOL_SHAPES]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", POOL_CASES)
+def test_maxpool_tiling_covers_every_output_once(torch, maxpool, shape, dtype):
+    """The kernel's tiles, decoded in its block order, cover every (b, h, w,
+    c) output exactly once, no block starts past the tensor, a block fits
+    the kernel's limits (≤ 256 threads, ≤ 8 rows, ≤ 232,448 B of shared
+    memory, which is two planes of the tile with its halo), and every
+    main-path shape gets at least one block per SM of an H100."""
+    tiling = maxpool.max_pool_tiling(shape, getattr(torch, dtype).itemsize)
+    b, _, h, w, c = shape
+    count = np.zeros((b, h, w, c), np.int32)
+    for block in range(tiling.grid):
+        b0, h0, w0, c0 = tiling.tile_origin(block)
+        assert b0 < b and h0 < h and w0 < w and c0 < c
+        count[b0, h0 : h0 + tiling.ht, w0 : w0 + tiling.wt, c0 : c0 + tiling.cb] += 1
+    assert (count == 1).all()
+    unit_bytes = 16 if tiling.vector else getattr(torch, dtype).itemsize
+    assert tiling.smem == 2 * (tiling.ht + 2) * (tiling.wt + 2) * tiling.cv * unit_bytes <= 232_448
+    assert tiling.threads <= 256 and 1 <= tiling.ht <= 8 and tiling.wt <= w
+    if shape in MIXED_POOL_SHAPES.values():
+        assert tiling.grid >= 132 and tiling.vector and tiling.wt == w
+
+
+def test_maxpool_tiling_units_and_limits(torch, maxpool):
+    """16-byte units only where C fills whole vectors and both pointers are
+    aligned, single elements otherwise; a plane of 2^31 elements raises."""
+    bf16 = maxpool.max_pool_tiling((1, 2, 4, 4, 64), 2)
+    assert bf16.vector and bf16.lanes == 8
+    assert maxpool.max_pool_tiling((1, 2, 4, 4, 64), 4).lanes == 4
+    assert not maxpool.max_pool_tiling((1, 2, 4, 4, 64), 2, aligned=False).vector
+    assert not maxpool.max_pool_tiling((1, 2, 4, 4, 130), 4).vector  # 520 B: not whole 16-byte units
+    assert not maxpool.max_pool_tiling((1, 2, 4, 4, 3), 2).vector
+    assert maxpool.max_pool_tiling((1, 2, 4, 4, 3), 2).cv == 3
+    with pytest.raises(ValueError):
+        maxpool.max_pool_tiling((1, 1, 2**16, 2**10, 32), 2)
+
+
+def _emulate_maxpool_kernel(torch, x, tiling):
+    """The kernel's algorithm in torch, block by block, in its block order:
+    per plane t, copy rows h0-1..h0+ht and columns w0-1..w0+wt of the tile
+    into buffer t % 2, one plane ahead of its reduction (positions outside
+    the tensor are not copied), reduce each row over w-1..w+1 (skipping
+    columns outside the tensor) and then three rows, and keep P1 = S[t-1]
+    and P2 = max(S[t-2],
+    S[t-1]) to write y[t-1] = max(P2, S[t]); y[T-1] = P2.  The buffers start
+    as NaN and so does y: a read of a position the kernel does not copy,
+    or an output no block writes, shows as NaN."""
+    nan, ninf = float("nan"), float("-inf")
+    _, t_len, h, w, c = x.shape
+    ht, wt = tiling.ht, tiling.wt
+    y = torch.full_like(x, nan)
+    for block in range(tiling.grid):
+        b, h0, w0, c0 = tiling.tile_origin(block)
+        cs = slice(c0, min(c0 + tiling.cb, c))
+        smem = torch.full((2, ht + 2, wt + 2, cs.stop - c0), nan, dtype=x.dtype)
+
+        def copy(t, s, b=b, h0=h0, w0=w0, cs=cs, smem=smem):
+            lo, hi = max(w0 - 1, 0), min(w0 + wt + 1, w)
+            for r in range(ht + 2):
+                if 0 <= h0 - 1 + r < h:
+                    smem[s, r, lo - w0 + 1 : hi - w0 + 1] = x[b, t, h0 - 1 + r, lo:hi, cs]
+
+        cols = w0 + torch.arange(wt)[:, None]  # the threads' columns w
+        rows_in = [0 <= h0 - 1 + r < h for r in range(ht + 2)]
+        p1 = p2 = torch.full((ht, wt, cs.stop - c0), ninf, dtype=x.dtype)
+        nh, nw = min(ht, h - h0), min(wt, w - w0)
+        copy(0, 0)
+        for t in range(t_len):
+            if t + 1 < t_len:
+                copy(t + 1, (t + 1) % 2)
+            src = smem[t % 2]
+            m = torch.maximum(src[:, 1 : wt + 1], torch.where(cols > 0, src[:, :wt], ninf))
+            m = torch.maximum(m, torch.where(cols + 1 < w, src[:, 2:], ninf))
+            m = torch.stack([m[r] if rows_in[r] else torch.full_like(m[r], ninf) for r in range(ht + 2)])
+            s = torch.maximum(torch.maximum(m[:-2], m[1:-1]), m[2:])
+            if t > 0:
+                y[b, t - 1, h0 : h0 + nh, w0 : w0 + nw, cs] = torch.maximum(p2, s)[:nh, :nw]
+            p1, p2 = s, torch.maximum(p1, s)
+        y[b, t_len - 1, h0 : h0 + nh, w0 : w0 + nw, cs] = p2[:nh, :nw]
+    return y
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape,sms",
+    [((2, 10, 28, 28, 64), 1), ((2, 5, 14, 14, 528), 1), ((2, 3, 7, 7, 96), 1)]  # the Mixed tiles, B=2
+    + [(s, 132) for s in ODD_POOL_SHAPES],
+)
+def test_maxpool_kernel_emulation_equals_plain(torch, maxpool, shape, sms, dtype, aligned):
+    """The kernel's algorithm, emulated over its tiling, equals the plain
+    version exactly: at the Mixed blocks' tiles (ht = 7, all of W, a
+    partial C-block at 528) and at the odd shapes, with 16-byte or single
+    element units."""
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=shape).astype(np.float32)).to(getattr(torch, dtype))
+    tiling = maxpool.max_pool_tiling(shape, x.element_size(), aligned=aligned, sms=sms)
+    assert torch.equal(_emulate_maxpool_kernel(torch, x, tiling), maxpool.max_pool_3x3x3_reference(x))
+
+
+def test_maxpool_kernel_emulation_propagates_nan(torch, maxpool):
+    """A NaN on an H-tile's halo row (the first row of the next tile) and
+    NaNs in the first and last planes come out where the plain version puts
+    them, and nowhere else."""
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 4, 30, 28, 64)).astype(np.float32))
+    tiling = maxpool.max_pool_tiling(x.shape, 4)
+    assert tiling.ht < 30
+    x[1, 1, tiling.ht, 5, 3] = x[0, 0, 0, 0, 0] = x[0, 3, 29, 27, 63] = float("nan")
+    got, ref = _emulate_maxpool_kernel(torch, x, tiling), maxpool.max_pool_3x3x3_reference(x)
+    assert torch.equal(got.isnan(), ref.isnan()) and int(ref.isnan().sum()) == 27 + 8 + 8
+    assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+
+
 @pytest.mark.parametrize(
     "window,strides,shape",
     [
