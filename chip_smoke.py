@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -42,11 +42,33 @@ Phases, each of which raises on failure (exit code 1):
    outputs within 1e-2 and member 0's logits within 5e-2 relative error;
 9. the serving export of those members: export, save, load, serve the same
    batches: probabilities within 1e-2 of the eager forward, equal
-   predictions, the kernels' launches counted from the loaded program.
+   predictions, the kernels' launches counted from the loaded program;
+10. max-pool gradient kernel against its plain version (run right after
+   phase 7): the 9 Mixed-block shapes at B=16, the ragged ones
+   and a misaligned input, bf16 and f32, on tie-heavy integer x with
+   all-zero regions and dy in multiples of 1/8 (sums exact in any order):
+   f32 reaches the same inputs and agrees within 1e-6·max|dy|, bf16 within
+   one bf16 rounding of the f32 plain result; timed cold beside the plain
+   version and the library route (F.max_pool3d's forward with indices, then
+   its backward);
+11. stem backward: the kernel stem's weight gradient in train mode against
+   the canonical ConvBN's, B=2 bf16, relative error ≤ 2e-2;
+12. the resident training path (`ResidentClips` of 3·B uint8 20×256² clips,
+   `make_resident_train_step(..., make_optimizer("I3D", 0.003), (224, 224),
+   augment=True)`, bf16 compute on f32 master weights): 3 steps with 9
+   forward and 9 backward max-pool launches, 1 noise launch and 0 stem
+   launches each, finite losses; `fit` over 2 epochs with a resident
+   validation set, the best checkpoint reloaded to its val loss and a
+   save_best/restore_best round trip; a repeated batch whose loss falls over
+   10 steps; one f32 step through the kernels against the same step
+   through the plain versions (cuDNN deterministic): gradients and updated
+   params within 1e-4 relative error (‖a − b‖/‖b‖ per tensor); train
+   ms/step and clips/s at B=16 and B=64, 3 repeats of 5 steps.
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 67 TFLOP/s
 f32 outside the tensor cores, 3.35 TB/s.  The line before last is the
-kernels' JSON record; the last line is `{"ok": true, "device": {...}}`.
+kernels' JSON record (4 kernels); the last line is
+`{"ok": true, "device": {...}}`.
 Needs one card and no network.
 """
 
@@ -217,6 +239,91 @@ def check_maxpool(torch, dev) -> dict:
             "max_abs_err": err, "ms": tot["cold"], "warm_ms": tot["warm"], "plain_ms": tot["plain"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": tot["lib_cold"],
             "library_warm_ms": tot["lib_warm"]}
+
+
+def tie_heavy(shape, dtype, gen, dev, torch):
+    """Integer-valued x with many ties and all-zero regions (the ReLU
+    plateau: negatives clamped to 0, and the first half of H zeroed)."""
+    x = torch.randint(-3, 4, shape, device=dev, generator=gen).clamp_min_(0)
+    x[:, :, : shape[2] // 2] = 0
+    return x.to(dtype)
+
+
+def check_maxpool_backward(torch, dev) -> dict:
+    """The max-pool gradient kernel against its plain version at the pool
+    shapes, the ragged ones and a misaligned input, bf16 and f32, on
+    tie-heavy x.  dy takes multiples of 1/8 in [-1, 1), so sums of up to 27
+    of them are exact in f32 whatever their order: f32 must agree with the
+    plain version on which inputs get a gradient and within 1e-6·max|dy|;
+    bf16 (summed in f32, rounded once) within one bf16 rounding of the f32
+    plain version on the same values.  Timed at the main path's shapes in
+    bf16 on normal inputs, cold, beside the plain version and the library
+    route (F.max_pool3d's forward with indices, then its backward)."""
+    import torch.nn.functional as F
+
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_backward_reference,
+        max_pool_3x3x3_same_backward,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    err = 0.0
+    cases = [(s, 0) for s in POOL_SHAPES + ODD_POOL_SHAPES] + [((2, 3, 9, 7, 64), 1)]  # (shape, offset)
+    for shape, offset in cases:
+        x32 = tie_heavy(shape, torch.float32, gen, dev, torch)
+        dy32 = torch.randint(-8, 8, shape, device=dev, generator=gen).float() / 8
+        ref = max_pool_3x3x3_backward_reference(x32, dy32)
+        scale = dy32.abs().max().item()
+        for dtype in (torch.float32, torch.bfloat16):
+            # an offset of one element starts x, dy 2 or 4 bytes off a 16-byte boundary
+            x = torch.empty(offset + x32.numel(), dtype=dtype, device=dev)[offset:].view(shape).copy_(x32)
+            dy = torch.empty(offset + x32.numel(), dtype=dtype, device=dev)[offset:].view(shape).copy_(dy32)
+            got = max_pool_3x3x3_same_backward(x, dy).float()
+            torch.cuda.synchronize()
+            d = (got - ref).abs()
+            err = max(err, d.max().item())
+            what = f"{shape} {dtype}{' misaligned' if offset else ''}"
+            if dtype == torch.float32:
+                check(torch.equal(got != 0, ref != 0), f"max-pool gradient reaches other inputs at {what}")
+                check(d.max().item() <= 1e-6 * scale, f"max-pool gradient != plain at {what}: {d.max().item()}")
+            else:  # one rounding to bf16 moves a value by at most 2^-8 of it
+                check(bool((d <= ref.abs() * 2.0**-8).all()), f"max-pool gradient != plain at {what}")
+    tot = dict.fromkeys(("cold", "plain", "lib_fwd", "lib_bwd", "bytes", "codes", "ops"), 0.0)
+    for shape in POOL_SHAPES:
+        x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        dy = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        pairs = list(zip(cold_inputs(x), cold_inputs(dy)))
+        cold = cuda_ms_cold(lambda p: max_pool_3x3x3_same_backward(*p), pairs)
+        plain = cuda_ms(lambda: max_pool_3x3x3_backward_reference(x, dy))
+        xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+        _, idx = F.max_pool3d(xc, 3, 1, padding=1, return_indices=True)
+        lib_fwd = cuda_ms_cold(lambda p: F.max_pool3d(p[0].permute(0, 4, 1, 2, 3), 3, 1, padding=1,
+                                                      return_indices=True), pairs)
+        lib_bwd = cuda_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+            dyc, xc, [3] * 3, [1] * 3, [1] * 3, [1] * 3, False, idx))
+        nbytes = 3 * x.numel() * x.element_size()  # read x and dy, write dx
+        print(f"maxpool backward bf16 {shape}: kernel cold {cold:.4f} ms ({nbytes / cold / 1e6:.1f} GB/s); "
+              f"plain {plain:.4f} ms; F.max_pool3d forward with indices {lib_fwd:.4f} ms + backward "
+              f"{lib_bwd:.4f} ms; bound {nbytes / HBM_BYTES * 1e3:.4f} ms")
+        for k, v in zip(tot, (cold, plain, lib_fwd, lib_bwd, nbytes, 2 * x.numel(), 54 * x.numel())):
+            tot[k] += v  # codes: one byte written and read; ops: 27 compares and 27 selected adds
+        del pairs
+    bound_ms, bound_by = bound(tot["bytes"], tot["ops"], F32_FLOPS)
+    library_ms = tot["lib_fwd"] + tot["lib_bwd"]
+    print(f"maxpool backward: all {len(cases)} shapes x 2 dtypes agree with the plain version on tie-heavy "
+          f"inputs (max |d| {err:.3g}); {len(POOL_SHAPES)} Mixed-block pools of one member at B={BATCH}: kernel "
+          f"cold {tot['cold']:.4f} ms ({bound_ms / tot['cold']:.1%} of bound); plain {tot['plain']:.4f} ms; "
+          f"library route {library_ms:.4f} ms (forward with indices {tot['lib_fwd']:.4f} + backward "
+          f"{tot['lib_bwd']:.4f}); bound {bound_ms:.4f} ms ({bound_by}, {tot['bytes'] / 1e6:.1f} MB), "
+          f"{(tot['bytes'] + tot['codes']) / HBM_BYTES * 1e3:.4f} ms with the codes' bytes; "
+          f"kernel vs library route {library_ms / tot['cold']:.2f}x, vs its backward alone "
+          f"{tot['lib_bwd'] / tot['cold']:.2f}x")
+    return {"name": "max_pool_3x3x3_same_backward", "route": "cuda",
+            "source": f"{PORT}/csrc/maxpool3x3x3_bwd.cu",
+            "replaces": "crowded_scenes_ensemble_classification_tpu/models/common.py:28",
+            "max_abs_err": err, "ms": tot["cold"], "plain_ms": tot["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "library_backward_ms": tot["lib_bwd"],
+            "library_forward_indices_ms": tot["lib_fwd"]}
 
 
 def check_noise(torch, dev) -> dict:
@@ -604,6 +711,195 @@ def check_serving(torch, bundles, batches, eager, eager_cps) -> None:
     check(same, "served predictions differ from eager")
 
 
+def relative_errors(a: dict, b: dict) -> dict:
+    """‖a − b‖ / ‖b‖ for each key of b."""
+    return {k: ((a[k].float() - b[k].float()).norm() / b[k].float().norm().clamp_min(1e-30)).item() for k in b}
+
+
+def train_steps(step, state, batches, cw, torch):
+    """Run step over batches → (state, [loss tensors], ms per step), timed on
+    the host clock between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for batch in batches:
+        state, metrics = step(state, batch, cw)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    return state, losses, (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def check_training(torch, np, dev, kernels) -> None:
+    """The resident training path at full width (20x224² clips from 256²
+    uint8 staging, 11 classes, bf16 compute on f32 master weights): launch
+    counts per step, a loss that falls on a repeated batch, fit over 2
+    epochs with a best checkpoint, kernels against plain versions on one
+    f32 step, and clips/s at B=16 and B=64."""
+    import crowded_scenes_ensemble_classification_tpu_torch.models.i3d as i3d_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.ops.augment as augment_mod
+    from crowded_scenes_ensemble_classification_tpu_torch.data.resident import ResidentClips
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_reference,
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper, salt_pepper_plain
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import stem_conv_7x7x7_s2
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        evaluate_model,
+        fit,
+        make_optimizer,
+        make_resident_train_step,
+        restore_best,
+        save_best,
+    )
+
+    rng = np.random.default_rng(9)
+    cw = torch.ones(CLASSES, device=dev)
+
+    def clips(n: int, batch: int = BATCH, **kw) -> ResidentClips:
+        rgb = rng.integers(0, 256, (n, FRAMES, STAGING, STAGING, 3), dtype=np.uint8)
+        return ResidentClips({"rgb": rgb}, rng.integers(0, CLASSES, n), batch, **kw)
+
+    def trainable(seed: int, dtype=torch.bfloat16):
+        return build_model("I3D", dtype=dtype, generator=torch.Generator().manual_seed(seed), trainable=True)
+
+    def counters():
+        return {"max_pool_3x3x3_same": max_pool_3x3x3_same.launches,
+                "max_pool_3x3x3_same_backward": max_pool_3x3x3_same_backward.launches,
+                "salt_pepper": salt_pepper.launches, "stem_conv_7x7x7_s2": stem_conv_7x7x7_s2.launches}
+
+    # 1. The main training path: 3 augmented steps, launches counted.
+    bundle, train_set, val_set = trainable(10), clips(3 * BATCH), clips(BATCH, shuffle=False)
+    tx = make_optimizer("I3D", 0.003)
+    step = make_resident_train_step(bundle, tx, (SIZE, SIZE), augment=True, input_scale=INPUT_SCALE)
+    batches = list(train_set.batches(0))
+    state = TrainState.create(bundle.module, tx, seed=0)
+    state, _, _ = train_steps(step, state, batches[:1], cw, torch)  # warm-up: cuDNN plans, allocator
+    max_pool_3x3x3_same.launches = max_pool_3x3x3_same_backward.launches = 0
+    salt_pepper.launches = stem_conv_7x7x7_s2.launches = 0
+    state, losses, ms = train_steps(step, state, batches, cw, torch)
+    launches = counters()
+    n = len(batches)
+    print(f"training path: {n} resident steps, B={BATCH}, bf16 on f32 master weights, augment on: "
+          f"{ms:.2f} ms/step; losses {[round(float(x), 4) for x in losses]}; launches {launches}")
+    check(all(math.isfinite(float(x)) for x in losses), "non-finite training loss")
+    check(launches == {"max_pool_3x3x3_same": 9 * n, "max_pool_3x3x3_same_backward": 9 * n, "salt_pepper": n,
+                       "stem_conv_7x7x7_s2": 0}, f"training launch counts {launches}")
+    for k in kernels:
+        k["launches_train"] = launches[k["name"]]
+        if k["name"] == "max_pool_3x3x3_same_backward":
+            k["launches"] = launches[k["name"]]
+
+    # 2. fit: 2 epochs over the resident sets, best checkpoint, reload.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = fit(bundle, train_set, val_set, epochs=2, augment=True, input_scale=INPUT_SCALE, checkpoint_dir=tmp)
+        fit_s = time.perf_counter() - t0
+        hist = out["history"]
+        print(f"fit: 2 epochs of {n} steps in {fit_s:.1f} s; history {hist}")
+        check(len(hist["val_loss"]) == 2 and all(math.isfinite(x) for v in hist.values() for x in v),
+              "fit history is short or not finite")
+        twin = trainable(11)
+        twin.module.load_state_dict(restore_best(tmp))
+        best = evaluate_model(twin, val_set, (twin.clip.height, twin.clip.width), input_scale=INPUT_SCALE)["loss"]
+        check(abs(best - out["best_val_loss"]) <= 1e-3 * abs(out["best_val_loss"]),
+              f"the best checkpoint evaluates to {best}, not {out['best_val_loss']}")
+        save_best(tmp, bundle.module.state_dict())
+        back, now = restore_best(tmp), bundle.module.state_dict()
+        check(back.keys() == now.keys() and all(torch.equal(back[k], now[k].cpu()) for k in now),
+              "restore_best did not give back what save_best wrote")
+    print(f"best checkpoint reloaded: val loss {best:.6f} (fit's best {out['best_val_loss']:.6f}); "
+          "save_best/restore_best round trip equal")
+    # 3. One batch again and again: the loss falls.
+    still = make_resident_train_step(bundle, tx, (SIZE, SIZE), augment=False, input_scale=INPUT_SCALE)
+    state, repeated, _ = train_steps(still, state, batches[:1] * 11, cw, torch)
+    first, last = float(repeated[0]), float(repeated[-1])
+    print(f"one batch repeated: loss {first:.4f} at the first step, {last:.4f} after 10 steps")
+    check(last < first, f"the loss did not fall on a repeated batch: {first} -> {last}")
+
+    del bundle, twin, state, step, still, out, train_set, val_set, batches
+    torch.cuda.empty_cache()
+
+    # 4. One f32 step through the kernels against the same step through the
+    # plain versions (cuDNN deterministic, TF32 off), from equal weights.
+    small = clips(4, batch=4)
+    batch = next(small.batches(0))
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for plain in (False, True):
+        b = trainable(12, torch.float32)
+        ftx = make_optimizer("I3D", 0.003)
+        fstep = make_resident_train_step(b, ftx, (SIZE, SIZE), augment=True, input_scale=INPUT_SCALE)
+        fstate = TrainState.create(b.module, ftx, seed=1)
+        before = counters()
+        if plain:
+            with mock.patch.object(i3d_mod, "max_pool_3x3x3_same", max_pool_3x3x3_reference), \
+                    mock.patch.object(augment_mod, "salt_pepper", salt_pepper_plain):
+                fstep(fstate, batch, cw)
+            check(counters() == before, "the plain run launched a kernel")
+        else:
+            fstep(fstate, batch, cw)
+        runs.append(({n_: p.grad.detach().clone() for n_, p in b.module.named_parameters() if p.requires_grad},
+                     {n_: p.detach().clone() for n_, p in b.module.named_parameters()}))
+        del b, fstate, fstep
+    torch.backends.cudnn.deterministic = False
+    grad_err = max(relative_errors(runs[0][0], runs[1][0]).values())
+    param_err = max(relative_errors(runs[0][1], runs[1][1]).values())
+    print(f"one f32 step, B=4, kernels vs plain versions: max relative error {grad_err:.3g} over the "
+          f"{len(runs[0][0])} gradients, {param_err:.3g} over the updated params")
+    check(grad_err <= 1e-4 and param_err <= 1e-4, f"kernel and plain train steps differ: {grad_err}, {param_err}")
+    del runs, small
+    torch.cuda.empty_cache()
+
+    # 5. Throughput at B=16 and B=64: 3 repeats of 5 steps after 2 warm-up steps.
+    for batch_size in (BATCH, 64):
+        b = trainable(13)
+        btx = make_optimizer("I3D", 0.003)
+        bstep = make_resident_train_step(b, btx, (SIZE, SIZE), augment=True, input_scale=INPUT_SCALE)
+        data = clips(batch_size, batch=batch_size)
+        steps = [next(data.batches(e)) for e in range(5)]
+        bstate = TrainState.create(b.module, btx)
+        torch.cuda.reset_peak_memory_stats()
+        bstate, _, _ = train_steps(bstep, bstate, steps[:2], cw, torch)
+        times = []
+        for _ in range(3):
+            bstate, _, ms = train_steps(bstep, bstate, steps, cw, torch)
+            times.append(ms)
+        mean = sum(times) / len(times)
+        print(f"train B={batch_size}: ms/step {[round(t, 3) for t in times]} (mean {mean:.3f}, spread "
+              f"{min(times):.3f}-{max(times):.3f}); clips/s {batch_size * 1e3 / mean:.2f} "
+              f"({batch_size * 1e3 / max(times):.2f}-{batch_size * 1e3 / min(times):.2f}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del b, bstate, bstep, data, steps
+        torch.cuda.empty_cache()
+
+
+def check_stem_backward(torch, dev) -> None:
+    """The kernel stem's weight gradient in train mode (bf16 compute, f32
+    master weight, BatchNorm on batch statistics) against the canonical
+    ConvBN's on the same weights and clips, B=2 at 20x224²: relative error
+    within 2e-2 (bf16 rounding of the two forward convs)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import ConvBN, PallasStemConvBN, to_ncdhw
+
+    gen = torch.Generator().manual_seed(14)
+    kernel_stem = PallasStemConvBN(3, STEM_FEATURES, generator=gen).to(dev).train()
+    canonical = ConvBN(3, STEM_FEATURES, (7, 7, 7), (2, 2, 2)).to(dev).train()
+    canonical.load_state_dict(kernel_stem.state_dict())
+    x = to_ncdhw(torch.randn(2, FRAMES, SIZE, SIZE, 3, generator=gen).to(dev, torch.bfloat16))
+    r = torch.randn(2, STEM_FEATURES, FRAMES // 2, SIZE // 2, SIZE // 2, generator=gen).to(dev)
+    grads = []
+    for stem in (kernel_stem, canonical):
+        (stem(x).float() * r).sum().backward()
+        grads.append(stem.conv.weight.grad)
+    err = relative_errors({"w": grads[0]}, {"w": grads[1]})["w"]
+    print(f"stem backward, B=2 bf16 train mode: kernel stem vs canonical ConvBN weight gradient, relative "
+          f"error {err:.3g} (|grad| max {grads[1].abs().max().item():.3g})")
+    check(grads[1].abs().max().item() > 0 and err <= 2e-2, f"kernel-stem weight gradient differs: {err}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -626,11 +922,16 @@ def main() -> int:
     load_library()
     print(f"kernels built: {lib.name} (nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s)")
 
-    kernels = [check_maxpool(torch, dev), check_noise(torch, dev), check_stem(torch, dev)]
+    kernels = [check_maxpool(torch, dev), check_noise(torch, dev), check_stem(torch, dev),
+               check_maxpool_backward(torch, dev)]
     check_small_model(torch, dev)
     check_main_path(torch, np, dev, kernels)
     bundles, batches, eager, eager_cps = check_member_path(torch, np, dev, kernels)
     check_serving(torch, bundles, batches, eager, eager_cps)
+    del bundles, batches, eager
+    torch.cuda.empty_cache()
+    check_stem_backward(torch, dev)
+    check_training(torch, np, dev, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

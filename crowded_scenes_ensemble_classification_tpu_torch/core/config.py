@@ -3,7 +3,7 @@
 Restated from `crowded_scenes_ensemble_classification_tpu/core/config.py:47-69`
 (reference define_input, train.py:1566-1616).  Only the I3D entry is ported;
 the other model families raise `NotImplementedError` until they are
-(ROADMAP Queue 1 item 8).
+(ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -49,5 +49,5 @@ def clip_spec(model_type: str) -> ClipSpec:
     if model_type in CLIP_SPECS:
         return CLIP_SPECS[model_type]
     if model_type in MODEL_TYPES:
-        raise NotImplementedError(f"{model_type} is not ported yet (ROADMAP Queue 1 item 8)")
+        raise NotImplementedError(f"{model_type} is not ported yet (ROADMAP Queue 1 item 4)")
     raise ValueError(f"Unknown model_type {model_type!r}; valid: {MODEL_TYPES}")

@@ -82,12 +82,35 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
     return w
 
 
-def _make_bn(features: int) -> nn.BatchNorm3d:
-    """BatchNorm(scale=False): the weight is a fixed 1, not a parameter of
-    the reference, and is frozen."""
-    bn = nn.BatchNorm3d(features, eps=KERAS_BN_EPS, momentum=TORCH_BN_MOMENTUM)
-    bn.weight.requires_grad_(False)
-    return bn
+class KerasBatchNorm3d(nn.BatchNorm3d):
+    """BatchNorm(scale=False) of the reference (JAX models/common.py:96-105):
+    the weight is a fixed 1, not a parameter of the reference, and is frozen.
+
+    Eval mode is `nn.BatchNorm3d`'s.  Train mode follows flax and Keras, not
+    torch: it normalises with the biased batch statistics, computed in at
+    least f32 (`aten.native_batch_norm`, which returns the batch mean and
+    1/sqrt(var + eps)), and updates the running statistics with momentum
+    0.99 and the BIASED variance, where torch would use the unbiased one
+    and drift by n/(n−1) every step.  The state dict is nn.BatchNorm3d's."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=KERAS_BN_EPS, momentum=TORCH_BN_MOMENTUM)
+        self.weight.requires_grad_(False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.ops.aten.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0,
+                                                           self.eps)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum  # flax's momentum, 0.99
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            # The biased variance comes back through 1/sqrt(var + eps): for a
+            # variance far below eps (a constant channel) the round trip can
+            # land an ulp of eps below 0, so it is clamped there.
+            var = (invstd.pow(-2) - self.eps).clamp_min_(0.0)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+        return y
 
 
 class ConvBN(nn.Module):
@@ -107,14 +130,15 @@ class ConvBN(nn.Module):
         self.strides = tuple(strides)
         self.conv = nn.Conv3d(in_features, features, kernel, stride=strides, bias=False)
         lecun_normal_(self.conv.weight, in_features * math.prod(kernel), generator)
-        self.bn = _make_bn(features)
+        self.bn = KerasBatchNorm3d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # TF-SAME puts the odd pad after: copy-pad only that excess and let
         # the conv pad the symmetric part.
         pads = _same_pads(x, self.kernel, self.strides)
         x = _pad(x, [(0, after - before) for before, after in pads])
-        x = F.conv3d(x, self.conv.weight, stride=self.strides, padding=[before for before, _ in pads])
+        w = self.conv.weight.to(x.dtype)  # the f32 master weight of a trainable model, cast
+        x = F.conv3d(x, w, stride=self.strides, padding=[before for before, _ in pads])
         return F.relu(self.bn(x))
 
 
@@ -131,7 +155,7 @@ def _s2d_conv(xs: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The (7,4,4)/(2,1,1) conv of an NTHWC s2d staging with temporal pads
     (2, 3) → NCDHW (channels_last_3d memory)."""
     x = F.pad(to_ncdhw(xs), (0, 0, 0, 0, 2, 3))  # temporal SAME pads (2, 3)
-    w = s2d_stem_kernel(weight).contiguous(memory_format=torch.channels_last_3d)
+    w = s2d_stem_kernel(weight.to(xs.dtype)).contiguous(memory_format=torch.channels_last_3d)
     return F.conv3d(x, w, stride=(2, 1, 1))
 
 
@@ -151,7 +175,7 @@ class PrestagedS2DStemConvBN(nn.Module):
         super().__init__()
         self.conv = nn.Conv3d(in_features, features, 7, stride=2, bias=False)
         lecun_normal_(self.conv.weight, in_features * 343, generator)
-        self.bn = _make_bn(features)
+        self.bn = KerasBatchNorm3d(features)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(_s2d_conv(xs, self.conv.weight)))
@@ -173,16 +197,24 @@ class PallasStemConvBN(ConvBN):
     """The 7³/2 stem ConvBN with its conv done by the hand-written stem
     kernel, `ops/kernels/stem_conv.stem_conv_7x7x7_s2`, on NCDHW clips (JAX
     models/common.py:554-598, where the kernel is Pallas).  Always the
-    kernel, for inference: clips with an odd T, H or W raise through the
-    kernel's checks rather than falling back to another conv; build such
-    models with the canonical stem (`stem_impl='auto'`)."""
+    kernel, in eval and in train mode (the op's gradient is the canonical
+    conv's): clips with an odd T, H or W raise through the kernel's checks
+    rather than falling back to another conv; build such models with the
+    canonical stem (`stem_impl='auto'`)."""
 
     def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None):
         super().__init__(in_features, features, (7, 7, 7), (2, 2, 2), generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = stem_conv_7x7x7_s2(to_nthwc(x), self.conv.weight)
+        y = stem_conv_7x7x7_s2(to_nthwc(x), self.conv.weight.to(x.dtype))
         return F.relu(self.bn(to_ncdhw(y)))
+
+
+def l2_param_penalty(module: nn.Module, weight: float = 1e-4) -> torch.Tensor:
+    """`weight` · Σ k² over every conv and dense kernel, in f32: the Keras
+    l2(1e-4) regularizer of the R3D family (JAX models/common.py:406-417)."""
+    kernels = [m.weight for m in module.modules() if isinstance(m, (nn.Conv3d, nn.Linear))]
+    return weight * sum(k.float().square().sum() for k in kernels)
 
 
 def cast_for_inference(module: nn.Module, dtype: torch.dtype) -> nn.Module:

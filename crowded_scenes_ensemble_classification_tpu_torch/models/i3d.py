@@ -1,4 +1,4 @@
-"""Inflated Inception-v1 (I3D) for Crowd-11, inference only.
+"""Inflated Inception-v1 (I3D) for Crowd-11.
 
 Counterpart of `crowded_scenes_ensemble_classification_tpu/models/i3d.py`.
 Module and attribute names follow the flax tree (`trunk.Mixed_3b.b0_1x1.conv`),
@@ -6,8 +6,9 @@ so `models/convert.py` maps a flax checkpoint key for key.
 
 The 3³/1 pool branch of every Mixed_* block runs the hand-written kernel
 `ops/kernels/maxpool.max_pool_3x3x3_same` (the JAX `pool_impl='pallas'`
-route, i3d.py:158-170); there is no switch.  `stem_impl='pallas'` runs the
-stem's conv on the hand-written kernel `ops/kernels/stem_conv` at inference.
+route, i3d.py:158-170); there is no switch, and its gradient is a
+hand-written kernel too.  `stem_impl='pallas'` runs the stem's conv on the
+hand-written kernel `ops/kernels/stem_conv`, in eval and train mode.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.kernels.maxpool import max_pool_3x3x3_same
 from .common import (
@@ -92,7 +94,8 @@ class I3DTrunk(nn.Module):
     stem_prestaged=True takes the `s2d_stem_stage` layout (NTHWC, 4C
     channels), computed once per batch and shared by ensemble members;
     stem_impl='pallas' runs the hand-written stem kernel on NTHWC clips
-    (inference only; 'auto' is the default and does not); s2d_stem=True
+    ('auto' is the default and does not; the JAX trunk drops its Pallas stem
+    in train mode, the port keeps its kernel); s2d_stem=True
     runs the exact s2d rewrite; otherwise the canonical 7³/2 ConvBN.  Every
     stem holds the same `Conv3d_1a_7x7` state."""
 
@@ -161,7 +164,10 @@ class I3D(nn.Module):
     (T', H', W', C) order → Dense(num_classes) (JAX models/i3d.py:291-331).
     Takes NTHWC clips (or, with stem_prestaged, their s2d staging) and
     returns float32 logits.  stem_impl and s2d_stem pick the stem
-    (`I3DTrunk`)."""
+    (`I3DTrunk`).  `compute_dtype`, when set, is the dtype the model
+    computes in while its weights stay in theirs (f32 master weights, each
+    cast in the forward, as the JAX dtype/param_dtype pair); None computes
+    in the weights' dtype."""
 
     def __init__(
         self,
@@ -178,13 +184,16 @@ class I3D(nn.Module):
         self.predictions = nn.Linear(features, num_classes)
         lecun_normal_(self.predictions.weight, features, generator)
         nn.init.zeros_(self.predictions.bias)
+        self.compute_dtype: Optional[torch.dtype] = None
 
     @property
     def dtype(self) -> torch.dtype:
-        """The working dtype: that of the conv weights (`cast_for_inference`)."""
-        return self.trunk.Conv3d_1a_7x7.conv.weight.dtype
+        """The working dtype: `compute_dtype`, else that of the conv weights
+        (`cast_for_inference`)."""
+        return self.compute_dtype or self.trunk.Conv3d_1a_7x7.conv.weight.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.trunk(x.to(self.dtype))
-        x = flatten(i3d_feature_head(x))
-        return self.predictions(x.to(self.predictions.weight.dtype)).float()
+        dt = self.dtype
+        x = self.trunk(x.to(dt))
+        x = flatten(i3d_feature_head(x)).to(dt)
+        return F.linear(x, self.predictions.weight.to(dt), self.predictions.bias.to(dt)).float()

@@ -1,9 +1,13 @@
-"""3×3×3 stride-1 SAME max pool: the CUDA kernel, its tiling and its plain version.
+"""3×3×3 stride-1 SAME max pool: the CUDA kernels, the tiling and the plain versions.
 
 Counterpart of `crowded_scenes_ensemble_classification_tpu/ops/pallas/maxpool.py`
 (`max_pool_3x3x3_same`, line 51).  The kernel is `csrc/maxpool3x3x3.cu`,
 behind the custom op `csec::max_pool_3x3x3_same`; `max_pool_tiling` picks
-its tiles.
+its tiles.  Its gradient is the custom op
+`csec::max_pool_3x3x3_same_backward`, the kernels of
+`csrc/maxpool3x3x3_bwd.cu` (the JAX package differentiates its pool on
+XLA, with no Pallas kernel); `register_autograd` joins the two, so
+`backward()` runs through both kernels.
 """
 
 from __future__ import annotations
@@ -140,15 +144,96 @@ def _max_pool_fake(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, device=x.device)
 
 
+def max_pool_3x3x3_backward_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gradient: the autograd formula of
+    `F.max_pool3d` on the −inf-padded input (x, dy (B, T, H, W, C) → dx of
+    the same shape).  Each output's gradient goes to the first maximum of
+    its window in (t, h, w) order, as `jax.vjp` of the JAX package's pool
+    sends it."""
+    to_ncdhw = lambda t: t.permute(0, 4, 1, 2, 3)  # noqa: E731
+    xp = F.pad(to_ncdhw(x), (1, 1, 1, 1, 1, 1), value=float("-inf"))
+    window, stride, pad, dilation = [3] * 3, [1] * 3, [0] * 3, [1] * 3
+    _, indices = torch.ops.aten.max_pool3d_with_indices(xp, window, stride, pad, dilation, False)
+    dxp = torch.ops.aten.max_pool3d_with_indices_backward(
+        to_ncdhw(dy), xp, window, stride, pad, dilation, False, indices
+    )
+    return dxp[:, :, 1:-1, 1:-1, 1:-1].permute(0, 2, 3, 4, 1).contiguous()
+
+
+@torch.library.custom_op("csec::max_pool_3x3x3_same_backward", mutates_args=(), device_types="cpu")
+def _max_pool_backward_op(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    return max_pool_3x3x3_backward_reference(x, dy)
+
+
+@_max_pool_backward_op.register_kernel("cuda")
+def _max_pool_backward_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    if x.dim() != 5 or dy.shape != x.shape:
+        raise ValueError(f"max_pool_3x3x3_same_backward: x {tuple(x.shape)} and dy {tuple(dy.shape)} "
+                         "must both be (B,T,H,W,C)")
+    if x.dtype not in _DTYPE_CODES or dy.dtype != x.dtype:
+        raise TypeError(f"max_pool_3x3x3_same_backward: unsupported dtypes {x.dtype}, {dy.dtype}")
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("max_pool_3x3x3_same_backward: x and dy must be contiguous NTHWC")
+    b, t, h, w, c = x.shape
+    if h * w * c >= 2**31 or b * t > 65535:
+        raise ValueError(f"max_pool_3x3x3_same_backward: {tuple(x.shape)} needs a plane under 2^31 "
+                         "elements and B*T <= 65535")
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    codes = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    pointers = (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), codes.data_ptr())
+    vector = (c * x.element_size()) % 16 == 0 and all(p % 16 == 0 for p in pointers)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = load_library().maxpool3x3x3_same_backward(
+            *pointers, *x.shape, _DTYPE_CODES[x.dtype], int(vector), stream
+        )
+    check_launch("maxpool3x3x3_same_backward", err)
+    max_pool_3x3x3_same_backward.launches += 1
+    return dx
+
+
+@_max_pool_backward_op.register_fake
+def _max_pool_backward_fake(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _max_pool_setup_context(ctx, inputs, output) -> None:
+    ctx.save_for_backward(inputs[0])
+
+
+def _max_pool_grad(ctx, dy: torch.Tensor) -> torch.Tensor:
+    (x,) = ctx.saved_tensors
+    return _max_pool_backward_op(x, dy.contiguous())
+
+
+_max_pool_op.register_autograd(_max_pool_grad, setup_context=_max_pool_setup_context)
+
+
 def max_pool_3x3x3_same(x: torch.Tensor) -> torch.Tensor:
     """(B, T, H, W, C) contiguous → same shape; equals the JAX package's
     `nn.max_pool(x, (3, 3, 3), (1, 1, 1), 'SAME')`.  bf16 or f32.
 
-    CUDA tensors run the kernel; CPU tensors run the plain version.
-    `.launches` counts kernel launches, also those of an exported program."""
+    CUDA tensors run the kernel; CPU tensors run the plain version; both
+    differentiate through `max_pool_3x3x3_same_backward`.  `.launches`
+    counts kernel launches, also those of an exported program."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"max_pool_3x3x3_same: unsupported device {x.device}")
     return _max_pool_op(x)
 
 
+def max_pool_3x3x3_same_backward(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The pool's gradient: x, dy (B, T, H, W, C) contiguous → dx, dy of
+    each output summed into the first maximum of its window in (t, h, w)
+    order.  bf16 or f32, summed in f32.  CUDA tensors run the two-pass
+    kernel (argmax codes, then a gather in a fixed order: deterministic);
+    CPU tensors run the plain version.  `.launches` counts kernel launches
+    (one a call, for the pair)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"max_pool_3x3x3_same_backward: unsupported device {x.device}")
+    return _max_pool_backward_op(x, dy)
+
+
 max_pool_3x3x3_same.launches = 0
+max_pool_3x3x3_same_backward.launches = 0

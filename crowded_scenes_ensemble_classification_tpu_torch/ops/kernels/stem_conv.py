@@ -4,7 +4,10 @@ Counterpart of the two Pallas TPU kernels that compute this function:
 `crowded_scenes_ensemble_classification_tpu/ops/pallas/stem_conv_v8.py`
 (`stem_conv_7x7x7_s2_v8`, line 140) and `.../ops/pallas/stem_conv.py`
 (`stem_conv_7x7x7_s2`, line 81).  The kernel is `csrc/stem_conv7x7x7s2.cu`,
-behind the custom op `csec::stem_conv_7x7x7_s2`.
+behind the custom op `csec::stem_conv_7x7x7_s2`.  Its gradient (registered
+with `register_autograd`) is that of the canonical TF-SAME conv,
+`aten.convolution_backward` on the padded input: the JAX package too
+computes this gradient on XLA, outside any Pallas kernel.
 
 The kernel reads the spatial space-to-depth staging of the clips and the
 weights rearranged to match.  `s2d_stem_stage` and `s2d_stem_kernel` give
@@ -105,8 +108,13 @@ def stem_conv_7x7x7_s2_reference(x: torch.Tensor, weight: torch.Tensor) -> torch
     even axis the TF-SAME pads of a 7-tap stride-2 window are (2, 3): pad
     explicitly, then `F.conv3d`."""
     _check_shapes(x, weight)
-    xc = F.pad(x.permute(0, 4, 1, 2, 3), (2, 3, 2, 3, 2, 3))
-    return F.conv3d(xc, weight, stride=2).permute(0, 2, 3, 4, 1).contiguous()
+    return F.conv3d(_same_padded(x), weight, stride=2).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _same_padded(x: torch.Tensor) -> torch.Tensor:
+    """NTHWC clips with even T, H, W → NCDHW view with the TF-SAME pads
+    (2, 3) of a 7-tap stride-2 window on every axis."""
+    return F.pad(x.permute(0, 4, 1, 2, 3), (2, 3, 2, 3, 2, 3))
 
 
 @torch.library.custom_op("csec::stem_conv_7x7x7_s2", mutates_args=(), device_types="cpu")
@@ -182,10 +190,30 @@ def _stem_fake(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return torch.empty((n, t // 2, h // 2, w // 2, weight.shape[0]), dtype=x.dtype, device=x.device)
 
 
+def _stem_setup_context(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _stem_grad(ctx, dy: torch.Tensor):
+    """(dx, dweight) of the canonical conv; each only where it is asked for."""
+    x, weight = ctx.saved_tensors
+    need_x, need_w = ctx.needs_input_grad
+    dxp, dw, _ = torch.ops.aten.convolution_backward(
+        dy.permute(0, 4, 1, 2, 3), _same_padded(x), weight, None, [2] * 3, [0] * 3, [1] * 3, False,
+        [0] * 3, 1, [need_x, need_w, False],
+    )
+    dx = dxp[:, :, 2:-3, 2:-3, 2:-3].permute(0, 2, 3, 4, 1).contiguous() if need_x else None
+    return dx, dw
+
+
+_stem_op.register_autograd(_stem_grad, setup_context=_stem_setup_context)
+
+
 def stem_conv_7x7x7_s2(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The 7³ stride-(2,2,2) TF-SAME conv, NTHWC (N, T, H, W, C) × canonical
     (F, C, 7, 7, 7) → NTHWC (N, T/2, H/2, W/2, F); T, H, W even.  No
-    BatchNorm, no ReLU.  CUDA tensors run a kernel: f32 (C ≤ 4) on
+    BatchNorm, no ReLU; differentiable in x and weight (the canonical
+    conv's gradient).  CUDA tensors run a kernel: f32 (C ≤ 4) on
     `s2d_stem_stage(x)`, bf16 (C ≤ 3, F % 8 == 0, F ≤ 64) on
     `s2d_stem_stage_even(x)` and `pack_stem_weights(weight)`; CPU tensors
     run the plain version.  `.launches` counts kernel launches."""

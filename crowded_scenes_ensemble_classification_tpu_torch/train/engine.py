@@ -1,0 +1,362 @@
+"""The training and evaluation engine: the train and eval steps and the epoch loop.
+
+Counterpart of `crowded_scenes_ensemble_classification_tpu/train/engine.py`
+(lines 40-751), which maps the reference's `train()` and `evaluate()`
+(train.py:1786-1971) onto the device.  One train step:
+
+    (gather the batch's resident rows) → uint8 → Crowd-11 augment (crop and
+    flip as one bilinear resize, then the salt/pepper kernel) or a plain
+    resize → × input_scale → forward in train mode (BatchNorm on batch
+    statistics) → masked, class-weighted cross-entropy (+ R3D's l2) →
+    backward (through the max-pool backward kernel) → optimizer step.
+
+The JAX package jits each step; here it runs eagerly on the module's
+device, and the state is updated in place.  Augment decisions come from a
+CPU `torch.Generator` seeded by (state.seed, state.step), so a resumed run
+draws the decisions an uninterrupted one would.  Epoch-level control (LR
+policy, early stopping, best-val checkpoint, NaN stop) runs on the host in
+`fit`, with the reference's callback semantics (callbacks.py).
+
+Not ported: flow inputs (`NotImplementedError`, ROADMAP Queue 1 item 5),
+the wire-fed step (a TPU transfer workaround, Queue 1 item 9), the mesh,
+and `prefetch_batches` over a `BatchPipeline` (Queue 1 item 8): `fit` and
+`evaluate_model` iterate `pipeline.batches(epoch)`.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..data.pipeline import class_weights_balanced
+from ..data.resident import ResidentClips
+from ..models.common import l2_param_penalty
+from ..models.registry import ModelBundle
+from ..ops.augment import crowd11_augment_batch, identity_resize_batch
+from .callbacks import EarlyStopping, LRPolicy, lr_policy_for
+from .checkpoints import best_exists, full_exists, restore_best, restore_full, save_best, save_full
+from .state import OptimizerFactory, TrainState, make_optimizer, set_learning_rate
+
+R3D_L2_WEIGHT = 1e-4  # Keras l2(1e-4) on every R3D kernel (train.py:1292)
+
+
+def _augment_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of one step's augment decisions, seeded by
+    (seed, step)."""
+    key = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    return torch.Generator().manual_seed(key)
+
+
+def _preprocess(
+    batch: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator],
+    out_hw: Tuple[int, int],
+    augment: bool,
+    p: float,
+    two_stream: bool,
+    input_scale: float = 1.0,
+) -> Dict[str, torch.Tensor]:
+    """uint8 staged batch → float32 model inputs, on its device (JAX
+    engine.py:40-120, rgb only).  input_scale=1.0 is the reference's raw
+    0-255 pixels (train.py:283-289); scratch training is steadier at 1/255."""
+    if two_stream or "flow" in batch or "gray" in batch:
+        raise NotImplementedError("flow inputs are not ported yet (ROADMAP Queue 1 item 5)")
+    if augment:
+        rgb = crowd11_augment_batch(batch["rgb"], out_hw, p, generator)
+    else:
+        rgb = identity_resize_batch(batch["rgb"], out_hw)
+    return {"rgb": rgb * input_scale}
+
+
+def _on_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def _gather(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A resident batch ({"resident", "indices", "valid"}) → the dense
+    batch of its rows, gathered on the device."""
+    indices = torch.as_tensor(batch["indices"]).to(device, non_blocking=True)
+    dense = {k: v.index_select(0, indices) for k, v in batch["resident"].items()}
+    dense["valid"] = torch.as_tensor(batch["valid"]).to(device, non_blocking=True)
+    return dense
+
+
+def _check_tx(state: TrainState, tx: OptimizerFactory) -> None:
+    if state.tx is not tx:
+        raise ValueError("the train state's optimizer was not made from this step's tx")
+
+
+def _make_dense_train_body(
+    bundle: ModelBundle,
+    out_hw: Tuple[int, int],
+    augment: bool,
+    augment_p: float,
+    l2_weight: float,
+    input_scale: float,
+):
+    """The train body of both steps: fn(state, batch, class_weights) with
+    batch = {"rgb" uint8, "label", "valid"} tensors on the module's device
+    → (state, {"loss", "accuracy"} device scalars).  The loss is Keras's
+    class_weight mean: Σ ce·mask·w[label] / max(Σ mask, 1) (JAX
+    engine.py:123-172), + l2 for R3D."""
+    module = bundle.module
+
+    def train_step(state: TrainState, batch, class_weights):
+        generator = _augment_generator(state.seed, state.step) if augment else None
+        inputs = _preprocess(batch, generator, out_hw, augment, augment_p, bundle.two_stream, input_scale)
+        labels = batch["label"].long()
+        mask = batch["valid"].float()
+        count = mask.sum().clamp_min(1.0)
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = bundle.apply(inputs, train=True)
+        ce = F.cross_entropy(logits, labels, reduction="none")
+        loss = (ce * mask * class_weights[labels]).sum() / count
+        if l2_weight > 0.0:
+            loss = loss + l2_param_penalty(module, l2_weight)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        accuracy = ((logits.detach().argmax(-1) == labels) * mask).sum() / count
+        return state, {"loss": loss.detach(), "accuracy": accuracy}
+
+    return train_step
+
+
+def make_train_step(
+    bundle: ModelBundle,
+    tx: OptimizerFactory,
+    out_hw: Tuple[int, int],
+    augment: bool,
+    augment_p: float = 0.75,
+    l2_weight: float = 0.0,
+    input_scale: float = 1.0,
+):
+    """fn(state, batch, class_weights) → (state, metrics) over a dense batch
+    {"rgb": (B, T, H, W, 3) uint8, "label": (B,), "valid": (B,) bool},
+    tensors or numpy arrays.  `state` must come from
+    `TrainState.create(bundle.module, tx, seed)`."""
+    body = _make_dense_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale)
+
+    def train_step(state: TrainState, batch, class_weights):
+        _check_tx(state, tx)
+        return body(state, _on_device(batch, bundle.device), class_weights)
+
+    return train_step
+
+
+def make_resident_train_step(
+    bundle: ModelBundle,
+    tx: OptimizerFactory,
+    out_hw: Tuple[int, int],
+    augment: bool,
+    augment_p: float = 0.75,
+    l2_weight: float = 0.0,
+    input_scale: float = 1.0,
+):
+    """Train step over a device-resident dataset (`data.resident.ResidentClips`):
+    fn(state, batch, class_weights) with batch = {"resident": {name → (N, …)
+    device tensor, incl. "label"}, "indices": (B,) int32, "valid": (B,)
+    bool}.  Each step gathers its rows on the device and runs the same body
+    as `make_train_step`, so it equals that step on the gathered batch; the
+    host ships only the indices and the mask."""
+    body = _make_dense_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale)
+
+    def train_step(state: TrainState, batch, class_weights):
+        _check_tx(state, tx)
+        return body(state, _gather(batch, bundle.device), class_weights)
+
+    return train_step
+
+
+def _make_dense_eval_body(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float):
+    """The eval body of both eval steps (JAX engine.py:459-489): the
+    UNWEIGHTED masked loss sum, correct count, valid count and softmax."""
+
+    def eval_step(batch):
+        inputs = _preprocess(batch, None, out_hw, False, 0.0, bundle.two_stream, input_scale)
+        labels = batch["label"].long()
+        mask = batch["valid"].float()
+        with torch.no_grad():
+            logits = bundle.apply(inputs, train=False)
+            ce = F.cross_entropy(logits, labels, reduction="none")
+            return {
+                "loss_sum": (ce * mask).sum(),
+                "correct": ((logits.argmax(-1) == labels) * mask).sum(),
+                "count": mask.sum(),
+                "probs": torch.softmax(logits, -1),
+            }
+
+    return eval_step
+
+
+def make_eval_step(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float = 1.0):
+    """fn(batch) → {"loss_sum", "correct", "count", "probs"} over a dense
+    batch, with the module in eval mode and no gradients."""
+    body = _make_dense_eval_body(bundle, out_hw, input_scale)
+    return lambda batch: body(_on_device(batch, bundle.device))
+
+
+def make_resident_eval_step(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float = 1.0):
+    """Eval twin of `make_resident_train_step`: the device-side gather, then
+    the same body as `make_eval_step`."""
+    body = _make_dense_eval_body(bundle, out_hw, input_scale)
+    return lambda batch: body(_gather(batch, bundle.device))
+
+
+def evaluate_model(
+    bundle: ModelBundle,
+    pipeline,
+    out_hw: Tuple[int, int],
+    collect_probs: bool = False,
+    input_scale: float = 1.0,
+) -> Dict[str, Any]:
+    """Masked eval over `pipeline.batches(0)` (reference evaluate(),
+    train.py:1925-1971, batched): {"loss", "accuracy", "count"} and, with
+    `collect_probs`, the valid rows' probabilities in clip-id order.  The
+    module holds the weights, so no variables are passed.  The step is the
+    resident one for a `ResidentClips`, else the dense one."""
+    make = make_resident_eval_step if isinstance(pipeline, ResidentClips) else make_eval_step
+    eval_step = make(bundle, out_hw, input_scale=input_scale)
+    sums = torch.zeros(3, dtype=torch.float64, device=bundle.device)  # loss_sum, correct, count
+    probs_all, ids_all = [], []
+    for batch in pipeline.batches(0):
+        out = eval_step(batch)
+        sums += torch.stack([out["loss_sum"], out["correct"], out["count"]]).double()
+        if collect_probs:
+            valid = np.asarray(batch["valid"], bool)
+            probs_all.append(out["probs"].float().cpu().numpy()[valid])
+            if "index" in batch:
+                ids_all.append(np.asarray(batch["index"])[valid])
+    loss_sum, correct, count = sums.tolist()
+    res = {"loss": loss_sum / max(count, 1.0), "accuracy": correct / max(count, 1.0), "count": int(count)}
+    if collect_probs:
+        probs = np.concatenate(probs_all, axis=0)
+        if ids_all and len(ids_all) == len(probs_all):
+            probs = probs[np.argsort(np.concatenate(ids_all), kind="stable")]  # dataset order
+        res["probs"] = probs
+    return res
+
+
+def fit(
+    bundle: ModelBundle,
+    train_pipeline,
+    val_pipeline,
+    *,
+    epochs: int,
+    seed: int = 0,
+    augment: bool = False,
+    augment_p: float = 0.75,
+    balanced_classes: bool = False,
+    checkpoint_dir: Optional[str] = None,
+    lr_policy: Optional[LRPolicy] = None,
+    early_stopping_patience: int = 100,
+    initial_variables: Optional[Dict[str, torch.Tensor]] = None,
+    verbose: bool = False,
+    input_scale: float = 1.0,
+    optimizer: Optional[OptimizerFactory] = None,
+    metrics_logger=None,
+    save_full_every: int = 0,
+    resume_full: bool = False,
+) -> Dict[str, Any]:
+    """Epoch loop with the reference's callback semantics (JAX
+    engine.py:569-744).  Trains `bundle` (a trainable one) in place from its
+    current weights, or `initial_variables`; returns {'history': {...},
+    'state': the final TrainState, 'best_val_loss': float}.
+
+    - Warm resume: an existing best checkpoint in `checkpoint_dir` is loaded
+      first (train.py:1887-1890); `resume_full` then restores the full
+      state and the loop's metadata written every `save_full_every` epochs.
+    - The steps are the resident ones for a `ResidentClips`, else the
+      dense ones."""
+    out_hw = (bundle.clip.height, bundle.clip.width)
+    policy = lr_policy or lr_policy_for(bundle.model_type)
+    tx = optimizer or make_optimizer(bundle.model_type, policy.initial_lr)
+    l2w = R3D_L2_WEIGHT if bundle.model_type.startswith("R3D") else 0.0
+    if initial_variables is not None:
+        bundle.module.load_state_dict(initial_variables)
+    state = TrainState.create(bundle.module, tx, seed)
+    if checkpoint_dir and best_exists(checkpoint_dir):
+        restore_best(checkpoint_dir, bundle.module)
+
+    if balanced_classes:
+        labels = np.asarray(train_pipeline.df["class"], np.int64)
+        cw = torch.as_tensor(class_weights_balanced(labels, bundle.num_classes), device=bundle.device)
+    else:
+        cw = torch.ones(bundle.num_classes, device=bundle.device)
+
+    make = make_resident_train_step if isinstance(train_pipeline, ResidentClips) else make_train_step
+    train_step = make(bundle, tx, out_hw, augment, augment_p, l2w, input_scale=input_scale)
+    early = EarlyStopping(patience=early_stopping_patience)
+    history = {"loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
+    best_val = math.inf
+    lr = policy.initial_lr
+    start_epoch = 0
+
+    # Exact resume: the full TrainState plus the loop's metadata.
+    meta_path = os.path.join(checkpoint_dir, "fit_meta.json") if checkpoint_dir else None
+    if resume_full and checkpoint_dir and full_exists(checkpoint_dir):
+        state = restore_full(checkpoint_dir, state)
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            start_epoch = int(meta["epoch"]) + 1
+            lr = float(meta["lr"])
+            best_val = float(meta["best_val"])
+            history = meta["history"]
+
+    for epoch in range(start_epoch, epochs):
+        lr = policy.epoch_begin_lr(epoch, lr)
+        set_learning_rate(state.optimizer, lr)
+        losses, accs = [], []
+        for batch in train_pipeline.batches(epoch):
+            state, metrics = train_step(state, batch, cw)
+            losses.append(metrics["loss"])
+            accs.append(metrics["accuracy"])
+        epoch_loss = float(torch.stack(losses).mean())
+        epoch_acc = float(torch.stack(accs).mean())
+
+        if not math.isfinite(epoch_loss):  # TerminateOnNaN, actually wired
+            history["loss"].append(epoch_loss)
+            break
+
+        val = evaluate_model(bundle, val_pipeline, out_hw, input_scale=input_scale)
+        history["loss"].append(epoch_loss)
+        history["accuracy"].append(epoch_acc)
+        history["val_loss"].append(val["loss"])
+        history["val_accuracy"].append(val["accuracy"])
+        if verbose:
+            print(f"epoch {epoch}: loss {epoch_loss:.4f} acc {epoch_acc:.3f} "
+                  f"val_loss {val['loss']:.4f} val_acc {val['accuracy']:.3f} lr {lr:.2e}")
+        if metrics_logger is not None:
+            metrics_logger.log("epoch", epoch=epoch, loss=epoch_loss, accuracy=epoch_acc, val_loss=val["loss"],
+                               val_accuracy=val["accuracy"], lr=lr, model_type=bundle.model_type)
+
+        if val["loss"] < best_val:  # best-only checkpoint (train.py:1850-1853)
+            best_val = val["loss"]
+            if checkpoint_dir:
+                save_best(checkpoint_dir, state.variables())
+
+        lr = policy.epoch_end_lr(val["loss"], lr)
+
+        if save_full_every and checkpoint_dir and (epoch + 1) % save_full_every == 0:
+            save_full(checkpoint_dir, state)
+            with open(meta_path, "w") as f:
+                json.dump({"epoch": epoch, "lr": lr, "best_val": best_val, "history": history}, f)
+
+        if early.update(val["loss"]):
+            break
+
+    return {"history": history, "state": state, "best_val_loss": best_val}
+
+
+def store_history(history: Dict, path: str) -> None:
+    """Persist the val-loss history for VALIDATION_ERROR_INVERSE fusion
+    (reference store_history, train.py:63-82, wrote `*_validation_losses.npy`)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.save(path, np.asarray(history["val_loss"], np.float32))

@@ -238,3 +238,151 @@ def test_exported_model_launches_the_kernels(torch, no_tf32, tmp_path):
     with torch.no_grad():
         eager = torch.softmax(model(batch["rgb"].float() * (1 / 255.0)), dim=-1)
     torch.testing.assert_close(out["probs"][0], eager, rtol=1e-5, atol=1e-5)
+
+
+def _tie_heavy(torch, shape, gen):
+    """Integer x in 0..3 with the first half of H zeroed (ties and the ReLU
+    plateau), and dy in multiples of 1/8, so sums are exact in any order."""
+    x = torch.randint(-3, 4, shape, device="cuda", generator=gen).clamp_min_(0).float()
+    x[:, :, : shape[2] // 2] = 0
+    return x, torch.randint(-8, 8, shape, device="cuda", generator=gen).float() / 8
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 10, 28, 28, 192), (2, 5, 14, 14, 528), (2, 3, 7, 7, 832), (1, 1, 3, 3, 3), (2, 3, 5, 7, 130),
+     (2, 4, 30, 28, 64), (2, 1, 5, 5, 64), (1, 2, 6, 6, 16)],
+)
+def test_maxpool_backward_kernel_equals_plain(torch, shape, dtype, offset):
+    """The gradient kernel against its plain version on tie-heavy inputs, at
+    Mixed-block shapes (B=2) and ragged ones: f32 reaches the same inputs
+    and agrees within 1e-6·max|dy|; bf16 (summed in f32, rounded once) within
+    one bf16 rounding of the f32 plain result.  One launch counted a call."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_backward_reference,
+        max_pool_3x3x3_same_backward,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x32, dy32 = _tie_heavy(torch, shape, gen)
+    ref = max_pool_3x3x3_backward_reference(x32, dy32)
+    dt = getattr(torch, dtype)
+    n = x32.numel()
+    x = torch.empty(n + offset, dtype=dt, device="cuda")[offset:].view(shape).copy_(x32)
+    dy = torch.empty(n + offset, dtype=dt, device="cuda")[offset:].view(shape).copy_(dy32)
+    before = max_pool_3x3x3_same_backward.launches
+    got = max_pool_3x3x3_same_backward(x, dy).float()
+    torch.cuda.synchronize()
+    assert max_pool_3x3x3_same_backward.launches == before + 1
+    if dt == torch.float32:
+        assert torch.equal(got != 0, ref != 0)
+        assert (got - ref).abs().max().item() <= 1e-6 * dy32.abs().max().item()
+    else:
+        assert bool(((got - ref).abs() <= ref.abs() * 2.0**-8).all())
+
+
+def test_maxpool_backward_kernel_through_autograd(torch):
+    """backward() through the forward op runs the gradient kernel once and
+    equals the plain version's autograd (f32, normal inputs: no ties) to
+    rtol = atol = 1e-5: each value sums up to 27 dy of N(0, 1), which the
+    plain version adds by atomics in no fixed order."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_reference,
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(2, 5, 14, 14, 480, device="cuda", generator=gen, requires_grad=True)
+    dy = torch.randn(x.shape, device="cuda", generator=gen)
+    before = max_pool_3x3x3_same_backward.launches
+    (g,) = torch.autograd.grad(max_pool_3x3x3_same(x), x, dy)
+    (want,) = torch.autograd.grad(max_pool_3x3x3_reference(x), x, dy)
+    assert max_pool_3x3x3_same_backward.launches == before + 1
+    torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5)
+
+
+def test_maxpool_backward_kernel_rejects_what_it_does_not_take(torch):
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same_backward
+
+    x = torch.zeros(1, 3, 4, 4, 8, device="cuda")
+    with pytest.raises(ValueError):
+        max_pool_3x3x3_same_backward(x, torch.zeros(1, 3, 4, 4, 4, device="cuda"))
+    with pytest.raises(TypeError):
+        max_pool_3x3x3_same_backward(x, x.half())
+    with pytest.raises(ValueError):
+        max_pool_3x3x3_same_backward(x.transpose(2, 3), x)
+
+
+def _relative_error(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def test_train_step_kernels_equal_plain(torch, no_tf32):
+    """One f32 resident train step of the full-width I3D (B=4, 20×224² from
+    256² uint8 staging, augment on) through the kernels against the same
+    step through the plain versions (cuDNN deterministic): every gradient
+    and updated parameter within 1e-4 relative error (‖a − b‖/‖b‖); 9
+    forward and 9 backward max-pool launches and 1 noise launch."""
+    from unittest import mock
+
+    import numpy as np
+
+    import crowded_scenes_ensemble_classification_tpu_torch.models.i3d as i3d_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.ops.augment as augment_mod
+    from crowded_scenes_ensemble_classification_tpu_torch.data.resident import ResidentClips
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_reference,
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper, salt_pepper_plain
+    from crowded_scenes_ensemble_classification_tpu_torch.train import TrainState, make_optimizer, make_resident_train_step
+
+    rng = np.random.default_rng(3)
+    data = ResidentClips({"rgb": rng.integers(0, 256, (4, 20, 256, 256, 3), dtype=np.uint8)}, [1, 5, 5, 9], 4)
+    batch = next(data.batches(0))
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for plain in (False, True):
+            bundle = build_model("I3D", generator=torch.Generator().manual_seed(4), trainable=True)
+            tx = make_optimizer("I3D", 0.003)
+            step = make_resident_train_step(bundle, tx, (224, 224), augment=True, input_scale=1 / 255)
+            counts = (max_pool_3x3x3_same.launches, max_pool_3x3x3_same_backward.launches, salt_pepper.launches)
+            with mock.patch.object(i3d_mod, "max_pool_3x3x3_same", max_pool_3x3x3_reference if plain
+                                   else max_pool_3x3x3_same), \
+                    mock.patch.object(augment_mod, "salt_pepper", salt_pepper_plain if plain else salt_pepper):
+                step(TrainState.create(bundle.module, tx, seed=5), batch, torch.ones(11, device="cuda"))
+            after = (max_pool_3x3x3_same.launches, max_pool_3x3x3_same_backward.launches, salt_pepper.launches)
+            assert [a - b for a, b in zip(after, counts)] == ([0, 0, 0] if plain else [9, 9, 1])
+            runs.append({n: (p.grad, p.detach()) for n, p in bundle.module.named_parameters() if p.requires_grad})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name, (grad, param) in runs[1].items():
+        assert _relative_error(runs[0][name][0], grad) <= 1e-4, name
+        assert _relative_error(runs[0][name][1], param) <= 1e-4, name
+
+
+def test_kernel_stem_weight_gradient_matches_canonical(torch):
+    """PallasStemConvBN in train mode (bf16 compute, f32 master weight)
+    against the canonical ConvBN on the same weights and clips, B=2 at
+    20×224²: weight gradients within 2e-2 relative error (bf16 rounding of
+    the two forward convs)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import ConvBN, PallasStemConvBN, to_ncdhw
+
+    gen = torch.Generator().manual_seed(6)
+    kernel_stem = PallasStemConvBN(3, 64, generator=gen).cuda().train()
+    canonical = ConvBN(3, 64, (7, 7, 7), (2, 2, 2)).cuda().train()
+    canonical.load_state_dict(kernel_stem.state_dict())
+    x = to_ncdhw(torch.randn(2, 20, 224, 224, 3, generator=gen).to("cuda", torch.bfloat16))
+    r = torch.randn(2, 64, 10, 112, 112, generator=gen).cuda()
+    grads = []
+    for stem in (kernel_stem, canonical):
+        (stem(x).float() * r).sum().backward()
+        grads.append(stem.conv.weight.grad)
+    assert grads[1].abs().max().item() > 0
+    assert _relative_error(grads[0], grads[1]) <= 2e-2

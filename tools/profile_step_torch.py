@@ -11,7 +11,11 @@ Then, at B=16, the same for chip_smoke.py's per-member paths over uint8
 20×224² batches at input scale 1/255: the unshared member forward with the
 stem kernel (members from `build_model(stem_impl='pallas')`), the same
 members in shared-staging form (cuDNN stem), and the loaded serving
-artifact of the unshared forward.
+artifact of the unshared forward.  Last, the resident training step
+(`make_resident_train_step`, augment on, one trainable I3D computing in
+bf16 on f32 master weights, 20×224² from 256² uint8 staging) at B=16 and
+B=64.  Backward ops run on autograd's device thread, outside the ranges
+this script opens, so they are charged to `unlabeled/<aten op>`.
 
 - Busy time is the union of the intervals of every kernel, memcpy and
   memset on the card, so it cannot exceed the wall clock of the profiled
@@ -42,9 +46,9 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FRAMES, SIZE, STAGING, MEMBERS, CLASSES = 20, 224, 256, 4, 11  # as in chip_smoke.py
-BATCHES, STEPS = (16, 48), 3
+BATCHES, TRAIN_BATCHES, STEPS = (16, 48), (16, 64), 3
 OWN_KERNELS = {"maxpool3x3x3_kernel": "max_pool_3x3x3_same", "salt_pepper_kernel": "salt_pepper",
-               "stem_bf16_kernel": "stem"}
+               "stem_bf16_kernel": "stem", "maxpool3_bwd_": "max_pool_3x3x3_same_backward"}
 
 
 def busy_us(intervals) -> float:
@@ -66,6 +70,8 @@ def label_stages(torch):
     import crowded_scenes_ensemble_classification_tpu_torch.models.common as common_mod
     import crowded_scenes_ensemble_classification_tpu_torch.models.i3d as i3d_mod
     import crowded_scenes_ensemble_classification_tpu_torch.ops.augment as augment_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.train.engine as engine_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.train.state as state_mod
 
     def wrap(owner, attr, name):
         fn = getattr(owner, attr)
@@ -88,6 +94,9 @@ def label_stages(torch):
         wrap(i3d_mod, "max_pool_3x3x3_same", "max_pool_3x3x3_same"),
         wrap(i3d_mod, "max_pool_3d", "strided_pool"),
         wrap(pipeline_mod, "fuse_predictions", "fusion"),
+        wrap(engine_mod, "_gather", "gather"),
+        wrap(engine_mod, "_preprocess", "preprocess"),
+        wrap(state_mod.KerasSGD, "step", "optimizer"),
     }
 
 
@@ -251,6 +260,51 @@ def profile_member_paths(batch: int, steps: int, torch, np) -> list:
     return out
 
 
+def profile_train(batch: int, steps: int, labels, torch, np) -> dict:
+    """The resident train step at `batch`: 2 warm-up steps, `steps`
+    unprofiled, `steps` profiled."""
+    from crowded_scenes_ensemble_classification_tpu_torch.data.resident import ResidentClips
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        make_resident_train_step,
+    )
+
+    bundle = build_model("I3D", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(13), trainable=True)
+    rng = np.random.default_rng(9)
+    data = ResidentClips({"rgb": rng.integers(0, 256, (batch, FRAMES, STAGING, STAGING, 3), dtype=np.uint8)},
+                         rng.integers(0, CLASSES, batch), batch)
+    tx = make_optimizer("I3D", 0.003)
+    step = make_resident_train_step(bundle, tx, (SIZE, SIZE), augment=True, input_scale=1 / 255.0)
+    state = TrainState.create(bundle.module, tx)
+    cw = torch.ones(CLASSES, device="cuda")
+    epoch = iter(range(10**6))
+
+    def run(n: int) -> float:
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, next(data.batches(next(epoch))), cw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(2)  # warm-up: kernel build, cuDNN plans, allocator
+    plain_s = run(steps)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        wall_s = run(steps)
+    out = {"path": "train_resident", "batch": batch, "steps": steps,
+           "wall_ms_per_step_unprofiled": plain_s * 1e3 / steps,
+           "clips_per_s_unprofiled": steps * batch / plain_s}
+    out.update(breakdown(prof.events(), labels, wall_s, steps))
+    out["busy_share_of_unprofiled_wall"] = out["busy_ms_per_step"] / out["wall_ms_per_step_unprofiled"]
+    del bundle, data, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def print_record(title: str, r: dict) -> None:
     print(f"{title}: {r['clips_per_s_unprofiled']:.2f} clips/s unprofiled "
           f"({r['wall_ms_per_step_unprofiled']:.3f} ms/step); profiled wall {r['wall_ms_per_step']:.3f} "
@@ -284,6 +338,11 @@ def main() -> int:
         r["device"] = smi
         results.append(r)
         print_record(f"{r['path']} B={r['batch']}", r)
+    for batch in TRAIN_BATCHES:
+        r = profile_train(batch, STEPS, labels, torch, np)
+        r["device"] = smi
+        results.append(r)
+        print_record(f"train B={batch}", r)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
