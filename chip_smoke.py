@@ -63,11 +63,31 @@ Phases, each of which raises on failure (exit code 1):
    10 steps; one f32 step through the kernels against the same step
    through the plain versions (cuDNN deterministic): gradients and updated
    params within 1e-4 relative error (‖a − b‖/‖b‖ per tensor); train
-   ms/step and clips/s at B=16 and B=64, 3 repeats of 5 steps.
+   ms/step and clips/s at B=16 and B=64, 3 repeats of 5 steps;
+13. every model family at full width (`build_model` of all 8 `MODEL_TYPES`,
+   random weights drawn on the card from a seeded CUDA generator, BN
+   spread): a bf16 forward (B=4 for R3D-101/152, B=16 otherwise) with
+   finite probabilities summing to 1, timed (ms per batch, clips/s, peak
+   memory); for C3D and R3D-18 an f32 B=2 forward on the card (TF32 off)
+   against the same module on the CPU, logits within 1e-3 relative error;
+14. the 16-member heterogeneous step (`hetero_ensemble_step`: 4 members
+   each of I3D, TwoStream-I3D, C3D and R3D-18, bf16, on seeded 0-255 rgb
+   (B,20,224,224,3) and precomputed flow (B,20,224,224,2)): at B=16 and
+   B=64 (the JAX bench's batch; 48 or 32 if 64 does not fit, said so),
+   3 repeats of 5 steps with the spread, 108 max-pool launches a step,
+   peak memory;
+15. probabilities → store → evaluation: `member_probabilities` of each
+   family over two seeded batches with seeded labels, saved as npz and
+   read back through a `ProbProvider`; their SUM predictions agree with
+   `hetero_ensemble_step`'s on the same clips; `evaluate_ensembles` under
+   all five schemes (grid search over 14,630 candidates at M=4),
+   `global_evaluate_ensembles` and `combine_ensembles` (15 subsets) on
+   the card equal the same evaluation on the CPU, exactly.
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 67 TFLOP/s
 f32 outside the tensor cores, 3.35 TB/s.  The line before last is the
-kernels' JSON record (4 kernels); the last line is
+kernels' JSON record (4 kernels; the max pool's `launches` counts the main
+path's 3 steps and the heterogeneous phase's 15 steps at B=16); the last line is
 `{"ok": true, "device": {...}}`.
 Needs one card and no network.
 """
@@ -900,6 +920,238 @@ def check_stem_backward(torch, dev) -> None:
     check(grads[1].abs().max().item() > 0 and err <= 2e-2, f"kernel-stem weight gradient differs: {err}")
 
 
+ZOO_BATCH = {"R3D_101": 4, "R3D_152": 4}  # B=16 for the other families
+HETERO_FAMILIES = ("I3D", "TWOSTREAM_I3D", "C3D", "R3D_18")  # JAX bench.py:546-549, in its order
+HETERO_BATCHES = (BATCH, 64, 48, 32)  # B=16, then the JAX bench's BENCH_HETERO_BATCH (bench.py:540) or less
+HETERO_STEPS, HETERO_REPEATS = 5, 3
+EVAL_FOLDS = 2
+
+
+def seeded_members(torch, model_type: str, count: int, seed: int, dtype=None, **kw) -> list:
+    """`count` full-width members of `model_type` from `build_model`, on the
+    card, each drawn there from a CUDA generator of its own seed (seed,
+    seed + 1, ...), with BN statistics spread."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+
+    out = []
+    for i in range(count):
+        gen = torch.Generator(device="cuda").manual_seed(seed + i)
+        bundle = build_model(model_type, dtype=dtype or torch.bfloat16, generator=gen, **kw)
+        spread_batchnorm(bundle.module, gen)
+        out.append(bundle)
+    return out
+
+
+def seeded_clips(torch, dev, shape, seed: int):
+    """Integer-valued 0-255 float32 clips on the card from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8).float()
+
+
+def check_probs(torch, probs, shape, what: str) -> None:
+    check(tuple(probs.shape) == tuple(shape), f"{what}: shape {tuple(probs.shape)}, not {shape}")
+    check(bool(torch.isfinite(probs).all()), f"{what}: non-finite probabilities")
+    check(bool(((probs.float().sum(-1) - 1.0).abs() <= 1e-2).all()), f"{what}: probabilities do not sum to 1")
+
+
+def check_zoo(torch, dev) -> None:
+    """Every model family at full width: a bf16 forward timed, and for C3D
+    and R3D-18 an f32 forward on the card against the CPU."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import MODEL_TYPES
+    from crowded_scenes_ensemble_classification_tpu_torch.models import predict_proba
+
+    for i, model_type in enumerate(MODEL_TYPES):
+        (bundle,) = seeded_members(torch, model_type, 1, 200 + 10 * i)
+        b = ZOO_BATCH.get(model_type, BATCH)
+        batch = {k: seeded_clips(torch, dev, (b,) + shape, 300 + i) * INPUT_SCALE
+                 for k, shape in (("rgb", bundle.clip.rgb_shape), ("flow", bundle.clip.flow_shape))
+                 if k == "rgb" or bundle.two_stream}
+        params = sum(p.numel() for p in bundle.module.parameters())
+        torch.cuda.reset_peak_memory_stats()
+        probs = predict_proba(bundle, batch)
+        check_probs(torch, probs, (b, CLASSES), model_type)
+        ms = cuda_ms(lambda: predict_proba(bundle, batch), iters=5, warmup=1, queue_ahead=False)
+        print(f"zoo {model_type}: {params / 1e6:.2f} M params, bf16 B={b} {tuple(batch['rgb'].shape[1:])}"
+              f"{' + flow' if bundle.two_stream else ''}: {ms:.3f} ms per batch, {b * 1e3 / ms:.2f} clips/s, "
+              f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; max |p - 1/{CLASSES}| "
+              f"{(probs - 1 / CLASSES).abs().max().item():.3g}")
+        del bundle, batch, probs
+        if model_type in ("C3D", "R3D_18"):
+            (f32,) = seeded_members(torch, model_type, 1, 200 + 10 * i, dtype=torch.float32)
+            x = seeded_clips(torch, dev, (2,) + f32.clip.rgb_shape, 400 + i) * INPUT_SCALE
+            with torch.inference_mode():
+                card = f32.module(x).cpu()
+                cpu = f32.module.cpu()(x.cpu())
+            rel = ((card - cpu).norm() / cpu.norm()).item()
+            print(f"zoo {model_type} f32 B=2: card vs CPU logits relative error {rel:.3g} "
+                  f"(max |logit| {cpu.abs().max().item():.3g}, std over classes {cpu.std(-1).mean().item():.3g})")
+            check(cpu.std(-1).min().item() > 0 and rel <= 1e-3, f"{model_type} card logits differ from the CPU's: {rel}")
+            del f32, x
+        torch.cuda.empty_cache()
+
+
+def hetero_families(torch) -> dict:
+    """4 full-width bf16 members of each family of the JAX bench's
+    heterogeneous ensemble, I3D and TwoStream in their prestaged form."""
+    return {
+        mt: [b.module for b in seeded_members(torch, mt, MEMBERS, 1000 + 100 * j,
+                                              **({"stem_prestaged": True} if mt in ("I3D", "TWOSTREAM_I3D") else {}))]
+        for j, mt in enumerate(HETERO_FAMILIES)
+    }
+
+
+def hetero_inputs(torch, dev, families, sizes):
+    """Seeded rgb and flow at the first batch size in `sizes` whose two
+    warm-up steps fit on the card (a smaller one is tried only after an
+    out-of-memory error, and said so) → (size, rgb, flow)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import hetero_ensemble_step
+
+    for size in sizes:
+        try:
+            rgb = seeded_clips(torch, dev, (size, FRAMES, SIZE, SIZE, 3), 500 + size)
+            flow = seeded_clips(torch, dev, (size, FRAMES, SIZE, SIZE, 2), 600 + size)
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):  # warm-up: cuDNN plans, allocator
+                hetero_ensemble_step(families, rgb, flow)
+            return size, rgb, flow
+        except torch.cuda.OutOfMemoryError:
+            print(f"hetero B={size} does not fit on the card")
+            rgb = flow = None
+            torch.cuda.empty_cache()
+    raise RuntimeError(f"chip_smoke check failed: no hetero batch of {sizes} fits")
+
+
+def check_hetero(torch, dev, families, kernels) -> None:
+    """The heterogeneous step at B=16 and at the JAX bench's B=64 (or the
+    largest of 48 and 32 that fits): 3 repeats of 5 steps, launches, peak
+    memory."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import hetero_ensemble_step
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+
+    m = sum(len(v) for v in families.values())
+    per_step = 9 * (len(families["I3D"]) + 2 * len(families["TWOSTREAM_I3D"]))
+    for sizes in (HETERO_BATCHES[:1], HETERO_BATCHES[1:]):
+        size, rgb, flow = hetero_inputs(torch, dev, families, sizes)
+        max_pool_3x3x3_same.launches = 0
+        times = []
+        for _ in range(HETERO_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [hetero_ensemble_step(families, rgb, flow) for _ in range(HETERO_STEPS)]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / HETERO_STEPS)
+        launches = max_pool_3x3x3_same.launches
+        steps = HETERO_STEPS * HETERO_REPEATS
+        for probs, preds in outs:
+            check_probs(torch, probs, (m, size, CLASSES), f"hetero B={size}")
+            check(torch.equal(preds, probs.sum(0).argmax(-1)), "hetero fused predictions are not the SUM argmax")
+        check(launches == per_step * steps, f"hetero max-pool launches {launches}, not {per_step} a step")
+        mean = sum(times) / len(times)
+        print(f"hetero step, {m} members ({', '.join(f'{len(v)} {k}' for k, v in families.items())}), bf16, "
+              f"B={size}{'' if size == sizes[0] else f' (B={sizes[0]} does not fit)'}: ms/step "
+              f"{[round(t, 3) for t in times]} (mean {mean:.3f}, spread {min(times):.3f}-{max(times):.3f}); "
+              f"clips/s {size * 1e3 / mean:.2f} ({size * 1e3 / max(times):.2f}-{size * 1e3 / min(times):.2f}); "
+              f"max-pool launches {launches} in {steps} steps ({launches // steps} a step); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if size == BATCH:
+            k = next(k for k in kernels if k["name"] == "max_pool_3x3x3_same")
+            k["launches_main"], k["launches_hetero"] = k["launches"], launches
+            k["launches"] += launches
+        del rgb, flow, outs
+        torch.cuda.empty_cache()
+
+
+def same_evaluation(a, b, np) -> bool:
+    """Two EnsembleResults equal field for field, weights and predictions
+    exactly."""
+    if (a.name, a.scheme, len(a.folds)) != (b.name, b.scheme, len(b.folds)):
+        return False
+    for x, y in zip(a.folds, b.folds):
+        if (x.test_index, x.accuracy, x.member_accuracies) != (y.test_index, y.accuracy, y.member_accuracies):
+            return False
+        same_weights = x.weights == y.weights if isinstance(x.weights, str) else np.array_equal(x.weights, y.weights)
+        if not (same_weights and np.array_equal(x.predictions, y.predictions)):
+            return False
+    return True
+
+
+def check_evaluation(torch, np, dev, families) -> None:
+    """member_probabilities of each family over two seeded batches → npz
+    store → ProbProvider → evaluate_ensembles under every scheme, global
+    and combination evaluation, on the card and on the CPU."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import WEIGHTING_SCHEMES
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.evaluate import (
+        combine_ensembles,
+        evaluate_ensembles,
+        global_evaluate_ensembles,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import member_probabilities
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import (
+        SMALL_CLIP_FRAMES,
+        hetero_ensemble_step,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.probability_store import (
+        load_probabilities,
+        probability_cache_path,
+        save_probabilities,
+    )
+
+    clips = [(seeded_clips(torch, dev, (BATCH, FRAMES, SIZE, SIZE, 3), 700 + t),
+              seeded_clips(torch, dev, (BATCH, FRAMES, SIZE, SIZE, 2), 800 + t)) for t in range(EVAL_FOLDS)]
+    labels = np.random.default_rng(12).integers(0, CLASSES, (EVAL_FOLDS, BATCH)).astype(np.int32)
+    stepped = torch.cat([hetero_ensemble_step(families, rgb, flow)[0] for rgb, flow in clips], dim=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        stored = []
+        for mt, members in families.items():
+            if mt in ("I3D", "TWOSTREAM_I3D"):
+                batches, hw = [{"rgb": rgb, "flow": flow} for rgb, flow in clips], (SIZE, SIZE)
+            else:  # C3D and R3D take the step's 16×112² clips
+                batches, hw = [{"rgb": rgb[:, :SMALL_CLIP_FRAMES, ::2, ::2]} for rgb, _ in clips], (SIZE // 2,) * 2
+            probs = member_probabilities(members, batches, hw)  # (M, 2·B, C), pixels unscaled as in the step
+            stored.append(probs)
+            names = [f"{mt}_member{i}" for i in range(len(members))]
+            for t in range(EVAL_FOLDS):  # fold t tests on batch t and selects weights on the other
+                for subset, part in (("test", t), ("train_val", 1 - t)):
+                    rows = slice(part * BATCH, (part + 1) * BATCH)
+                    save_probabilities(probability_cache_path(tmp, mt, t, subset), probs[:, rows], labels[part], names)
+        probs_s = time.perf_counter() - t0
+        providers = {mt: (lambda t, subset, mt=mt: load_probabilities(probability_cache_path(tmp, mt, t, subset)))
+                     for mt in families}
+        back = np.concatenate([np.concatenate([providers[mt](t, "test")["probs"] for mt in families])
+                               for t in range(EVAL_FOLDS)], axis=1)
+        check(np.array_equal(back, np.concatenate(stored)), "the store did not give back what was saved")
+        agrees, dfused = fused_argmax_agrees(stepped, torch.from_numpy(back).to(dev), torch)
+        dprob = (stepped.cpu() - torch.from_numpy(back)).abs().max().item()
+        print(f"store: {len(families)} families x {EVAL_FOLDS} batches of B={BATCH} through member_probabilities "
+              f"in {probs_s:.1f} s; against hetero_ensemble_step on the same clips max |dprob| {dprob:.3g}, "
+              f"max |dfused| {dfused:.3g}, fused argmax agrees: {agrees}")
+        check(agrees and dprob <= 1e-2, "stored probabilities disagree with the heterogeneous step's")
+
+        losses = lambda t: [0.8 + 0.1 * t, 1.2, 0.6, 0.95]  # noqa: E731
+        for mt, provider in providers.items():
+            line = []
+            for scheme in WEIGHTING_SCHEMES:
+                kw = dict(name=mt, min_val_losses_provider=losses, de_seed=0)
+                t0 = time.perf_counter()
+                card = evaluate_ensembles(provider, EVAL_FOLDS, scheme, device=dev, **kw)
+                card_ms = (time.perf_counter() - t0) * 1e3
+                cpu = evaluate_ensembles(provider, EVAL_FOLDS, scheme, device="cpu", **kw)
+                check(same_evaluation(card, cpu, np), f"{mt} {scheme}: the card's evaluation differs from the CPU's")
+                line.append(f"{scheme} {card.mean_accuracy:.4f} ({card_ms:.0f} ms)")
+            print(f"evaluate {mt}, {EVAL_FOLDS} folds, card == CPU: " + "; ".join(line))
+        card = global_evaluate_ensembles(providers, EVAL_FOLDS, device=dev)
+        check(same_evaluation(card, global_evaluate_ensembles(providers, EVAL_FOLDS, device="cpu"), np),
+              "the card's global evaluation differs from the CPU's")
+        combos = combine_ensembles(providers, EVAL_FOLDS, device=dev)
+        check(len(combos) == 2 ** len(families) - 1
+              and combos == combine_ensembles(providers, EVAL_FOLDS, device="cpu"),
+              "the card's combination search differs from the CPU's")
+        print(f"global ensemble of {sum(len(v) for v in families.values())} members: mean accuracy "
+              f"{card.mean_accuracy:.4f} (random labels: chance is {1 / CLASSES:.4f}); {len(combos)} subsets, "
+              f"best {'+'.join(combos[0][0])} {combos[0][1]:.4f}; card == CPU")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -917,7 +1169,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib, nvcc_s = build()
     load_library()
     print(f"kernels built: {lib.name} (nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s)")
@@ -932,7 +1184,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_stem_backward(torch, dev)
     check_training(torch, np, dev, kernels)
+    check_zoo(torch, dev)
+    families = hetero_families(torch)
+    check_hetero(torch, dev, families, kernels)
+    check_evaluation(torch, np, dev, families)
+    del families
+    torch.cuda.empty_cache()
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

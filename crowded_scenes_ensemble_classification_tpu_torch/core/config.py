@@ -1,9 +1,8 @@
-"""Clip geometry of the ported model families.
+"""Model types, weighting schemes and the clip geometry of every model family.
 
-Restated from `crowded_scenes_ensemble_classification_tpu/core/config.py:47-69`
-(reference define_input, train.py:1566-1616).  Only the I3D entry is ported;
-the other model families raise `NotImplementedError` until they are
-(ROADMAP Queue 1 item 4).
+Restated from `crowded_scenes_ensemble_classification_tpu/core/config.py:18-83`
+(reference define_input, train.py:1566-1616).  The experiment config and
+its legacy artifact names are not ported yet (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -22,6 +21,17 @@ MODEL_TYPES = (
     "R3D_101",
     "R3D_152",
 )
+# JAX core/config.py:36 (reference train.py:2143).  The port takes
+# precomputed flow only; Farnebäck waits for flow/ (ROADMAP Queue 1 item 5).
+OPTICAL_FLOW_STATUSES = ("TVL1_precomputed", "FarneBack_onTheFly")
+# JAX core/config.py:38-44 (reference evaluate_ensemble.py:1733).
+WEIGHTING_SCHEMES = (
+    "GRID_SEARCH",
+    "DIFFERENTIAL_EVOLUTION",
+    "SUM",
+    "VALIDATION_ERROR_INVERSE",
+    "MAXIMUM",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,22 +42,33 @@ class ClipSpec:
     height: int
     width: int
     rgb_channels: int = 3
+    flow_channels: int = 0  # nonzero only for two-stream
 
     @property
     def rgb_shape(self) -> Tuple[int, int, int, int]:
         return (self.frames, self.height, self.width, self.rgb_channels)
 
+    @property
+    def flow_shape(self) -> Tuple[int, int, int, int]:
+        return (self.frames, self.height, self.width, self.flow_channels)
 
-# JAX core/config.py:68
+
+# JAX core/config.py:67-76
 CLIP_SPECS = {
     "I3D": ClipSpec(frames=20, height=224, width=224),
+    "TWOSTREAM_I3D": ClipSpec(frames=20, height=224, width=224, flow_channels=2),
+    "C3D": ClipSpec(frames=16, height=112, width=112),
+    "R3D_18": ClipSpec(frames=16, height=112, width=112),
+    "R3D_34": ClipSpec(frames=16, height=112, width=112),
+    "R3D_50": ClipSpec(frames=16, height=112, width=112),
+    "R3D_101": ClipSpec(frames=16, height=112, width=112),
+    "R3D_152": ClipSpec(frames=16, height=112, width=112),
 }
 
 
 def clip_spec(model_type: str) -> ClipSpec:
     """The canonical clip geometry of `model_type` (JAX core/config.py:79-83)."""
-    if model_type in CLIP_SPECS:
+    try:
         return CLIP_SPECS[model_type]
-    if model_type in MODEL_TYPES:
-        raise NotImplementedError(f"{model_type} is not ported yet (ROADMAP Queue 1 item 4)")
-    raise ValueError(f"Unknown model_type {model_type!r}; valid: {MODEL_TYPES}")
+    except KeyError:
+        raise ValueError(f"Unknown model_type {model_type!r}; valid: {MODEL_TYPES}") from None

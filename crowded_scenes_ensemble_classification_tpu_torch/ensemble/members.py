@@ -1,21 +1,26 @@
-"""Ensemble inference over I3D members on one card.
+"""Ensemble inference over the members of one model family on one card.
 
 Counterpart of `crowded_scenes_ensemble_classification_tpu/ensemble/members.py`
 (`prepare_member_inputs`, lines 40-91; `make_member_forward`, 165-257;
 `member_probabilities`, 289-329).  The members run one after another,
 which is what `lax.map` does there (members.py:236), so one member's
-activations are alive at a time.  Two forms:
+activations are alive at a time.  Members are the modules of one family
+(I3D, TwoStreamI3D, C3D or R3D).  Two forms:
 
 - unshared (the default, as there): every member takes the resized clips
-  and runs its own stem, the hand-written stem kernel for members built
+  and runs its own stem, the hand-written stem kernel for I3D members built
   with `stem_impl='pallas'`;
-- shared stem staging: the s2d staging is computed once per batch and fed
-  to `I3D(stem_prestaged=True)` members (the main path's form).
+- shared stem staging (I3D and TwoStream only): the s2d staging is computed
+  once per batch, for TwoStream of both rgb and flow, and fed to
+  `stem_prestaged=True` members (the main path's form).
 
+Two-stream members take precomputed flow (`batch['flow']`, 0-255 imagery
+as in the reference's TVL1_precomputed mode, so `input_scale` applies to
+it); on-device Farnebäck waits for flow/ (ROADMAP Queue 1 item 5).
 `stack_variables` and `get_member_forward` have no counterpart: they stack
 flax pytrees for `vmap` and cache `jit`ted forwards, and here each member
 is an `nn.Module` run eagerly.  The member-sharded mesh form and
-`calibrate_members` are not ported yet (ROADMAP Queue 1 item 7).
+`calibrate_members` are not ported yet (ROADMAP Queue 1 items 7 and 8).
 """
 
 from __future__ import annotations
@@ -24,14 +29,16 @@ from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..models.common import s2d_stem_stage
 from ..models.i3d import I3D
+from ..models.two_stream_i3d import TwoStreamI3D
 from ..ops.augment import identity_resize_batch
 
 
-def _softmax_stack(members: Sequence[I3D], x: torch.Tensor) -> torch.Tensor:
-    return torch.stack([torch.softmax(m(x), dim=-1) for m in members])
+def _softmax_stack(members: Sequence[nn.Module], *inputs: torch.Tensor) -> torch.Tensor:
+    return torch.stack([torch.softmax(m(*inputs), dim=-1) for m in members])
 
 
 def shared_stem_probabilities(members: Sequence[I3D], x: torch.Tensor) -> torch.Tensor:
@@ -48,52 +55,68 @@ def prepare_member_inputs(
     two_stream: bool,
     input_scale: float = 1.0,
 ) -> Dict:
-    """The member forward's preprocessing: rgb resized to the model's
-    `out_hw` and scaled by `input_scale` (the scale the members trained
-    with), float32.  Flow inputs wait for `flow/` (ROADMAP Queue 1 item 9)."""
+    """The member forward's preprocessing: rgb, and for two-stream members
+    the precomputed flow, resized to the model's `out_hw` and scaled by
+    `input_scale` (the scale the members trained with), float32."""
+    inputs = {"rgb": identity_resize_batch(batch["rgb"], out_hw) * input_scale}
     if two_stream:
-        raise NotImplementedError("two-stream inputs need flow/, not ported yet (ROADMAP Queue 1 item 9)")
-    return {"rgb": identity_resize_batch(batch["rgb"], out_hw) * input_scale}
+        if "flow" not in batch:
+            raise NotImplementedError(
+                "two-stream members take precomputed flow in batch['flow']; on-device Farnebäck "
+                "is not ported yet (ROADMAP Queue 1 item 5)")
+        inputs["flow"] = identity_resize_batch(batch["flow"], out_hw) * input_scale
+    return inputs
 
 
-def check_member_form(members: Sequence[I3D], share_stem_staging: bool) -> None:
-    """Shared staging needs `stem_prestaged` members; the unshared form
-    needs members that take clips."""
+def check_member_form(members: Sequence[nn.Module], share_stem_staging: bool) -> None:
+    """The members are of one family; shared staging needs I3D-family
+    members built with `stem_prestaged`, and the unshared form members
+    that take clips."""
+    if len({type(m) for m in members}) != 1:
+        raise ValueError("the members of one forward must be of one family")
+    if not isinstance(members[0], (I3D, TwoStreamI3D)):
+        if share_stem_staging:
+            raise ValueError("share_stem_staging supports I3D-family models")
+        return
     for m in members:
-        if m.trunk.stem_prestaged != share_stem_staging:
+        if m.stem_prestaged != share_stem_staging:
             raise ValueError(
-                "shared stem staging needs I3D(stem_prestaged=True) members"
+                "shared stem staging needs stem_prestaged=True members"
                 if share_stem_staging
-                else "the unshared forward needs members that take clips, not I3D(stem_prestaged=True)"
+                else "the unshared forward needs members that take clips, not stem_prestaged=True ones"
             )
 
 
 def member_softmax(
-    members: Sequence[I3D],
+    members: Sequence[nn.Module],
     batch: Dict,
     out_hw: Tuple[int, int],
     share_stem_staging: bool = False,
     input_scale: float = 1.0,
 ) -> torch.Tensor:
-    """batch['rgb'] (B, T, H, W, 3) on the members' device → (M, B, C)
-    float32 softmax.  Opens no autograd context, so `torch.export` can
-    trace it; callers that run it eagerly wrap it in `inference_mode`."""
-    x = prepare_member_inputs(batch, out_hw, False, input_scale)["rgb"].to(members[0].dtype)
+    """batch['rgb'] (B, T, H, W, 3), and batch['flow'] (B, T, H, W, 2) for
+    TwoStream members, on the members' device → (M, B, C) float32 softmax.
+    Opens no autograd context, so `torch.export` can trace it; callers that
+    run it eagerly wrap it in `inference_mode`."""
+    two_stream = isinstance(members[0], TwoStreamI3D)
+    inputs = prepare_member_inputs(batch, out_hw, two_stream, input_scale)
+    xs = [inputs[k].to(members[0].dtype) for k in (("rgb", "flow") if two_stream else ("rgb",))]
     if share_stem_staging:
-        x = s2d_stem_stage(x)
-    return _softmax_stack(members, x)
+        xs = [s2d_stem_stage(x) for x in xs]
+    return _softmax_stack(members, *xs)
 
 
 def make_member_forward(
-    members: Sequence[I3D],
+    members: Sequence[nn.Module],
     out_hw: Tuple[int, int],
     share_stem_staging: bool = False,
     input_scale: float = 1.0,
 ) -> Callable[[Dict], torch.Tensor]:
     """Returns fn(batch) → (M, B, C) softmax probabilities.  `batch['rgb']`
-    is (B, T, H, W, 3) on the members' device; it is resized to `out_hw`,
-    scaled by `input_scale` and cast to the members' dtype, then each member
-    runs on it (unshared) or on its s2d staging (shared)."""
+    (and `batch['flow']` for TwoStream) is (B, T, H, W, C) on the members'
+    device; it is resized to `out_hw`, scaled by `input_scale` and cast to
+    the members' dtype, then each member runs on it (unshared) or on its s2d
+    staging (shared)."""
     check_member_form(members, share_stem_staging)
 
     def forward(batch: Dict) -> torch.Tensor:
@@ -104,21 +127,23 @@ def make_member_forward(
 
 
 def member_probabilities(
-    members: Sequence[I3D],
+    members: Sequence[nn.Module],
     batches: Iterable[Dict],
     out_hw: Tuple[int, int],
     input_scale: float = 1.0,
 ) -> np.ndarray:
     """Run every member over an iterable of batches → (M, N, C) float32 in
     batch order, keeping the rows a batch marks `valid` (all rows when it
-    has no 'valid').  I3D members share the stem staging, as in JAX
-    members.py:305-320, so they are `stem_prestaged` members."""
-    forward = make_member_forward(members, out_hw, share_stem_staging=True, input_scale=input_scale)
+    has no 'valid').  I3D and TwoStream members share the stem staging, as
+    in JAX members.py:305-320, so they are `stem_prestaged` members; C3D
+    and R3D members run unshared."""
+    share = isinstance(members[0], (I3D, TwoStreamI3D))
+    forward = make_member_forward(members, out_hw, share_stem_staging=share, input_scale=input_scale)
     device = next(members[0].parameters()).device
     chunks = []
     for batch in batches:
-        rgb = torch.as_tensor(np.asarray(batch["rgb"])).to(device)
-        probs = forward({"rgb": rgb}).cpu().numpy()
+        on_device = {k: torch.as_tensor(batch[k]).to(device) for k in ("rgb", "flow") if k in batch}
+        probs = forward(on_device).cpu().numpy()
         valid = np.asarray(batch.get("valid", np.ones(probs.shape[1], bool)), bool)
         chunks.append(probs[:, valid])
     return np.concatenate(chunks, axis=1)

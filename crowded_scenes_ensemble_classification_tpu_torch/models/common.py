@@ -1,4 +1,4 @@
-"""Shared building blocks of the ported I3D.
+"""Shared building blocks of the ported model families.
 
 Counterpart of `crowded_scenes_ensemble_classification_tpu/models/common.py`.
 Public functions take NTHWC tensors like the JAX package; modules run on
@@ -54,10 +54,14 @@ def to_nthwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def max_pool_3d(x: torch.Tensor, window, strides) -> torch.Tensor:
-    """TF-SAME MaxPooling3D of an NCDHW tensor: −inf padding, then a VALID
-    pool (JAX models/common.py:28-35)."""
-    x = _pad(x, _same_pads(x, window, strides), value=float("-inf"))
+def max_pool_3d(x: torch.Tensor, window, strides, padding: str = "SAME") -> torch.Tensor:
+    """MaxPooling3D of an NCDHW tensor (JAX models/common.py:28-35): TF-SAME
+    is −inf padding then a VALID pool; VALID drops the windows that do not
+    fit (C3D's pools)."""
+    if padding == "SAME":
+        x = _pad(x, _same_pads(x, window, strides), value=float("-inf"))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
     return F.max_pool3d(x, kernel_size=window, stride=strides)
 
 
@@ -83,8 +87,10 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
 
 
 class KerasBatchNorm3d(nn.BatchNorm3d):
-    """BatchNorm(scale=False) of the reference (JAX models/common.py:96-105):
-    the weight is a fixed 1, not a parameter of the reference, and is frozen.
+    """Keras BatchNormalization, eps 1e-3, momentum 0.99.  With scale=False
+    (I3D, JAX models/common.py:96-105) the weight is a fixed 1, not a
+    parameter of the reference, and is frozen; with scale=True (R3D's
+    full-affine BN, JAX models/common.py:381-397) it is the trained gamma.
 
     Eval mode is `nn.BatchNorm3d`'s.  Train mode follows flax and Keras, not
     torch: it normalises with the biased batch statistics, computed in at
@@ -93,9 +99,9 @@ class KerasBatchNorm3d(nn.BatchNorm3d):
     0.99 and the BIASED variance, where torch would use the unbiased one
     and drift by n/(n−1) every step.  The state dict is nn.BatchNorm3d's."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, scale: bool = False):
         super().__init__(features, eps=KERAS_BN_EPS, momentum=TORCH_BN_MOMENTUM)
-        self.weight.requires_grad_(False)
+        self.weight.requires_grad_(scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -113,6 +119,26 @@ class KerasBatchNorm3d(nn.BatchNorm3d):
         return y
 
 
+def conv3d_same(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], strides) -> torch.Tensor:
+    """TF-SAME conv of an NCDHW tensor.  TF-SAME puts the odd pad after:
+    copy-pad only that excess and let the conv pad the symmetric part."""
+    pads = _same_pads(x, weight.shape[2:], strides)
+    x = _pad(x, [(0, after - before) for before, after in pads])
+    return F.conv3d(x, weight, bias, stride=strides, padding=[before for before, _ in pads])
+
+
+class BNRelu(nn.Module):
+    """Full-affine BatchNorm + ReLU on NCDHW, R3D's pre-activation (JAX
+    models/common.py:381-397, reference `_bn_relu` train.py:1278-1281)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.bn = KerasBatchNorm3d(features, scale=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(x))
+
+
 class ConvBN(nn.Module):
     """Conv3d (no bias, TF-SAME) + BatchNorm(scale=False) + ReLU on NCDHW
     (JAX models/common.py:48-107)."""
@@ -126,20 +152,14 @@ class ConvBN(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.kernel = tuple(kernel)
         self.strides = tuple(strides)
         self.conv = nn.Conv3d(in_features, features, kernel, stride=strides, bias=False)
         lecun_normal_(self.conv.weight, in_features * math.prod(kernel), generator)
         self.bn = KerasBatchNorm3d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # TF-SAME puts the odd pad after: copy-pad only that excess and let
-        # the conv pad the symmetric part.
-        pads = _same_pads(x, self.kernel, self.strides)
-        x = _pad(x, [(0, after - before) for before, after in pads])
         w = self.conv.weight.to(x.dtype)  # the f32 master weight of a trainable model, cast
-        x = F.conv3d(x, w, stride=self.strides, padding=[before for before, _ in pads])
-        return F.relu(self.bn(x))
+        return F.relu(self.bn(conv3d_same(x, w, None, self.strides)))
 
 
 # ----------------------------------------------------------------------

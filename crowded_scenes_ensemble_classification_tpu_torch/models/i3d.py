@@ -97,7 +97,8 @@ class I3DTrunk(nn.Module):
     ('auto' is the default and does not; the JAX trunk drops its Pallas stem
     in train mode, the port keeps its kernel); s2d_stem=True
     runs the exact s2d rewrite; otherwise the canonical 7³/2 ConvBN.  Every
-    stem holds the same `Conv3d_1a_7x7` state."""
+    stem holds the same `Conv3d_1a_7x7` state.  `channels` is the input's:
+    3 for RGB, 2 for TwoStream's flow trunk."""
 
     def __init__(
         self,
@@ -105,6 +106,7 @@ class I3DTrunk(nn.Module):
         s2d_stem: bool = False,
         stem_impl: str = "auto",
         generator: Optional[torch.Generator] = None,
+        channels: int = RGB_CHANNELS,
     ):
         super().__init__()
         if stem_impl not in ("auto", "pallas"):
@@ -112,13 +114,13 @@ class I3DTrunk(nn.Module):
         g = generator
         self.stem_prestaged = stem_prestaged
         if stem_prestaged:
-            self.Conv3d_1a_7x7 = PrestagedS2DStemConvBN(RGB_CHANNELS, 64, generator=g)
+            self.Conv3d_1a_7x7 = PrestagedS2DStemConvBN(channels, 64, generator=g)
         elif stem_impl == "pallas":
-            self.Conv3d_1a_7x7 = PallasStemConvBN(RGB_CHANNELS, 64, generator=g)
+            self.Conv3d_1a_7x7 = PallasStemConvBN(channels, 64, generator=g)
         elif s2d_stem:
-            self.Conv3d_1a_7x7 = S2DStemConvBN(RGB_CHANNELS, 64, generator=g)
+            self.Conv3d_1a_7x7 = S2DStemConvBN(channels, 64, generator=g)
         else:
-            self.Conv3d_1a_7x7 = ConvBN(RGB_CHANNELS, 64, (7, 7, 7), (2, 2, 2), generator=g)
+            self.Conv3d_1a_7x7 = ConvBN(channels, 64, (7, 7, 7), (2, 2, 2), generator=g)
         self.Conv3d_2b_1x1 = ConvBN(64, 64, (1, 1, 1), generator=g)
         self.Conv3d_2c_3x3 = ConvBN(64, 192, (3, 3, 3), generator=g)
         features = 192
@@ -179,6 +181,7 @@ class I3D(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.stem_prestaged = stem_prestaged
         self.trunk = I3DTrunk(stem_prestaged, s2d_stem, stem_impl, generator=generator)
         features = head_features(frames)
         self.predictions = nn.Linear(features, num_classes)

@@ -1,0 +1,174 @@
+"""R3D: 3D ResNets (18/34/50/101/152) for Crowd-11.
+
+Counterpart of `crowded_scenes_ensemble_classification_tpu/models/r3d.py`
+(reference keras-resnet3d, train.py:1278-1559): pre-activation residual
+blocks (BN → ReLU → conv, convs with bias), a 7³/2 TF-SAME stem conv with
+BN + ReLU and a 3³/2 TF-SAME max pool, four stages that double the
+channels (stride 2 in the first block of every stage but the first), a
+projection shortcut where shape or channels change, a final BN + ReLU, a
+full-volume average pool and Dense.  Attribute names follow the flax tree
+(`stage2_block0.shortcut.proj`), so `models/convert.py` maps a flax
+checkpoint key for key.  Takes NTHWC clips and returns float32 logits.
+
+The stem conv stays cuDNN: it is an `nn.Conv` in JAX (r3d.py:151), not the
+I3D stem kernel.  The Keras l2(1e-4) on every kernel is
+`models/common.l2_param_penalty`, for training (not ported for R3D yet,
+ROADMAP Queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .common import BNRelu, conv3d_same, lecun_normal_, max_pool_3d, to_ncdhw
+
+# depth → (block kind, repetitions) (JAX models/r3d.py:30-37, reference
+# train.py:1526-1559)
+R3D_PRESETS = {
+    18: ("basic", (2, 2, 2, 2)),
+    34: ("basic", (3, 4, 6, 3)),
+    50: ("bottleneck", (3, 4, 6, 3)),
+    101: ("bottleneck", (3, 4, 23, 3)),
+    152: ("bottleneck", (3, 8, 36, 3)),
+}
+
+
+class SameConv3d(nn.Conv3d):
+    """Conv3d with bias and TF-SAME padding, flax's lecun-normal init and
+    zero bias (JAX models/r3d.py:40-57)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel, strides=(1, 1, 1), generator=None):
+        super().__init__(c_in, c_out, kernel, stride=strides)
+        lecun_normal_(self.weight, c_in * math.prod(self.kernel_size), generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3d_same(x, self.weight, self.bias, self.stride)
+
+
+class _Shortcut(nn.Module):
+    """Identity, or a 1×1×1 VALID projection when shape or channels change
+    (JAX models/r3d.py:60-83, reference `_shortcut3d` train.py:1324-1346).
+    Whether it projects is known when the block is built; its strides come
+    from the two shapes in `forward`, ceil(x/residual) per axis, as in JAX."""
+
+    def __init__(self, c_in: int, c_out: int, projection: bool, generator=None):
+        super().__init__()
+        self.proj = SameConv3d(c_in, c_out, (1, 1, 1), generator=generator) if projection else None
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        strides = tuple(math.ceil(int(a) / int(b)) for a, b in zip(x.shape[2:], residual.shape[2:]))
+        if self.proj is not None:
+            x = F.conv3d(x, self.proj.weight, self.proj.bias, stride=strides)
+        elif strides != (1, 1, 1) or x.shape[1] != residual.shape[1]:
+            raise ValueError(f"identity shortcut between shapes {tuple(x.shape)} and {tuple(residual.shape)}")
+        return x + residual
+
+
+def _projects(c_in: int, c_out: int, strides) -> bool:
+    return any(s > 1 for s in strides) or c_in != c_out
+
+
+class BasicBlock3D(nn.Module):
+    """Two 3³ convs (JAX models/r3d.py:86-106).  The first block of the first
+    stage skips `preact1`: the stem just ran BN + ReLU + pool."""
+
+    expansion = 1
+
+    def __init__(self, c_in: int, features: int, strides=(1, 1, 1), is_first_block_of_first_layer: bool = False,
+                 generator=None):
+        super().__init__()
+        g = generator
+        self.preact1 = None if is_first_block_of_first_layer else BNRelu(c_in)
+        self.conv1 = SameConv3d(c_in, features, (3, 3, 3), strides, generator=g)
+        self.preact2 = BNRelu(features)
+        self.conv2 = SameConv3d(features, features, (3, 3, 3), generator=g)
+        self.shortcut = _Shortcut(c_in, features, _projects(c_in, features, strides), generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1(x if self.preact1 is None else self.preact1(x))
+        y = self.conv2(self.preact2(y))
+        return self.shortcut(x, y)
+
+
+class BottleneckBlock3D(nn.Module):
+    """1³ → 3³ → 1³ (×4 channels) (JAX models/r3d.py:109-128); the first
+    block of the first stage skips `preact1`."""
+
+    expansion = 4
+
+    def __init__(self, c_in: int, features: int, strides=(1, 1, 1), is_first_block_of_first_layer: bool = False,
+                 generator=None):
+        super().__init__()
+        g = generator
+        self.preact1 = None if is_first_block_of_first_layer else BNRelu(c_in)
+        self.conv1 = SameConv3d(c_in, features, (1, 1, 1), strides, generator=g)
+        self.preact2 = BNRelu(features)
+        self.conv2 = SameConv3d(features, features, (3, 3, 3), generator=g)
+        self.preact3 = BNRelu(features)
+        self.conv3 = SameConv3d(features, 4 * features, (1, 1, 1), generator=g)
+        self.shortcut = _Shortcut(c_in, 4 * features, _projects(c_in, 4 * features, strides), generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1(x if self.preact1 is None else self.preact1(x))
+        y = self.conv2(self.preact2(y))
+        y = self.conv3(self.preact3(y))
+        return self.shortcut(x, y)
+
+
+class R3D(nn.Module):
+    """ResNet3D classifier (JAX models/r3d.py:131-177), `depth` ∈ R3D_PRESETS.
+    `width` shrinks every stage (base = max(int(64·width), 8); width 1 is
+    the reference topology)."""
+
+    def __init__(
+        self,
+        num_classes: int = 11,
+        depth: int = 18,
+        width: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if depth not in R3D_PRESETS:
+            raise ValueError(f"R3D depth must be one of {sorted(R3D_PRESETS)}, got {depth}")
+        kind, repetitions = R3D_PRESETS[depth]
+        block_cls = BasicBlock3D if kind == "basic" else BottleneckBlock3D
+        g = generator
+        base = max(int(64 * width), 8)
+        self.conv1 = SameConv3d(3, base, (7, 7, 7), (2, 2, 2), generator=g)
+        self.stem_bnrelu = BNRelu(base)
+        self.block_names: Tuple[str, ...] = ()
+        c_in, features = base, base
+        for stage, reps in enumerate(repetitions):
+            for i in range(reps):
+                strides = (2, 2, 2) if (i == 0 and stage != 0) else (1, 1, 1)
+                name = f"stage{stage}_block{i}"
+                setattr(self, name, block_cls(c_in, features, strides, stage == 0 and i == 0, generator=g))
+                self.block_names += (name,)
+                c_in = features * block_cls.expansion
+            features *= 2
+        self.final_bnrelu = BNRelu(c_in)
+        self.predictions = nn.Linear(c_in, num_classes)
+        lecun_normal_(self.predictions.weight, c_in, g)
+        nn.init.zeros_(self.predictions.bias)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv1.weight.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = self.stem_bnrelu(self.conv1(to_ncdhw(x.to(dt))))
+        x = max_pool_3d(x, (3, 3, 3), (2, 2, 2))
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        x = self.final_bnrelu(x)
+        # Full-volume average pool (reference train.py:1502-1507), in float32
+        # as I3D's head averages.
+        x = x.float().mean(dim=(2, 3, 4)).to(dt)
+        return self.predictions(x).float()

@@ -1,0 +1,60 @@
+"""TwoStream-I3D: an RGB trunk and an optical-flow trunk, one Dense head.
+
+Counterpart of `crowded_scenes_ensemble_classification_tpu/models/two_stream_i3d.py`
+(reference `TwoStream_Inception_Inflated3d`, train.py:857-1011): two
+independent I3D trunks, RGB with 3 input channels and flow with 2, each
+through the feature head and flattened, concatenated [rgb, flow], then
+one Dense.  Both trunks run the 3³/1 max-pool kernel in their 9 Mixed
+blocks.  Flow is the precomputed input (`batch['flow']`, the reference's
+TVL1_precomputed mode); on-device Farnebäck waits for flow/ (ROADMAP
+Queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .common import flatten, lecun_normal_
+from .i3d import I3DTrunk, head_features, i3d_feature_head
+
+FLOW_CHANNELS = 2
+
+
+class TwoStreamI3D(nn.Module):
+    """Takes NTHWC rgb (N, T, H, W, 3) and flow (N, T, H, W, 2), or with
+    stem_prestaged both in the `s2d_stem_stage` layout, computed once per
+    batch and shared by ensemble members (JAX two_stream_i3d.py:29-65).
+    Returns float32 logits."""
+
+    def __init__(
+        self,
+        num_classes: int = 11,
+        frames: int = 20,
+        stem_prestaged: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.stem_prestaged = stem_prestaged
+        self.rgb_trunk = I3DTrunk(stem_prestaged, generator=generator)
+        self.flow_trunk = I3DTrunk(stem_prestaged, generator=generator, channels=FLOW_CHANNELS)
+        features = 2 * head_features(frames)
+        self.predictions = nn.Linear(features, num_classes)
+        lecun_normal_(self.predictions.weight, features, generator)
+        nn.init.zeros_(self.predictions.bias)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.rgb_trunk.Conv3d_1a_7x7.conv.weight.dtype
+
+    def forward(self, rgb: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        feats = torch.cat(
+            [flatten(i3d_feature_head(self.rgb_trunk(rgb.to(dt)))),
+             flatten(i3d_feature_head(self.flow_trunk(flow.to(dt))))],
+            dim=-1,
+        ).to(dt)
+        return F.linear(feats, self.predictions.weight, self.predictions.bias).float()

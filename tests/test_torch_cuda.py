@@ -386,3 +386,73 @@ def test_kernel_stem_weight_gradient_matches_canonical(torch):
         grads.append(stem.conv.weight.grad)
     assert grads[1].abs().max().item() > 0
     assert _relative_error(grads[0], grads[1]) <= 2e-2
+
+
+def _spread_batchnorm(torch, module, gen):
+    """BN statistics and biases drawn away from (0, 1), so every layer matters."""
+    for m in module.modules():
+        if isinstance(m, torch.nn.BatchNorm3d):
+            m.running_var.uniform_(0.3, 0.7, generator=gen)
+            m.running_mean.normal_(0.0, 0.1, generator=gen)
+            m.bias.data.normal_(0.0, 0.1, generator=gen)
+
+
+def _small_family(torch, model_type, gen, prestaged=False, hw=32):
+    """A CPU module of `model_type` (C3D and R3D at width 0.125, C3D for
+    16×hw² clips), random weights from `gen`, BN spread, in eval mode."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models.c3d import C3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.r3d import R3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.two_stream_i3d import TwoStreamI3D
+
+    if model_type == "C3D":
+        module = C3D(11, 0.125, clip_thw=(16, hw, hw), generator=gen)
+    elif model_type.startswith("R3D_"):
+        module = R3D(11, int(model_type.split("_")[1]), 0.125, generator=gen)
+    elif model_type == "I3D":
+        module = I3D(11, frames=16, stem_prestaged=prestaged, generator=gen)
+    else:
+        module = TwoStreamI3D(11, frames=16, stem_prestaged=prestaged, generator=gen)
+    _spread_batchnorm(torch, module, gen)
+    return module.eval()
+
+
+@pytest.mark.parametrize("model_type", ["C3D", "R3D_18", "R3D_50", "I3D", "TWOSTREAM_I3D"])
+def test_family_f32_on_card_matches_cpu(torch, no_tf32, model_type):
+    """Each family in f32 on the card (cuDNN, TF32 off, the max-pool kernel
+    for the I3D family) against the same module on the CPU (plain versions)
+    at (2, 16, 32, 32): logits within 1e-4 relative error."""
+    gen = torch.Generator().manual_seed(7)
+    cpu = _small_family(torch, model_type, gen)
+    x = [torch.rand(2, 16, 32, 32, c, generator=gen) for c in ((3, 2) if model_type == "TWOSTREAM_I3D" else (3,))]
+    with torch.inference_mode():
+        ref = cpu(*x)
+        got = cpu.cuda()(*[t.cuda() for t in x]).cpu()
+    assert ref.std(-1).min() > 0
+    assert _relative_error(got, ref) <= 1e-4
+
+
+def test_hetero_step_launches_the_max_pool_kernel(torch, no_tf32):
+    """hetero_ensemble_step on the card with 4 members each of I3D,
+    TwoStream-I3D (prestaged), C3D and R3D-18 (width 0.125) at (1, 16, 32,
+    32): 108 max-pool launches a step (9 per I3D trunk), and probabilities
+    within 1e-5 of the same step on the CPU with equal fused predictions."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import hetero_ensemble_step
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+
+    gen = torch.Generator().manual_seed(8)
+    families = {mt: [_small_family(torch, mt, gen, prestaged=True, hw=16) for _ in range(4)]
+                for mt in ("I3D", "TWOSTREAM_I3D", "C3D", "R3D_18")}
+    rgb, flow = (torch.randint(0, 256, (1, 16, 32, 32, c), generator=gen).float() for c in (3, 2))
+    ref_probs, ref_preds = hetero_ensemble_step(families, rgb / 255, flow / 255)
+    for members in families.values():
+        for m in members:
+            m.cuda()
+    before = max_pool_3x3x3_same.launches
+    for _ in range(2):
+        probs, preds = hetero_ensemble_step(families, rgb.cuda() / 255, flow.cuda() / 255)
+    torch.cuda.synchronize()
+    assert max_pool_3x3x3_same.launches - before == 2 * 108
+    assert probs.shape == (16, 1, 11)
+    torch.testing.assert_close(probs.cpu(), ref_probs, rtol=0, atol=1e-5)
+    assert torch.equal(preds.cpu(), ref_preds)

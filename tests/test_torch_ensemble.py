@@ -86,8 +86,8 @@ def test_resident_step_on_cpu(torch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without JAX, flax or the JAX
-    package (the card's machine has none of them)."""
+    """Every module of the port imports without JAX, flax, the JAX package
+    or pandas (the card's machine has none of them)."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / PORT).rglob("*.py")
@@ -96,7 +96,7 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'crowded_scenes_ensemble_classification_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'pandas', 'crowded_scenes_ensemble_classification_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(" + repr(modules) + "))\n"
     )

@@ -229,14 +229,17 @@ def test_build_model_round_trips_flax_state_dict(torch):
 
 def test_build_model_runs_on_the_card_unless_told(torch, monkeypatch):
     """With no device named, build_model needs a card and raises without
-    one; a family not ported yet and an unknown one raise too."""
+    one, for every family; training a family not ported for training yet
+    and an unknown family raise too."""
     from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model("I3D")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("C3D", width=0.125)
     with pytest.raises(NotImplementedError):
-        build_model("C3D", device="cpu")
+        build_model("C3D", device="cpu", trainable=True)
     with pytest.raises(ValueError):
         build_model("I3D_XL", device="cpu")
 

@@ -15,7 +15,12 @@ artifact of the unshared forward.  Last, the resident training step
 (`make_resident_train_step`, augment on, one trainable I3D computing in
 bf16 on f32 master weights, 20×224² from 256² uint8 staging) at B=16 and
 B=64.  Backward ops run on autograd's device thread, outside the ranges
-this script opens, so they are charged to `unlabeled/<aten op>`.
+this script opens, so they are charged to `unlabeled/<aten op>`.  Then the
+16-member heterogeneous step (`hetero_ensemble_step`, chip_smoke.py's
+members: 4 each of I3D, TwoStream-I3D, C3D and R3D-18, bf16, on 0-255 rgb
+and precomputed flow) at B=16, with its device time also summed by family
+(the outermost of the ranges `member` (I3D), `two_stream`, `c3d`, `r3d`
+above each kernel; `shared inputs` for the stagings and casts, `fusion`).
 
 - Busy time is the union of the intervals of every kernel, memcpy and
   memset on the card, so it cannot exceed the wall clock of the profiled
@@ -47,6 +52,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FRAMES, SIZE, STAGING, MEMBERS, CLASSES = 20, 224, 256, 4, 11  # as in chip_smoke.py
 BATCHES, TRAIN_BATCHES, STEPS = (16, 48), (16, 64), 3
+FAMILY_LABELS = {"member": "I3D", "two_stream": "TWOSTREAM_I3D", "c3d": "C3D", "r3d": "R3D_18"}
 OWN_KERNELS = {"maxpool3x3x3_kernel": "max_pool_3x3x3_same", "salt_pepper_kernel": "salt_pepper",
                "stem_bf16_kernel": "stem", "maxpool3_bwd_": "max_pool_3x3x3_same_backward"}
 
@@ -67,8 +73,11 @@ def label_stages(torch):
     range names."""
     import crowded_scenes_ensemble_classification_tpu_torch.ensemble.members as members_mod
     import crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline as pipeline_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.models.c3d as c3d_mod
     import crowded_scenes_ensemble_classification_tpu_torch.models.common as common_mod
     import crowded_scenes_ensemble_classification_tpu_torch.models.i3d as i3d_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.models.r3d as r3d_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.models.two_stream_i3d as ts_mod
     import crowded_scenes_ensemble_classification_tpu_torch.ops.augment as augment_mod
     import crowded_scenes_ensemble_classification_tpu_torch.train.engine as engine_mod
     import crowded_scenes_ensemble_classification_tpu_torch.train.state as state_mod
@@ -89,8 +98,12 @@ def label_stages(torch):
         wrap(pipeline_mod, "crowd11_augment_from_decisions", "augment"),
         wrap(augment_mod, "salt_pepper", "salt_pepper"),
         wrap(members_mod, "s2d_stem_stage", "s2d_stage"),
+        wrap(pipeline_mod, "s2d_stem_stage", "s2d_stage"),
         wrap(common_mod.PrestagedS2DStemConvBN, "forward", "stem"),
         wrap(i3d_mod.I3D, "forward", "member"),
+        wrap(ts_mod.TwoStreamI3D, "forward", "two_stream"),
+        wrap(c3d_mod.C3D, "forward", "c3d"),
+        wrap(r3d_mod.R3D, "forward", "r3d"),
         wrap(i3d_mod, "max_pool_3x3x3_same", "max_pool_3x3x3_same"),
         wrap(i3d_mod, "max_pool_3d", "strided_pool"),
         wrap(pipeline_mod, "fuse_predictions", "fusion"),
@@ -155,6 +168,64 @@ def breakdown(events, labels, wall_s: float, steps: int) -> dict:
         },
         "top_device_names": [{"name": n[:120], "ms_per_step": ms / steps} for n, ms in top],
     }
+
+
+def family_ms(events, labels, steps: int) -> dict:
+    """Device ms per step summed by the outermost family range above each
+    kernel (FAMILY_LABELS); what no family range holds (stagings, casts,
+    fusion) is `shared inputs and fusion`, and kernels the profiler linked
+    to no op are `unlinked`."""
+    from torch.autograd import DeviceType
+
+    out = collections.defaultdict(float)
+    device = sum(e.time_range.end - e.time_range.start for e in events
+                 if e.device_type == DeviceType.CUDA and e.name not in labels)
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        family, parent = "shared inputs and fusion", e
+        while parent is not None:
+            family = FAMILY_LABELS.get(parent.name, family)
+            parent = parent.cpu_parent
+        out[family] += sum(k.duration for k in e.kernels) / 1e3 / steps
+    out["unlinked"] = device / 1e3 / steps - sum(out.values())
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def profile_hetero(batch: int, steps: int, labels, torch, np) -> dict:
+    """The 16-member heterogeneous step at `batch`, chip_smoke.py's
+    members and inputs; busy ms, ms by stage and aten op, ms by family."""
+    import chip_smoke
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import hetero_ensemble_step
+
+    dev = torch.device("cuda")
+    families = chip_smoke.hetero_families(torch)
+    rgb = chip_smoke.seeded_clips(torch, dev, (batch, FRAMES, SIZE, SIZE, 3), 500 + batch)
+    flow = chip_smoke.seeded_clips(torch, dev, (batch, FRAMES, SIZE, SIZE, 2), 600 + batch)
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            hetero_ensemble_step(families, rgb, flow)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()  # warm-up: cuDNN plans, allocator
+    plain_s = run()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        wall_s = run()
+    out = {"path": "hetero", "batch": batch, "steps": steps,
+           "wall_ms_per_step_unprofiled": plain_s * 1e3 / steps,
+           "clips_per_s_unprofiled": steps * batch / plain_s}
+    events = prof.events()
+    out.update(breakdown(events, labels, wall_s, steps))
+    out["busy_share_of_unprofiled_wall"] = out["busy_ms_per_step"] / out["wall_ms_per_step_unprofiled"]
+    out["families_ms_per_step"] = family_ms(events, labels, steps)
+    del families, rgb, flow
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_batch(batch: int, steps: int, labels, torch, np) -> dict:
@@ -343,6 +414,11 @@ def main() -> int:
         r["device"] = smi
         results.append(r)
         print_record(f"train B={batch}", r)
+    r = profile_hetero(BATCHES[0], STEPS, labels, torch, np)
+    r["device"] = smi
+    results.append(r)
+    print_record(f"hetero B={r['batch']}", r)
+    print("  by family: " + ", ".join(f"{k} {v:.3f} ms" for k, v in r["families_ms_per_step"].items()))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
