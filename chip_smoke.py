@@ -74,21 +74,46 @@ Phases, each of which raises on failure (exit code 1):
    each of I3D, TwoStream-I3D, C3D and R3D-18, bf16, on seeded 0-255 rgb
    (B,20,224,224,3) and precomputed flow (B,20,224,224,2)): at B=16 and
    B=64 (the JAX bench's batch; 48 or 32 if 64 does not fit, said so),
-   3 repeats of 5 steps with the spread, 108 max-pool launches a step,
-   peak memory;
+   5 steps (one repeat: the repeats went to phase 17), 108 max-pool
+   launches a step, peak memory;
 15. probabilities → store → evaluation: `member_probabilities` of each
    family over two seeded batches with seeded labels, saved as npz and
    read back through a `ProbProvider`; their SUM predictions agree with
    `hetero_ensemble_step`'s on the same clips; `evaluate_ensembles` under
    all five schemes (grid search over 14,630 candidates at M=4),
    `global_evaluate_ensembles` and `combine_ensembles` (15 subsets) on
-   the card equal the same evaluation on the CPU, exactly.
+   the card equal the same evaluation on the CPU, exactly;
+16. dense optical flow (`flow/`, plain PyTorch on the card): Farnebäck in
+   the full schedule (`fast_warp=True`, bench.py:377) and `TURBO_PARAMS`
+   on the JAX bench's 76 sinusoidal 224² pairs moved by (1, 2)
+   (bench.py:343-356): fields/s, 3 repeats of 3 calls with the spread, peak
+   memory, and the least time the schedule's level planes need at
+   3.35 TB/s; the card against the port on the CPU for 2 pairs within
+   1e-4 px; the interior EPE against the shift on periodic textured pairs
+   under the JAX suite's 0.05 px (tests/test_flow_motions.py:88; the
+   bench's smooth sinusoids leave Farnebäck about 0.5 px off in both
+   packages, printed beside it); TV-L1 on one pair in f32 (within 1e-3 px)
+   and with bf16 duals (within 0.05 px on average), card against CPU;
+17. the heterogeneous step with its flow computed on the card
+   (`flow224=None`: turbo Farnebäck of the clips' gray frames, the last
+   paired with the first, bench.py:563-568) at B=16 and B=64 (or 48, 32),
+   3 repeats of 5 steps, 108 max-pool launches a step, peak memory, and
+   the flow's own ms a step;
+18. the resident TwoStream pipeline (`twostream_ensemble_step`, JAX
+   bench.py:1366-1390): 4 full-width TwoStream members (bf16, prestaged)
+   on resident I420 rows of a moving texture (20 frames, 256² staging →
+   224²) at B=16 and the bench's B=48 (or 32), 3 repeats of 5 steps, 72
+   max-pool and 1 noise launch a step, probabilities finite and summing to
+   1; then noise gates off through the kernels and through the plain
+   versions on the card: fused argmax equal, max |Δprob| ≤ 1e-2.
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 67 TFLOP/s
 f32 outside the tensor cores, 3.35 TB/s.  The line before last is the
 kernels' JSON record (4 kernels; the max pool's `launches` counts the main
-path's 3 steps and the heterogeneous phase's 15 steps at B=16); the last line is
-`{"ok": true, "device": {...}}`.
+path's 3 steps, the heterogeneous phase's 5 steps at B=16 with precomputed
+flow and 15 with the flow on the card, and the TwoStream pipeline's 15
+steps at B=16; the noise kernel's the main path's and the TwoStream
+pipeline's); the last line is `{"ok": true, "device": {...}}`.
 Needs one card and no network.
 """
 
@@ -924,6 +949,9 @@ ZOO_BATCH = {"R3D_101": 4, "R3D_152": 4}  # B=16 for the other families
 HETERO_FAMILIES = ("I3D", "TWOSTREAM_I3D", "C3D", "R3D_18")  # JAX bench.py:546-549, in its order
 HETERO_BATCHES = (BATCH, 64, 48, 32)  # B=16, then the JAX bench's BENCH_HETERO_BATCH (bench.py:540) or less
 HETERO_STEPS, HETERO_REPEATS = 5, 3
+FLOW_PAIRS, FLOW_REPEATS, FLOW_CALLS = 76, 3, 3  # JAX bench.py:89 (76 pairs of 224²), :369 (3 calls)
+EPE_CEILING = 0.05  # px, translation: JAX tests/test_flow_motions.py:88
+TWOSTREAM_BATCHES = (BATCH, 48, 32)  # B=16, then the JAX bench's TWOSTREAM_BATCH (bench.py:95) or less
 EVAL_FOLDS = 2
 
 
@@ -1000,16 +1028,17 @@ def hetero_families(torch) -> dict:
     }
 
 
-def hetero_inputs(torch, dev, families, sizes):
-    """Seeded rgb and flow at the first batch size in `sizes` whose two
-    warm-up steps fit on the card (a smaller one is tried only after an
-    out-of-memory error, and said so) → (size, rgb, flow)."""
+def hetero_inputs(torch, dev, families, sizes, computed_flow: bool):
+    """Seeded rgb, and precomputed flow unless `computed_flow`, at the first
+    batch size in `sizes` whose two warm-up steps fit on the card (a
+    smaller one is tried only after an out-of-memory error, and said so)
+    → (size, rgb, flow or None)."""
     from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import hetero_ensemble_step
 
     for size in sizes:
         try:
             rgb = seeded_clips(torch, dev, (size, FRAMES, SIZE, SIZE, 3), 500 + size)
-            flow = seeded_clips(torch, dev, (size, FRAMES, SIZE, SIZE, 2), 600 + size)
+            flow = None if computed_flow else seeded_clips(torch, dev, (size, FRAMES, SIZE, SIZE, 2), 600 + size)
             torch.cuda.reset_peak_memory_stats()
             for _ in range(2):  # warm-up: cuDNN plans, allocator
                 hetero_ensemble_step(families, rgb, flow)
@@ -1021,44 +1050,266 @@ def hetero_inputs(torch, dev, families, sizes):
     raise RuntimeError(f"chip_smoke check failed: no hetero batch of {sizes} fits")
 
 
-def check_hetero(torch, dev, families, kernels) -> None:
+def host_ms(fn, torch, repeats: int, calls: int) -> list:
+    """Host milliseconds per call of fn, `repeats` times over `calls` calls,
+    each run between two device synchronisations."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    del out
+    return times
+
+
+def spread(times, size: int) -> str:
+    mean = sum(times) / len(times)
+    return (f"ms/step {[round(t, 3) for t in times]} (mean {mean:.3f}, spread {min(times):.3f}-{max(times):.3f}); "
+            f"clips/s {size * 1e3 / mean:.2f} ({size * 1e3 / max(times):.2f}-{size * 1e3 / min(times):.2f})")
+
+
+def check_hetero(torch, dev, families, kernels, computed: bool) -> None:
     """The heterogeneous step at B=16 and at the JAX bench's B=64 (or the
-    largest of 48 and 32 that fits): 3 repeats of 5 steps, launches, peak
-    memory."""
-    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import hetero_ensemble_step
+    largest of 48 and 32 that fits), on precomputed flow (1 repeat of 5
+    steps) or with the flow computed on the card (`computed`: 3 repeats of
+    5 steps, and the flow's own time a step): launches, peak memory."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import clip_flow, hetero_ensemble_step
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
 
     m = sum(len(v) for v in families.values())
     per_step = 9 * (len(families["I3D"]) + 2 * len(families["TWOSTREAM_I3D"]))
+    k = next(k for k in kernels if k["name"] == "max_pool_3x3x3_same")
     for sizes in (HETERO_BATCHES[:1], HETERO_BATCHES[1:]):
-        size, rgb, flow = hetero_inputs(torch, dev, families, sizes)
+        size, rgb, flow = hetero_inputs(torch, dev, families, sizes, computed)
         max_pool_3x3x3_same.launches = 0
-        times = []
-        for _ in range(HETERO_REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs = [hetero_ensemble_step(families, rgb, flow) for _ in range(HETERO_STEPS)]
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3 / HETERO_STEPS)
+        outs = []
+        repeats = HETERO_REPEATS if computed else 1  # the precomputed form: one repeat, to keep the time
+        times = host_ms(lambda: outs.append(hetero_ensemble_step(families, rgb, flow)), torch,
+                        repeats, HETERO_STEPS)
         launches = max_pool_3x3x3_same.launches
-        steps = HETERO_STEPS * HETERO_REPEATS
-        for probs, preds in outs:
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = HETERO_STEPS * repeats
+        for probs, preds in outs[-HETERO_STEPS:]:
             check_probs(torch, probs, (m, size, CLASSES), f"hetero B={size}")
             check(torch.equal(preds, probs.sum(0).argmax(-1)), "hetero fused predictions are not the SUM argmax")
         check(launches == per_step * steps, f"hetero max-pool launches {launches}, not {per_step} a step")
-        mean = sum(times) / len(times)
-        print(f"hetero step, {m} members ({', '.join(f'{len(v)} {k}' for k, v in families.items())}), bf16, "
-              f"B={size}{'' if size == sizes[0] else f' (B={sizes[0]} does not fit)'}: ms/step "
-              f"{[round(t, 3) for t in times]} (mean {mean:.3f}, spread {min(times):.3f}-{max(times):.3f}); "
-              f"clips/s {size * 1e3 / mean:.2f} ({size * 1e3 / max(times):.2f}-{size * 1e3 / min(times):.2f}); "
-              f"max-pool launches {launches} in {steps} steps ({launches // steps} a step); peak memory "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        flow_note = "precomputed flow"
+        if computed:
+            with torch.inference_mode():
+                flow_times = host_ms(lambda: clip_flow(rgb), torch, HETERO_REPEATS, 1)
+            flow_note = (f"flow on the card: turbo Farnebäck alone {[round(t, 3) for t in flow_times]} ms a step "
+                         f"({size * FRAMES} pairs, {size * FRAMES * 1e3 / min(flow_times):.1f} fields/s at best)")
+        print(f"hetero step, {m} members ({', '.join(f'{len(v)} {k_}' for k_, v in families.items())}), bf16, "
+              f"{flow_note}, B={size}{'' if size == sizes[0] else f' (B={sizes[0]} does not fit)'}: "
+              f"{spread(times, size)}; max-pool launches {launches} in {steps} steps ({launches // steps} a step); "
+              f"peak memory {peak:.2f} GB")
         if size == BATCH:
-            k = next(k for k in kernels if k["name"] == "max_pool_3x3x3_same")
-            k["launches_main"], k["launches_hetero"] = k["launches"], launches
+            k["launches_hetero_computed_flow" if computed else "launches_hetero"] = launches
             k["launches"] += launches
         del rgb, flow, outs
         torch.cuda.empty_cache()
+
+
+def bench_flow_pairs(np, n: int, size: int):
+    """The JAX bench's flow pairs (bench.py:343-356): a sinusoidal scene with
+    ±3 noise, and the scene moved by (1, 2) with fresh noise."""
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    base = 128 + 60 * np.sin(xx / 17.0) + 50 * np.cos(yy / 23.0)
+    prevs = np.stack([base + rng.integers(-3, 4, (size, size)) for _ in range(n)])
+    currs = np.stack([np.roll(base, (1, 2), (0, 1)) + rng.integers(-3, 4, (size, size)) for _ in range(n)])
+    return prevs.astype(np.float32), currs.astype(np.float32)
+
+
+def periodic_texture(np, rng, size: int, sigma: float = 2.0):
+    """A size² 0-255 texture periodic in both axes: seeded noise blurred by
+    a Gaussian of `sigma` px through the FFT, stretched to a std of 45."""
+    f = np.fft.fftfreq(size)
+    gain = np.exp(-2.0 * (np.pi * sigma) ** 2 * (f[:, None] ** 2 + f[None, :] ** 2))
+    base = np.real(np.fft.ifft2(np.fft.fft2(rng.random((size, size))) * gain))
+    return np.clip((base - base.mean()) / base.std() * 45.0 + 128.0, 0.0, 255.0)
+
+
+def flow_schedule_bound(h: int, w: int, levels=5, iterations=5, fine_iterations=None, fine_levels=1, **_):
+    """(bytes, FLOP) a Farnebäck pair needs at least, from its pyramid's level
+    sizes, if every pass kept its intermediates on chip: per level, the two
+    frames read once and each level image written (pyramid), the first
+    frame's fit (read 1 plane, write 5), and per iteration the warp (read
+    the frame and the flow's 2 planes, write 1), the warped frame's fit
+    (read 1, write 5) and the update (read 10 planes and the flow, write
+    the flow): 24 float32 planes an iteration.  FLOP per pixel: the fit
+    150 (30 + 60 taps, 5 × 6 multiply-adds), the update about 265 (220 in
+    the 11-tap box), the separable warp about 30."""
+    sizes = [(h, w)]
+    for _ in range(1, levels):
+        hh, ww = sizes[-1]
+        if min(hh, ww) // 2 < 16:
+            break
+        sizes.append((-(-hh // 2), -(-ww // 2)))
+    n_fine = min(fine_levels, len(sizes) - 1)
+    planes = flops = 0.0
+    for lvl, (hh, ww) in enumerate(sizes):
+        px = hh * ww
+        iters = fine_iterations if (lvl < n_fine and fine_iterations) else iterations
+        planes += px * (2 + 6 + 24 * iters)
+        flops += px * (150 + 445 * iters + (20 * 2 * 4 if lvl else 0))
+    return planes * 4, flops
+
+
+def check_flow(torch, np, dev) -> None:
+    """Farnebäck (full and turbo) on the JAX bench's 76 pairs: fields/s with
+    the spread, card against CPU, EPE; TV-L1 card against CPU."""
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import TURBO_PARAMS, farneback_flow_batch
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.tvl1 import tvl1_flow_pair
+
+    prevs, currs = bench_flow_pairs(np, FLOW_PAIRS, SIZE)
+    p, c = torch.from_numpy(prevs).to(dev), torch.from_numpy(currs).to(dev)
+    rng = np.random.default_rng(4)
+    tex = np.stack([periodic_texture(np, rng, SIZE) for _ in range(2)]).astype(np.float32)
+    tex_p, tex_c = torch.from_numpy(tex).to(dev), torch.from_numpy(np.roll(tex, (1, 2), (1, 2))).to(dev)
+    shift = torch.tensor([2.0, 1.0], device=dev)
+
+    def epe(flow):
+        return (flow[:, 16:-16, 16:-16] - shift).norm(dim=-1).mean().item()
+
+    for name, kw in (("full (fast_warp)", dict(fast_warp=True)), ("turbo", dict(TURBO_PARAMS))):
+        run = lambda: farneback_flow_batch(p, c, **kw)  # noqa: E731
+        with torch.inference_mode():
+            out = run()  # warm-up: allocator
+            torch.cuda.reset_peak_memory_stats()
+            times = host_ms(run, torch, FLOW_REPEATS, FLOW_CALLS)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            rates = [FLOW_PAIRS * 1e3 / t for t in times]
+            cpu = farneback_flow_batch(p[:2].cpu(), c[:2].cpu(), **kw)
+            err = (out[:2].cpu() - cpu).abs().max().item()
+            tex_epe = epe(farneback_flow_batch(tex_p, tex_c, **kw))
+        nbytes, flops = flow_schedule_bound(SIZE, SIZE, **kw)
+        level_ms = bound(FLOW_PAIRS * nbytes, FLOW_PAIRS * flops, F32_FLOPS)
+        io_ms = bound(FLOW_PAIRS * SIZE * SIZE * 4 * 4, FLOW_PAIRS * flops, F32_FLOPS)
+        print(f"flow Farnebäck {name}, {FLOW_PAIRS} pairs of {SIZE}², one batch: ms a call "
+              f"{[round(t, 3) for t in times]}; fields/s {[round(r, 1) for r in rates]} (mean "
+              f"{sum(rates) / len(rates):.1f}, spread {min(rates):.1f}-{max(rates):.1f}); peak memory {peak:.2f} GB; "
+              f"level-plane bound {level_ms[0]:.4f} ms ({level_ms[1]}, {FLOW_PAIRS * nbytes / 1e9:.3f} GB, "
+              f"{FLOW_PAIRS * flops / 1e9:.2f} GFLOP), input-output bound {io_ms[0]:.4f} ms ({io_ms[1]}); "
+              f"card vs CPU (2 pairs) max |d| {err:.3g} px; EPE {epe(out):.4f} px on the bench's sinusoids, "
+              f"{tex_epe:.4f} px on textured pairs")
+        check(bool(torch.isfinite(out).all()), f"non-finite {name} flow")
+        check(err <= 1e-4, f"{name} flow on the card differs from the CPU by {err} px")
+        check(tex_epe <= EPE_CEILING, f"{name} flow EPE {tex_epe} px on textured pairs")
+        del out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        t0 = time.perf_counter()
+        got = tvl1_flow_pair(tex_p[0], tex_c[0], compute_dtype=dtype)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = tvl1_flow_pair(tex_p[0].cpu(), tex_c[0].cpu(), compute_dtype=dtype)
+        d = (got.cpu() - ref).abs()
+        print(f"flow TV-L1 one {SIZE}² pair, {dtype} duals: {ms:.1f} ms on the card (first call); card vs CPU "
+              f"max |d| {d.max().item():.3g}, mean {d.mean().item():.3g} px; EPE {epe(got[None]):.4f} px")
+        if dtype == torch.float32:
+            check(d.max().item() <= 1e-3, f"TV-L1 f32 on the card differs from the CPU by {d.max().item()} px")
+        else:
+            check(d.mean().item() <= 0.05, f"TV-L1 bf16 duals on the card differ from the CPU by {d.mean().item()} px")
+
+
+def moving_texture_rows(np, n: int):
+    """(n, FRAMES·STAGING²·3/2) u8 I420 rows: each clip a periodic texture
+    panned by its own seeded step (±3 px a frame in y and x), chroma from
+    two more textures moved with it."""
+    rng = np.random.default_rng(13)
+    half = STAGING // 2
+    rows = np.empty((n, FRAMES, STAGING * 3 // 2, STAGING), np.uint8)
+    for i in range(n):
+        y, u, v = (periodic_texture(np, rng, STAGING) for _ in range(3))
+        dy, dx = rng.integers(-3, 4, 2)
+        for t in range(FRAMES):
+            rows[i, t, :STAGING] = np.roll(y, (t * dy, t * dx), (0, 1))
+            for j, plane in enumerate((u, v)):
+                chroma = np.roll(plane, (t * dy, t * dx), (0, 1))[::2, ::2] * 0.3 + 90.0
+                rows[i, t, STAGING + j * half // 2: STAGING + (j + 1) * half // 2] = chroma.reshape(half // 2, STAGING)
+    return rows.reshape(n, -1)
+
+
+def check_twostream(torch, np, dev, kernels) -> None:
+    """The resident TwoStream pipeline at B=16 and the bench's B=48 (or 32):
+    3 repeats of 5 steps, launch counts, probabilities; then noise gates
+    off, kernels against plain versions on the card."""
+    import crowded_scenes_ensemble_classification_tpu_torch.models.i3d as i3d_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.ops.augment as augment_mod
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import (
+        AUGMENT_P,
+        twostream_ensemble_step,
+        twostream_step_from_decisions,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.augment import draw_decisions
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_reference,
+        max_pool_3x3x3_same,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper, salt_pepper_plain
+
+    members = [b.module for b in seeded_members(torch, "TWOSTREAM_I3D", MEMBERS, 1500, stem_prestaged=True)]
+    resident = torch.from_numpy(moving_texture_rows(np, TWOSTREAM_BATCHES[1])).to(dev)
+    out_hw = (SIZE, SIZE)
+    maxpool_k = next(k for k in kernels if k["name"] == "max_pool_3x3x3_same")
+    noise_k = next(k for k in kernels if k["name"] == "salt_pepper")
+    for sizes in (TWOSTREAM_BATCHES[:1], TWOSTREAM_BATCHES[1:]):
+        for size in sizes:
+            gen = torch.Generator().manual_seed(size)
+            step = lambda i: twostream_ensemble_step(  # noqa: E731
+                members, resident, i, gen, batch_size=size, frames=FRAMES, staging=STAGING, out_hw=out_hw)
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                for i in range(2):  # warm-up: cuDNN plans, allocator
+                    step(i)
+                break
+            except torch.cuda.OutOfMemoryError:
+                print(f"TwoStream pipeline B={size} does not fit on the card")
+                torch.cuda.empty_cache()
+        else:
+            raise RuntimeError(f"chip_smoke check failed: no TwoStream batch of {sizes} fits")
+        max_pool_3x3x3_same.launches = salt_pepper.launches = 0
+        outs, counter = [], iter(range(10**6))
+        times = host_ms(lambda: outs.append(step(next(counter))), torch, HETERO_REPEATS, HETERO_STEPS)
+        launches = {"max_pool_3x3x3_same": max_pool_3x3x3_same.launches, "salt_pepper": salt_pepper.launches}
+        steps = HETERO_REPEATS * HETERO_STEPS
+        print(f"TwoStream pipeline, {MEMBERS} members, bf16, B={size}"
+              f"{'' if size == sizes[0] else f' (B={sizes[0]} does not fit)'}: {spread(times, size)}; launches "
+              f"{launches} in {steps} steps; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        check(launches == {"max_pool_3x3x3_same": 18 * MEMBERS * steps, "salt_pepper": steps},
+              f"TwoStream pipeline launch counts {launches}")
+        for probs, fused in outs[-HETERO_STEPS:]:
+            check_probs(torch, probs, (MEMBERS, size, CLASSES), f"TwoStream pipeline B={size}")
+            check(torch.equal(fused, probs.sum(0).argmax(-1)), "TwoStream fused predictions are not the SUM argmax")
+        if size == BATCH:
+            maxpool_k["launches_twostream"], noise_k["launches_twostream"] = launches.values()
+            maxpool_k["launches"] += launches["max_pool_3x3x3_same"]
+            noise_k["launches"] += launches["salt_pepper"]
+        del outs
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(5)
+    quiet = []
+    for i in range(2):
+        d = draw_decisions(gen, BATCH, (STAGING, STAGING), AUGMENT_P)
+        off = torch.zeros_like(d.salt)
+        quiet.append((resident[i * BATCH: (i + 1) * BATCH], dataclasses.replace(d, salt=off, pepper=off)))
+    kernel = [twostream_step_from_decisions(members, r, d, FRAMES, STAGING, out_hw) for r, d in quiet]
+    with mock.patch.object(i3d_mod, "max_pool_3x3x3_same", max_pool_3x3x3_reference), \
+            mock.patch.object(augment_mod, "salt_pepper", salt_pepper_plain):
+        before = (max_pool_3x3x3_same.launches, salt_pepper.launches)
+        plain = [twostream_step_from_decisions(members, r, d, FRAMES, STAGING, out_hw) for r, d in quiet]
+        check(before == (max_pool_3x3x3_same.launches, salt_pepper.launches), "plain run launched a kernel")
+    dprob = max((a[0] - b[0]).abs().max().item() for a, b in zip(kernel, plain))
+    same = all(torch.equal(a[1], b[1]) for a, b in zip(kernel, plain))
+    print(f"TwoStream pipeline, noise gates off, 2 batches of B={BATCH}: kernels vs plain versions max |dprob| "
+          f"{dprob:.3g}; fused argmax equal: {same}")
+    check(same, "TwoStream fused argmax differs between kernel and plain runs")
+    check(dprob <= 1e-2, f"TwoStream kernel and plain probabilities differ by {dprob}")
 
 
 def same_evaluation(a, b, np) -> bool:
@@ -1173,25 +1424,35 @@ def main() -> int:
     lib, nvcc_s = build()
     load_library()
     print(f"kernels built: {lib.name} (nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s)")
+    phase_s = {}
 
-    kernels = [check_maxpool(torch, dev), check_noise(torch, dev), check_stem(torch, dev),
-               check_maxpool_backward(torch, dev)]
-    check_small_model(torch, dev)
-    check_main_path(torch, np, dev, kernels)
-    bundles, batches, eager, eager_cps = check_member_path(torch, np, dev, kernels)
-    check_serving(torch, bundles, batches, eager, eager_cps)
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    kernels = [phase("maxpool", check_maxpool, torch, dev), phase("noise", check_noise, torch, dev),
+               phase("stem", check_stem, torch, dev), phase("maxpool_backward", check_maxpool_backward, torch, dev)]
+    phase("small_model", check_small_model, torch, dev)
+    phase("main_path", check_main_path, torch, np, dev, kernels)
+    bundles, batches, eager, eager_cps = phase("member_path", check_member_path, torch, np, dev, kernels)
+    phase("serving", check_serving, torch, bundles, batches, eager, eager_cps)
     del bundles, batches, eager
     torch.cuda.empty_cache()
-    check_stem_backward(torch, dev)
-    check_training(torch, np, dev, kernels)
-    check_zoo(torch, dev)
-    families = hetero_families(torch)
-    check_hetero(torch, dev, families, kernels)
-    check_evaluation(torch, np, dev, families)
+    phase("stem_backward", check_stem_backward, torch, dev)
+    phase("training", check_training, torch, np, dev, kernels)
+    phase("zoo", check_zoo, torch, dev)
+    families = phase("hetero_members", hetero_families, torch)
+    phase("hetero", check_hetero, torch, dev, families, kernels, False)
+    phase("evaluation", check_evaluation, torch, np, dev, families)
+    phase("flow", check_flow, torch, np, dev)
+    phase("hetero_flow", check_hetero, torch, dev, families, kernels, True)
     del families
     torch.cuda.empty_cache()
+    phase("twostream", check_twostream, torch, np, dev, kernels)
 
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase {phase_s}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -21,8 +21,8 @@ MODEL_TYPES = (
     "R3D_101",
     "R3D_152",
 )
-# JAX core/config.py:36 (reference train.py:2143).  The port takes
-# precomputed flow only; Farnebäck waits for flow/ (ROADMAP Queue 1 item 5).
+# JAX core/config.py:36 (reference train.py:2143).  The port's member
+# forwards take both: precomputed flow, or gray pairs for `flow.farneback`.
 OPTICAL_FLOW_STATUSES = ("TVL1_precomputed", "FarneBack_onTheFly")
 # JAX core/config.py:38-44 (reference evaluate_ensemble.py:1733).
 WEIGHTING_SCHEMES = (

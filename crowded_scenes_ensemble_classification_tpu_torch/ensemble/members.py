@@ -16,21 +16,25 @@ activations are alive at a time.  Members are the modules of one family
 
 Two-stream members take precomputed flow (`batch['flow']`, 0-255 imagery
 as in the reference's TVL1_precomputed mode, so `input_scale` applies to
-it); on-device Farnebäck waits for flow/ (ROADMAP Queue 1 item 5).
+it) or gray pairs (`batch['gray']`, `batch['gray_next']`), from which
+Farnebäck computes the flow on the members' device (displacement, so
+`input_scale` does not apply).
 `stack_variables` and `get_member_forward` have no counterpart: they stack
 flax pytrees for `vmap` and cache `jit`ted forwards, and here each member
-is an `nn.Module` run eagerly.  The member-sharded mesh form and
-`calibrate_members` are not ported yet (ROADMAP Queue 1 items 7 and 8).
+is an `nn.Module` run eagerly.  The member-sharded mesh form,
+`calibrate_members` and the serving export of gray-pair inputs are not
+ported yet (ROADMAP Queue 1 items 7 and 8).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ..flow.farneback import FLOW_CHUNK_PAIRS, farneback_flow_batch, reference_flow_hw
 from ..models.common import s2d_stem_stage
 from ..models.i3d import I3D
 from ..models.two_stream_i3d import TwoStreamI3D
@@ -54,17 +58,35 @@ def prepare_member_inputs(
     out_hw: Tuple[int, int],
     two_stream: bool,
     input_scale: float = 1.0,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
 ) -> Dict:
-    """The member forward's preprocessing: rgb, and for two-stream members
-    the precomputed flow, resized to the model's `out_hw` and scaled by
-    `input_scale` (the scale the members trained with), float32."""
+    """The member forward's preprocessing, float32 (JAX members.py:40-91):
+    rgb resized to the model's `out_hw` and scaled by `input_scale` (the
+    scale the members trained with); for two-stream members the precomputed
+    flow, resized and scaled alike, or else Farnebäck flow from the gray
+    pairs `batch['gray']` → `batch['gray_next']` (B, T, H, W, 1): resized
+    to the reference's flow resolution (`reference_flow_hw`) when staged
+    larger, solved in chunks of FLOW_CHUNK_PAIRS pairs with `flow_params`
+    (or the full schedule) and `flow_fast_warp`, resized to `out_hw`, and
+    not scaled, since it is displacement."""
     inputs = {"rgb": identity_resize_batch(batch["rgb"], out_hw) * input_scale}
     if two_stream:
-        if "flow" not in batch:
-            raise NotImplementedError(
-                "two-stream members take precomputed flow in batch['flow']; on-device Farnebäck "
-                "is not ported yet (ROADMAP Queue 1 item 5)")
-        inputs["flow"] = identity_resize_batch(batch["flow"], out_hw) * input_scale
+        if "flow" in batch:
+            inputs["flow"] = identity_resize_batch(batch["flow"], out_hw) * input_scale
+        else:
+            kw = dict(flow_params or {})
+            kw.setdefault("fast_warp", flow_fast_warp)
+            kw.setdefault("chunk_pairs", FLOW_CHUNK_PAIRS)
+            gray, gray_next = batch["gray"].float(), batch["gray_next"].float()
+            flow_hw = reference_flow_hw(gray.shape[2:4])
+            if flow_hw != tuple(gray.shape[2:4]):
+                gray = identity_resize_batch(gray, flow_hw)
+                gray_next = identity_resize_batch(gray_next, flow_hw)
+            flows = farneback_flow_batch(gray[..., 0], gray_next[..., 0], **kw)
+            if flow_hw != tuple(out_hw):
+                flows = identity_resize_batch(flows, out_hw)
+            inputs["flow"] = flows
     return inputs
 
 
@@ -93,13 +115,16 @@ def member_softmax(
     out_hw: Tuple[int, int],
     share_stem_staging: bool = False,
     input_scale: float = 1.0,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
 ) -> torch.Tensor:
-    """batch['rgb'] (B, T, H, W, 3), and batch['flow'] (B, T, H, W, 2) for
-    TwoStream members, on the members' device → (M, B, C) float32 softmax.
+    """batch['rgb'] (B, T, H, W, 3), and for TwoStream members batch['flow']
+    (B, T, H, W, 2) or the gray pairs batch['gray'] and batch['gray_next']
+    (B, T, H, W, 1), on the members' device → (M, B, C) float32 softmax.
     Opens no autograd context, so `torch.export` can trace it; callers that
     run it eagerly wrap it in `inference_mode`."""
     two_stream = isinstance(members[0], TwoStreamI3D)
-    inputs = prepare_member_inputs(batch, out_hw, two_stream, input_scale)
+    inputs = prepare_member_inputs(batch, out_hw, two_stream, input_scale, flow_fast_warp, flow_params)
     xs = [inputs[k].to(members[0].dtype) for k in (("rgb", "flow") if two_stream else ("rgb",))]
     if share_stem_staging:
         xs = [s2d_stem_stage(x) for x in xs]
@@ -111,17 +136,22 @@ def make_member_forward(
     out_hw: Tuple[int, int],
     share_stem_staging: bool = False,
     input_scale: float = 1.0,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
 ) -> Callable[[Dict], torch.Tensor]:
     """Returns fn(batch) → (M, B, C) softmax probabilities.  `batch['rgb']`
-    (and `batch['flow']` for TwoStream) is (B, T, H, W, C) on the members'
-    device; it is resized to `out_hw`, scaled by `input_scale` and cast to
-    the members' dtype, then each member runs on it (unshared) or on its s2d
-    staging (shared)."""
+    (and for TwoStream `batch['flow']`, or the gray pairs Farnebäck turns
+    into flow with `flow_params` and `flow_fast_warp`) is (B, T, H, W, C)
+    on the members' device; it is resized to `out_hw`, scaled by
+    `input_scale` (computed flow is not) and cast to the members' dtype,
+    then each member runs on it (unshared) or on its s2d staging (shared)
+    (JAX members.py:165-257)."""
     check_member_form(members, share_stem_staging)
 
     def forward(batch: Dict) -> torch.Tensor:
         with torch.inference_mode():
-            return member_softmax(members, batch, out_hw, share_stem_staging, input_scale)
+            return member_softmax(members, batch, out_hw, share_stem_staging, input_scale,
+                                  flow_fast_warp, flow_params)
 
     return forward
 
@@ -131,18 +161,23 @@ def member_probabilities(
     batches: Iterable[Dict],
     out_hw: Tuple[int, int],
     input_scale: float = 1.0,
+    flow_params: Optional[dict] = None,
 ) -> np.ndarray:
     """Run every member over an iterable of batches → (M, N, C) float32 in
     batch order, keeping the rows a batch marks `valid` (all rows when it
     has no 'valid').  I3D and TwoStream members share the stem staging, as
     in JAX members.py:305-320, so they are `stem_prestaged` members; C3D
-    and R3D members run unshared."""
+    and R3D members run unshared.  TwoStream batches carry `flow` or the
+    gray pairs; flow_params must be the Farnebäck schedule the members
+    trained with (`flow.farneback.flow_schedule_params`)."""
     share = isinstance(members[0], (I3D, TwoStreamI3D))
-    forward = make_member_forward(members, out_hw, share_stem_staging=share, input_scale=input_scale)
+    forward = make_member_forward(members, out_hw, share_stem_staging=share, input_scale=input_scale,
+                                  flow_params=flow_params)
     device = next(members[0].parameters()).device
     chunks = []
     for batch in batches:
-        on_device = {k: torch.as_tensor(batch[k]).to(device) for k in ("rgb", "flow") if k in batch}
+        on_device = {k: torch.as_tensor(batch[k]).to(device) for k in ("rgb", "flow", "gray", "gray_next")
+                     if k in batch}
         probs = forward(on_device).cpu().numpy()
         valid = np.asarray(batch.get("valid", np.ones(probs.shape[1], bool)), bool)
         chunks.append(probs[:, valid])

@@ -5,9 +5,9 @@ Counterpart of `crowded_scenes_ensemble_classification_tpu/models/two_stream_i3d
 independent I3D trunks, RGB with 3 input channels and flow with 2, each
 through the feature head and flattened, concatenated [rgb, flow], then
 one Dense.  Both trunks run the 3³/1 max-pool kernel in their 9 Mixed
-blocks.  Flow is the precomputed input (`batch['flow']`, the reference's
-TVL1_precomputed mode); on-device Farnebäck waits for flow/ (ROADMAP
-Queue 1 item 5).
+blocks.  Flow is an input: precomputed (`batch['flow']`, the reference's
+TVL1_precomputed mode) or computed on the card by `flow.farneback` from
+gray pairs (`ensemble/members.prepare_member_inputs`).
 """
 
 from __future__ import annotations

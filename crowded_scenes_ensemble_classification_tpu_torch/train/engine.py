@@ -17,10 +17,11 @@ draws the decisions an uninterrupted one would.  Epoch-level control (LR
 policy, early stopping, best-val checkpoint, NaN stop) runs on the host in
 `fit`, with the reference's callback semantics (callbacks.py).
 
-Not ported: flow inputs (`NotImplementedError`, ROADMAP Queue 1 item 5),
-the wire-fed step (a TPU transfer workaround, Queue 1 item 9), the mesh,
-and `prefetch_batches` over a `BatchPipeline` (Queue 1 item 8): `fit` and
-`evaluate_model` iterate `pipeline.batches(epoch)`.
+Not ported: flow inputs (`NotImplementedError`; they come with TwoStream
+training, ROADMAP Queue 1 item 6), the wire-fed step (a TPU transfer
+workaround, Queue 1 item 9), the mesh, and `prefetch_batches` over a
+`BatchPipeline` (Queue 1 item 8): `fit` and `evaluate_model` iterate
+`pipeline.batches(epoch)`.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ def _preprocess(
     engine.py:40-120, rgb only).  input_scale=1.0 is the reference's raw
     0-255 pixels (train.py:283-289); scratch training is steadier at 1/255."""
     if two_stream or "flow" in batch or "gray" in batch:
-        raise NotImplementedError("flow inputs are not ported yet (ROADMAP Queue 1 item 5)")
+        raise NotImplementedError("flow inputs come with TwoStream training, not ported yet (ROADMAP Queue 1 item 6)")
     if augment:
         rgb = crowd11_augment_batch(batch["rgb"], out_hw, p, generator)
     else:

@@ -456,3 +456,88 @@ def test_hetero_step_launches_the_max_pool_kernel(torch, no_tf32):
     assert probs.shape == (16, 1, 11)
     torch.testing.assert_close(probs.cpu(), ref_probs, rtol=0, atol=1e-5)
     assert torch.equal(preds.cpu(), ref_preds)
+
+
+def _flow_pairs(torch, n, size, seed):
+    """The JAX bench's flow pairs (bench.py:343-356): a sinusoidal scene with
+    ±3 noise, and the same scene moved by (1, 2) with fresh noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    base = 128 + 60 * np.sin(xx / 17.0) + 50 * np.cos(yy / 23.0)
+    prev = np.stack([base + rng.integers(-3, 4, (size, size)) for _ in range(n)])
+    curr = np.stack([np.roll(base, (1, 2), (0, 1)) + rng.integers(-3, 4, (size, size)) for _ in range(n)])
+    return torch.from_numpy(prev.astype(np.float32)), torch.from_numpy(curr.astype(np.float32))
+
+
+@pytest.mark.parametrize("schedule", ["turbo", "full"])
+def test_farneback_on_card_matches_cpu_with_tf32_on(torch, schedule):
+    """Farnebäck on the card against the same function on the CPU, 4 pairs
+    of 224², with TF32 allowed for cuDNN (PyTorch's default) and for
+    matmuls: the flow never reaches either (shifted-slice float32
+    correlations, the 6×6 solve as multiplies and adds), so the fields
+    agree within 1e-4 px, and the caller's flags come back unchanged."""
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import (
+        TURBO_PARAMS,
+        farneback_flow_batch,
+    )
+
+    kw = dict(TURBO_PARAMS) if schedule == "turbo" else dict(fast_warp=True)
+    prev, curr = _flow_pairs(torch, 4, 224, 0)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert torch.backends.cudnn.allow_tf32  # PyTorch's default
+        got = farneback_flow_batch(prev.cuda(), curr.cuda(), chunk_pairs=3, **kw)
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    ref = farneback_flow_batch(prev, curr, **kw)
+    assert got.shape == ref.shape == (4, 224, 224, 2) and got.is_cuda
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tvl1_on_card_matches_cpu(torch, dtype):
+    """TV-L1 (3 levels, the default warps and dual steps) on the card
+    against the CPU, 2 pairs of 96²: f32 within 1e-3 px; with bf16 duals
+    within 0.05 px on average (bf16 rounding in a loop of 150 steps)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.tvl1 import tvl1_flow_pair
+
+    prev, curr = _flow_pairs(torch, 2, 96, 1)
+    kw = dict(levels=3, compute_dtype=getattr(torch, dtype))
+    got = tvl1_flow_pair(prev.cuda(), curr.cuda(), **kw).cpu()
+    ref = tvl1_flow_pair(prev, curr, **kw)
+    d = (got - ref).abs()
+    assert got.dtype == torch.float32 and got.shape == (2, 96, 96, 2)
+    if dtype == "float32":
+        assert d.max().item() <= 1e-3
+    else:
+        assert d.mean().item() <= 0.05
+
+
+def test_two_stream_member_probabilities_on_gray_pairs(torch, no_tf32):
+    """member_probabilities of 2 TwoStream members (prestaged, f32) over
+    two batches of gray pairs staged at 40² (B=2, 16 frames) with rgb: the
+    flow computed on the card by turbo Farnebäck, 18 max-pool launches a
+    member a batch, probabilities within 1e-4 of the CPU's."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import member_probabilities
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import TURBO_PARAMS
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+
+    gen = torch.Generator().manual_seed(9)
+    members = [_small_family(torch, "TWOSTREAM_I3D", gen, prestaged=True) for _ in range(2)]
+    prev, curr = _flow_pairs(torch, 2 * 2 * 16, 40, 2)
+    batches = [{"rgb": prev[32 * i: 32 * (i + 1)].reshape(2, 16, 40, 40, 1).expand(2, 16, 40, 40, 3) / 255.0,
+                "gray": prev[32 * i: 32 * (i + 1)].reshape(2, 16, 40, 40, 1),
+                "gray_next": curr[32 * i: 32 * (i + 1)].reshape(2, 16, 40, 40, 1)} for i in range(2)]
+    ref = member_probabilities(members, batches, (32, 32), flow_params=TURBO_PARAMS)
+    for m in members:
+        m.cuda()
+    before = max_pool_3x3x3_same.launches
+    got = member_probabilities(members, batches, (32, 32), flow_params=TURBO_PARAMS)
+    assert max_pool_3x3x3_same.launches - before == 2 * 2 * 18
+    assert got.shape == ref.shape == (2, 4, 11)
+    assert abs(got - ref).max() <= 1e-4

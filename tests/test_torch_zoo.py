@@ -19,8 +19,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.ndimage as ndi
 
 from crowded_scenes_ensemble_classification_tpu.core import config as jconfig
+from crowded_scenes_ensemble_classification_tpu.flow import farneback as jfb
 from crowded_scenes_ensemble_classification_tpu.models import c3d as jc3d
 from crowded_scenes_ensemble_classification_tpu.models import common as jcommon
 from crowded_scenes_ensemble_classification_tpu.models import i3d as ji3d
@@ -335,10 +337,32 @@ def test_member_probabilities_c3d_matches_jax(torch, port):
     np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
+def textured_frames(rng, frames, size, step, period):
+    """(frames, size, size) 0-255 float32 frames of a texture periodic in
+    `period` px (a blur of seeded noise, stretched), moved `step` px to the
+    right each frame.  With frames·step = period, frame T−1 → frame 0 moves
+    by `step` too, so the steps' rolled pairing sees one motion.  Texture
+    keeps Farnebäck's 2×2 solve well conditioned (tests/test_torch_flow.py)."""
+    tile = ndi.gaussian_filter(rng.random((period, period)) * 255.0, 1.5, mode="wrap")
+    tile = np.clip((tile - tile.mean()) * 4.0 + 128.0, 0.0, 255.0)
+    base = np.tile(tile, (-(-size // period), -(-size // period)))[:size, :size]
+    return np.stack([np.roll(base, t * step, 1) for t in range(frames)]).astype(np.float32)
+
+
+# Both sides take this schedule: max_disp=4 clamps nothing of these
+# motions and keeps the JAX compile of the separable warp small.
+FLOW_PARAMS = dict(jfb.TURBO_PARAMS, max_disp=4)
+
+
 def test_prepare_member_inputs_flow(torch, port):
     """Precomputed flow is resized and scaled like rgb, as the JAX
-    preprocessing does in the TVL1_precomputed mode; a two-stream batch
-    without flow raises, naming the flow module's queue item."""
+    preprocessing does in the TVL1_precomputed mode.  Gray pairs become
+    Farnebäck flow (JAX members.py:66-90): staged above 224 they are first
+    resized to `reference_flow_hw` (224×223 here), below it solved as
+    staged; the flow is resized to the model's 16² and, being
+    displacement, not scaled by input_scale.  Against the JAX function on
+    textured pairs moved 2 px, atol 1e-3 px (the flow's bound in
+    tests/test_torch_flow.py) and rgb atol 1e-4 (two lerps in float32)."""
     from crowded_scenes_ensemble_classification_tpu.ensemble.members import (
         prepare_member_inputs as j_prepare,
     )
@@ -351,19 +375,59 @@ def test_prepare_member_inputs_flow(torch, port):
                                                 True, 0.5)
     for k in ("rgb", "flow"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        port["members"].prepare_member_inputs({"rgb": torch.from_numpy(batch["rgb"])}, (16, 16), True)
+
+    for h, w in ((226, 225), (40, 36)):  # above 224, then below it
+        frames = textured_frames(rng, 3, max(h, w), 2, max(h, w) // 2)[:, :h, :w]
+        gray = {"rgb": np.repeat(frames[None, :2, ..., None], 3, -1).astype(np.uint8),
+                "gray": frames[None, :2, ..., None], "gray_next": frames[None, 1:, ..., None]}
+        ref = jax.jit(lambda b: j_prepare(b, (16, 16), True, 0.5, flow_params=FLOW_PARAMS))(gray)
+        on_cpu = {k: torch.from_numpy(v) for k, v in gray.items()}
+        got = port["members"].prepare_member_inputs(on_cpu, (16, 16), True, 0.5, flow_params=FLOW_PARAMS)
+        assert got["flow"].shape == (1, 2, 16, 16, 2) and got["flow"].dtype == torch.float32
+        np.testing.assert_allclose(got["rgb"].numpy(), np.asarray(ref["rgb"]), atol=1e-4)
+        np.testing.assert_allclose(got["flow"].numpy(), np.asarray(ref["flow"]), rtol=0, atol=1e-3)
+        flow_w = jfb.reference_flow_hw((h, w))[1]  # resizing keeps the values: px at the flow resolution
+        assert abs(got["flow"][..., 0].numpy().mean() - 2.0 * flow_w / w) < 0.05
+        unscaled = port["members"].prepare_member_inputs(on_cpu, (16, 16), True, 1.0, flow_params=FLOW_PARAMS)
+        assert torch.equal(unscaled["flow"], got["flow"])  # computed flow ignores input_scale
+        assert torch.equal(unscaled["rgb"] * 0.5, got["rgb"])
 
 
-def test_hetero_step_matches_jax(torch, port, two_stream_flax):
+@pytest.fixture(scope="module")
+def jax_clip_flow():
+    """The JAX bench's in-step flow (bench.py:563-568) for (1, 16, 32, 32)
+    gray clips: turbo Farnebäck of each frame to the next, the last to the
+    first, compiled once at XLA's backend optimization level 0."""
+    def flow(gray):
+        return jfb.farneback_flow_batch(gray, jnp.roll(gray, -1, axis=1), chunk_pairs=80, **jfb.TURBO_PARAMS)
+
+    shape = jax.ShapeDtypeStruct(TS_RGB[:4], jnp.float32)
+    return jax.jit(flow).lower(shape).compile({"xla_backend_optimization_level": 0})
+
+
+def hetero_reference(families, rgb, flow):
+    """(M, 1, C) softmax of every flax member in order, TwoStream on `flow`."""
+    ref = []
+    for mt, (apply, variables, _) in families.items():
+        small = rgb[:, :16, ::2, ::2]
+        args = {"I3D": (rgb,), "TWOSTREAM_I3D": (rgb, flow)}.get(mt, (small,))
+        ref += [np.asarray(jax.nn.softmax(apply(v, *args), -1)) for v in variables]
+    return np.stack(ref)
+
+
+def test_hetero_step_matches_jax(torch, port, two_stream_flax, jax_clip_flow):
     """hetero_ensemble_step with 2 members each of I3D and TwoStream (full
     width, prestaged) and of C3D and R3D-18 (width 0.125), on 0-255 rgb and
     precomputed flow (1, 16, 32, 32): (M, B, C) probabilities equal the
     concatenation of the four flax families' softmaxes at atol 1e-5 (C3D
     and R3D on rgb[:, :16, ::2, ::2], as bench.py:560-607 feeds them; the
     I3D family's flax forwards are the canonical ones, which equal their
-    prestaged forms at about 1e-6), and the SUM-fused argmax is equal.  No
-    max-pool kernel launch is counted on the CPU."""
+    prestaged forms at about 1e-6), and the SUM-fused argmax is equal.
+    Then with flow224=None on a textured clip moving 2 px a frame: the
+    step's turbo Farnebäck flow (gray frames, the last paired with the
+    first, bench.py:563-568) within 1e-3 px of the JAX computation's, and
+    the probabilities against the flax families on the JAX flow at atol
+    1e-5.  No max-pool kernel launch is counted on the CPU."""
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
 
     rng = np.random.default_rng(30)
@@ -373,28 +437,29 @@ def test_hetero_step_matches_jax(torch, port, two_stream_flax):
 
     def family(flax_mod, *args):
         shapes = flax_shapes(flax_mod, *[a.shape for a in args])
-        return shapes, flax_forward(flax_mod, shapes, *[a.shape for a in args]), args
+        return shapes, flax_forward(flax_mod, shapes, *[a.shape for a in args])
 
-    families = {
+    specs = {
         "I3D": (family(ji3d.I3D(num_classes=CLASSES), rgb),
                 lambda: port["i3d"].I3D(CLASSES, frames=16, stem_prestaged=True)),
-        "TWOSTREAM_I3D": ((two_stream_flax[0], two_stream_flax[1], (rgb, flow)),
+        "TWOSTREAM_I3D": (two_stream_flax,
                           lambda: port["two_stream_i3d"].TwoStreamI3D(CLASSES, frames=16, stem_prestaged=True)),
         "C3D": (family(jc3d.C3D(num_classes=CLASSES, width=WIDTH), small),
                 lambda: port["c3d"].C3D(CLASSES, WIDTH, clip_thw=small.shape[1:4])),
         "R3D_18": (family(jr3d.R3D(num_classes=CLASSES, depth=18, width=WIDTH), small),
                    lambda: port["r3d"].R3D(CLASSES, 18, WIDTH)),
     }
-    ref, members = [], {}
-    for i, (mt, ((shapes, apply, args), make)) in enumerate(families.items()):
-        members[mt] = []
+    families, members = {}, {}
+    for i, (mt, ((shapes, apply), make)) in enumerate(specs.items()):
+        variables = []
         for j in range(2):
             v = fill_variables(shapes, seed=40 + 2 * i + j)
             # 0-255 pixels drive the logits to hundreds: a 0.01 head keeps the softmax unsaturated
             v["params"]["fc8" if mt == "C3D" else "predictions"]["kernel"] *= 0.01
-            ref.append(np.asarray(jax.nn.softmax(apply(v, *args), -1)))
-            members[mt].append(load(make, mt, v, port))
-    ref = np.stack(ref)
+            variables.append(v)
+        families[mt] = (apply, variables, [load(make, mt, v, port) for v in variables])
+        members[mt] = families[mt][2]
+    ref = hetero_reference(families, rgb, flow)
     before = max_pool_3x3x3_same.launches
     probs, preds = port["pipeline"].hetero_ensemble_step(members, torch.from_numpy(rgb), torch.from_numpy(flow))
     assert max_pool_3x3x3_same.launches == before
@@ -402,3 +467,70 @@ def test_hetero_step_matches_jax(torch, port, two_stream_flax):
     assert (ref.max(-1) - ref.min(-1)).min() > 1e-2  # softmaxes are not uniform
     np.testing.assert_allclose(probs.numpy(), ref, atol=1e-5)
     np.testing.assert_array_equal(preds.numpy(), np.argmax(ref.sum(0), -1))
+
+    frames = textured_frames(rng, 16, 32, 2, 32)
+    moving = np.stack([frames + 8.0 * c for c in range(3)], -1)[None]  # (1, 16, 32, 32, 3) BGR
+    jflow = np.asarray(jax_clip_flow(jfb.rgb_to_gray(jnp.asarray(moving))))
+    tflow = port["pipeline"].clip_flow(torch.from_numpy(moving)).numpy()
+    assert tflow.shape == jflow.shape == (1, 16, 32, 32, 2)
+    np.testing.assert_allclose(tflow, jflow, rtol=0, atol=1e-3)
+    assert abs(tflow[0, :, 8:-8, 8:-8, 0].mean() - 2.0) < 0.1  # the last pair too moves 2 px
+    ref = hetero_reference(families, moving, jflow)
+    probs, preds = port["pipeline"].hetero_ensemble_step(members, torch.from_numpy(moving))
+    assert max_pool_3x3x3_same.launches == before
+    np.testing.assert_allclose(probs.numpy(), ref, atol=1e-5)
+    np.testing.assert_array_equal(preds.numpy(), np.argmax(ref.sum(0), -1))
+
+
+def test_twostream_step_matches_jax(torch, port, two_stream_flax, jax_clip_flow):
+    """twostream_step_from_decisions with 2 full-width TwoStream members on
+    one resident I420 row (16 frames at 96², a texture moving 3 px a frame,
+    periodic in 48 px): decode, the augment with JAX's own crop and flip
+    decisions (noise gates off: the Philox noise is not JAX's), turbo
+    Farnebäck of the augmented gray frames (the last paired with the
+    first), the shared stagings and the members, against the JAX bench's
+    pipeline (bench.py:1366-1390) computed with the JAX functions and the
+    canonical flax forward at atol 1e-5; the fused argmax equal.  The
+    entry point, drawing its own decisions, gives probabilities that sum
+    to 1 and their SUM argmax."""
+    from crowded_scenes_ensemble_classification_tpu.data.wire_format import i420_to_bgr_u8 as j_i420
+    from crowded_scenes_ensemble_classification_tpu.ops import augment as jaugment
+
+    shapes, apply = two_stream_flax
+    variables = []
+    for j in range(2):
+        v = fill_variables(shapes, seed=60 + j)
+        v["params"]["predictions"]["kernel"] *= 0.01
+        variables.append(v)
+    make = lambda: port["two_stream_i3d"].TwoStreamI3D(CLASSES, frames=16, stem_prestaged=True)  # noqa: E731
+    members = [load(make, "TWOSTREAM_I3D", v, port) for v in variables]
+
+    t, s, out = TS_RGB[1], 96, TS_RGB[2:4]
+    y = textured_frames(np.random.default_rng(31), t, s, 3, 48).astype(np.uint8)
+    chroma = np.full((t, s // 2, s), 128, np.uint8)
+    rows = np.concatenate([y, chroma], 1).reshape(1, -1)  # (1, t·s²·3/2), frame by frame
+
+    key = jax.random.key(3)
+    do_crop, y0, x0 = jaugment.augment_crop_decisions(key, 1, (s, s), 0.75)
+    flip = [bool(jax.random.bernoulli(jax.random.split(k, 7)[2], 0.75)) for k in jax.random.split(key, 1)]
+    clip = j_i420(jnp.asarray(rows[0]), t, s, s).astype(jnp.float32)
+    x = jaugment.crowd11_augment(clip, jax.random.split(key, 1)[0], out, 0.75, apply_noise=False)[None]
+    jflow = jax_clip_flow(jfb.rgb_to_gray(x))
+    ref = np.stack([np.asarray(jax.nn.softmax(apply(v, x, jflow), -1)) for v in variables])
+
+    augment = importlib.import_module(f"{PORT}.ops.augment")
+    off = torch.zeros(1, dtype=torch.bool)
+    d = augment.AugmentDecisions(torch.tensor(do_crop), torch.tensor(y0), torch.tensor(x0), torch.tensor(flip),
+                                 off, off, seed=1)
+    probs, preds = port["pipeline"].twostream_step_from_decisions(members, torch.from_numpy(rows), d, t, s, out)
+    assert probs.shape == (2, 1, CLASSES) and preds.shape == (1,)
+    assert (ref.max(-1) - ref.min(-1)).min() > 1e-2
+    np.testing.assert_allclose(probs.numpy(), ref, atol=1e-5)
+    np.testing.assert_array_equal(preds.numpy(), np.argmax(ref.sum(0), -1))
+
+    drawn, fused = port["pipeline"].twostream_ensemble_step(
+        members, torch.from_numpy(rows), 1, torch.Generator().manual_seed(7), batch_size=1, frames=t,
+        staging=s, out_hw=out)
+    assert drawn.shape == (2, 1, CLASSES)
+    torch.testing.assert_close(drawn.sum(-1), torch.ones(2, 1))
+    assert torch.equal(fused, drawn.sum(0).argmax(-1))

@@ -17,10 +17,15 @@ bf16 on f32 master weights, 20×224² from 256² uint8 staging) at B=16 and
 B=64.  Backward ops run on autograd's device thread, outside the ranges
 this script opens, so they are charged to `unlabeled/<aten op>`.  Then the
 16-member heterogeneous step (`hetero_ensemble_step`, chip_smoke.py's
-members: 4 each of I3D, TwoStream-I3D, C3D and R3D-18, bf16, on 0-255 rgb
-and precomputed flow) at B=16, with its device time also summed by family
-(the outermost of the ranges `member` (I3D), `two_stream`, `c3d`, `r3d`
-above each kernel; `shared inputs` for the stagings and casts, `fusion`).
+members: 4 each of I3D, TwoStream-I3D, C3D and R3D-18, bf16, on 0-255 rgb,
+the flow computed in the step as the JAX bench does) at B=16, with its
+device time also summed by family (the outermost of the ranges `flow`,
+`member` (I3D), `two_stream`, `c3d`, `r3d` above each kernel; `shared
+inputs` for the stagings and casts, `fusion`).  Then the resident TwoStream
+pipeline (`twostream_ensemble_step`, chip_smoke.py's 4 TwoStream members
+on its moving-texture I420 rows) at B=16, and turbo Farnebäck alone on the
+JAX bench's 76 pairs of 224², its time split into the solver's parts
+(`pyramid`, `poly_exp`, `warp`, `update`, `upsample`).
 
 - Busy time is the union of the intervals of every kernel, memcpy and
   memset on the card, so it cannot exceed the wall clock of the profiled
@@ -52,7 +57,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FRAMES, SIZE, STAGING, MEMBERS, CLASSES = 20, 224, 256, 4, 11  # as in chip_smoke.py
 BATCHES, TRAIN_BATCHES, STEPS = (16, 48), (16, 64), 3
-FAMILY_LABELS = {"member": "I3D", "two_stream": "TWOSTREAM_I3D", "c3d": "C3D", "r3d": "R3D_18"}
+FAMILY_LABELS = {"flow": "flow", "member": "I3D", "two_stream": "TWOSTREAM_I3D", "c3d": "C3D", "r3d": "R3D_18"}
 OWN_KERNELS = {"maxpool3x3x3_kernel": "max_pool_3x3x3_same", "salt_pepper_kernel": "salt_pepper",
                "stem_bf16_kernel": "stem", "maxpool3_bwd_": "max_pool_3x3x3_same_backward"}
 
@@ -72,6 +77,7 @@ def label_stages(torch):
     """Wrap the pipeline's parts in record_function ranges; returns the
     range names."""
     import crowded_scenes_ensemble_classification_tpu_torch.ensemble.members as members_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.flow.farneback as farneback_mod
     import crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline as pipeline_mod
     import crowded_scenes_ensemble_classification_tpu_torch.models.c3d as c3d_mod
     import crowded_scenes_ensemble_classification_tpu_torch.models.common as common_mod
@@ -107,6 +113,13 @@ def label_stages(torch):
         wrap(i3d_mod, "max_pool_3x3x3_same", "max_pool_3x3x3_same"),
         wrap(i3d_mod, "max_pool_3d", "strided_pool"),
         wrap(pipeline_mod, "fuse_predictions", "fusion"),
+        wrap(pipeline_mod, "clip_flow", "flow"),
+        wrap(farneback_mod, "build_pyramid", "pyramid"),
+        wrap(farneback_mod, "_poly_exp_packed", "poly_exp"),
+        wrap(farneback_mod, "warp_image_separable", "warp"),
+        wrap(farneback_mod, "warp_image_mxu", "warp"),
+        wrap(farneback_mod, "_displacement_update_packed", "update"),
+        wrap(farneback_mod, "upsample_flow", "upsample"),
         wrap(engine_mod, "_gather", "gather"),
         wrap(engine_mod, "_preprocess", "preprocess"),
         wrap(state_mod.KerasSGD, "step", "optimizer"),
@@ -192,22 +205,16 @@ def family_ms(events, labels, steps: int) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def profile_hetero(batch: int, steps: int, labels, torch, np) -> dict:
-    """The 16-member heterogeneous step at `batch`, chip_smoke.py's
-    members and inputs; busy ms, ms by stage and aten op, ms by family."""
-    import chip_smoke
-    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import hetero_ensemble_step
-
-    dev = torch.device("cuda")
-    families = chip_smoke.hetero_families(torch)
-    rgb = chip_smoke.seeded_clips(torch, dev, (batch, FRAMES, SIZE, SIZE, 3), 500 + batch)
-    flow = chip_smoke.seeded_clips(torch, dev, (batch, FRAMES, SIZE, SIZE, 2), 600 + batch)
+def profile_run(path: str, batch: int, steps: int, step, labels, torch, families: bool = False) -> dict:
+    """Warm up, time `steps` calls of step(i) unprofiled, then `steps` more
+    under the profiler → busy ms, ms by stage and aten op (and by family)."""
+    counter = iter(range(10**6))
 
     def run() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            hetero_ensemble_step(families, rgb, flow)
+            step(next(counter))
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -216,15 +223,64 @@ def profile_hetero(batch: int, steps: int, labels, torch, np) -> dict:
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         wall_s = run()
-    out = {"path": "hetero", "batch": batch, "steps": steps,
+    out = {"path": path, "batch": batch, "steps": steps,
            "wall_ms_per_step_unprofiled": plain_s * 1e3 / steps,
            "clips_per_s_unprofiled": steps * batch / plain_s}
     events = prof.events()
     out.update(breakdown(events, labels, wall_s, steps))
     out["busy_share_of_unprofiled_wall"] = out["busy_ms_per_step"] / out["wall_ms_per_step_unprofiled"]
-    out["families_ms_per_step"] = family_ms(events, labels, steps)
-    del families, rgb, flow
+    if families:
+        out["families_ms_per_step"] = family_ms(events, labels, steps)
+    return out
+
+
+def profile_hetero(batch: int, steps: int, labels, torch, np) -> dict:
+    """The 16-member heterogeneous step at `batch`, chip_smoke.py's members
+    and rgb, the flow computed in the step; busy ms, ms by stage and aten
+    op, ms by family (the flow as a family of its own)."""
+    import chip_smoke
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import hetero_ensemble_step
+
+    dev = torch.device("cuda")
+    families = chip_smoke.hetero_families(torch)
+    rgb = chip_smoke.seeded_clips(torch, dev, (batch, FRAMES, SIZE, SIZE, 3), 500 + batch)
+    out = profile_run("hetero", batch, steps, lambda i: hetero_ensemble_step(families, rgb), labels, torch,
+                      families=True)
+    del families, rgb
     torch.cuda.empty_cache()
+    return out
+
+
+def profile_twostream(batch: int, steps: int, labels, torch, np) -> dict:
+    """The resident TwoStream pipeline at `batch`: chip_smoke.py's members
+    and I420 rows."""
+    import chip_smoke
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import twostream_ensemble_step
+
+    members = [b.module for b in chip_smoke.seeded_members(torch, "TWOSTREAM_I3D", MEMBERS, 1500,
+                                                           stem_prestaged=True)]
+    resident = torch.from_numpy(chip_smoke.moving_texture_rows(np, 3 * batch)).cuda()
+    gen = torch.Generator().manual_seed(4)
+    out = profile_run("twostream", batch, steps, lambda i: twostream_ensemble_step(
+        members, resident, i, gen, batch_size=batch, frames=FRAMES, staging=STAGING, out_hw=(SIZE, SIZE)),
+        labels, torch, families=True)
+    del members, resident
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_flow(steps: int, labels, torch, np) -> dict:
+    """Turbo Farnebäck alone on the JAX bench's 76 pairs of 224² (one batch,
+    as bench.py:343-382 times it): busy ms and idle share of a call."""
+    import chip_smoke
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import TURBO_PARAMS, farneback_flow_batch
+
+    prevs, currs = chip_smoke.bench_flow_pairs(np, chip_smoke.FLOW_PAIRS, SIZE)
+    p, c = torch.from_numpy(prevs).cuda(), torch.from_numpy(currs).cuda()
+    with torch.inference_mode():
+        out = profile_run("flow_turbo_76_pairs", chip_smoke.FLOW_PAIRS, steps,
+                          lambda i: farneback_flow_batch(p, c, **TURBO_PARAMS), labels, torch)
+    out["fields_per_s_unprofiled"] = out.pop("clips_per_s_unprofiled")
     return out
 
 
@@ -377,7 +433,8 @@ def profile_train(batch: int, steps: int, labels, torch, np) -> dict:
 
 
 def print_record(title: str, r: dict) -> None:
-    print(f"{title}: {r['clips_per_s_unprofiled']:.2f} clips/s unprofiled "
+    rate = r.get("clips_per_s_unprofiled", r.get("fields_per_s_unprofiled"))
+    print(f"{title}: {rate:.2f} {'fields' if 'fields_per_s_unprofiled' in r else 'clips'}/s unprofiled "
           f"({r['wall_ms_per_step_unprofiled']:.3f} ms/step); profiled wall {r['wall_ms_per_step']:.3f} "
           f"ms/step, device busy {r['busy_ms_per_step']:.3f} ms/step, idle share {r['idle_share']:.4f}")
     for name, s in r["stages"].items():
@@ -414,11 +471,16 @@ def main() -> int:
         r["device"] = smi
         results.append(r)
         print_record(f"train B={batch}", r)
-    r = profile_hetero(BATCHES[0], STEPS, labels, torch, np)
+    for profile in (profile_hetero, profile_twostream):
+        r = profile(BATCHES[0], STEPS, labels, torch, np)
+        r["device"] = smi
+        results.append(r)
+        print_record(f"{r['path']} B={r['batch']}", r)
+        print("  by family: " + ", ".join(f"{k} {v:.3f} ms" for k, v in r["families_ms_per_step"].items()))
+    r = profile_flow(STEPS, labels, torch, np)
     r["device"] = smi
     results.append(r)
-    print_record(f"hetero B={r['batch']}", r)
-    print("  by family: " + ", ".join(f"{k} {v:.3f} ms" for k, v in r["families_ms_per_step"].items()))
+    print_record(r["path"], r)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
