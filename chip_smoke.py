@@ -105,15 +105,34 @@ Phases, each of which raises on failure (exit code 1):
    224²) at B=16 and the bench's B=48 (or 32), 3 repeats of 5 steps, 72
    max-pool and 1 noise launch a step, probabilities finite and summing to
    1; then noise gates off through the kernels and through the plain
-   versions on the card: fused argmax equal, max |Δprob| ≤ 1e-2.
+   versions on the card: fused argmax equal, max |Δprob| ≤ 1e-2;
+19. resident training of the rest of the zoo (JAX bench.py:624-720), bf16
+   on f32 master weights drawn on the card, augment on, staging the model
+   size + 32 with 2·B rows, each family with its optimizer and l2 rule
+   (`train_policy`): C3D at B=32, TwoStream-I3D at B=16 with turbo
+   Farnebäck of resident f32 gray pairs in the step, R3D-18 at B=32: 3
+   repeats of 5 steps (ms/step, clips/s, spread), peak memory, finite
+   losses, 18/18/1 max-pool, gradient and noise launches a TwoStream step
+   and 0/0/1 a C3D and R3D step, a repeated batch whose loss falls over 10
+   steps (C3D's read in eval mode: its dropout draws new masks each step);
+   for TwoStream the flow alone on a step's pairs, one step with
+   `flow_from_augmented`, `fit` over 2 epochs with its best checkpoint
+   reloaded to its val loss (1e-3), and one f32 step (B=4) through the
+   kernels against the plain versions, gradients and params within 1e-4
+   relative error; R3D-50 at B=8 for 2 steps (the bottleneck blocks); two
+   full-width C3D members through `make_multi_member_train_step` for 3
+   steps (B=8, dropout on), each within 1e-6 relative error of itself
+   trained alone by `make_train_step` (cuDNN deterministic).
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 67 TFLOP/s
 f32 outside the tensor cores, 3.35 TB/s.  The line before last is the
 kernels' JSON record (4 kernels; the max pool's `launches` counts the main
 path's 3 steps, the heterogeneous phase's 5 steps at B=16 with precomputed
 flow and 15 with the flow on the card, and the TwoStream pipeline's 15
-steps at B=16; the noise kernel's the main path's and the TwoStream
-pipeline's); the last line is `{"ok": true, "device": {...}}`.
+steps at B=16, and the first 5 timed train steps of each family of
+phase 19; the noise kernel's the main path's, the TwoStream pipeline's and
+phase 19's; the gradient kernel's the I3D training path's and phase
+19's); the last line is `{"ok": true, "device": {...}}`.
 Needs one card and no network.
 """
 
@@ -1312,6 +1331,311 @@ def check_twostream(torch, np, dev, kernels) -> None:
     check(dprob <= 1e-2, f"TwoStream kernel and plain probabilities differ by {dprob}")
 
 
+TRAIN_ZOO = (("C3D", 32), ("TWOSTREAM_I3D", 16), ("R3D_18", 32))  # JAX bench.py:640-654, at its batches
+TRAIN_ZOO_STEPS, TRAIN_ZOO_REPEATS = 5, 3
+
+
+def zoo_launches() -> dict:
+    """The three training kernels' launch counters, by kernel name."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper
+
+    return {"max_pool_3x3x3_same": max_pool_3x3x3_same.launches,
+            "max_pool_3x3x3_same_backward": max_pool_3x3x3_same_backward.launches,
+            "salt_pepper": salt_pepper.launches}
+
+
+def zero_zoo_launches() -> None:
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper
+
+    max_pool_3x3x3_same.launches = max_pool_3x3x3_same_backward.launches = salt_pepper.launches = 0
+
+
+def zoo_resident(np, rng, bundle, rows: int, batch: int, **kw):
+    """`rows` seeded uint8 clips at the bench's staging (the model size + 32,
+    bench.py:664) as `ResidentClips` on the card; for TwoStream also the
+    bench's f32 gray pairs: the clip's mean over channels paired with the
+    next frame (bench.py:670-673)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.data.resident import ResidentClips
+
+    c = bundle.clip
+    rgb = rng.integers(0, 256, (rows, c.frames, c.height + 32, c.width + 32, 3), dtype=np.uint8)
+    arrays = {"rgb": rgb}
+    if bundle.two_stream:
+        arrays["gray"] = rgb.mean(-1, keepdims=True, dtype=np.float32)
+        arrays["gray_next"] = np.roll(arrays["gray"], -1, axis=1)
+    return ResidentClips(arrays, rng.integers(0, CLASSES, rows), batch, **kw)
+
+
+def train_zoo_family(torch, np, rng, model_type: str, batch: int, seed: int) -> dict:
+    """One family's resident training at full width, augment on, bf16 on f32
+    master weights drawn on the card: launches a step, finite losses, ms/step
+    and clips/s over 3 repeats of 5 steps, peak memory, and a repeated batch
+    whose loss falls.  Returns what the TwoStream checks reuse."""
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import flow_schedule_params
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        make_resident_eval_step,
+        make_resident_train_step,
+        train_policy,
+    )
+
+    bundle = build_model(model_type, dtype=torch.bfloat16, generator=torch.Generator(device="cuda").manual_seed(seed),
+                         trainable=True)
+    hw = (bundle.clip.height, bundle.clip.width)
+    fp = flow_schedule_params("turbo") if bundle.two_stream else None  # the bench's schedule (bench.py:684-690)
+    data = zoo_resident(np, rng, bundle, 2 * batch, batch)
+    tx, l2 = train_policy(model_type)
+    kw = dict(l2_weight=l2, input_scale=INPUT_SCALE, flow_params=fp)
+    step = make_resident_train_step(bundle, tx, hw, augment=True, **kw)
+    state = TrainState.create(bundle.module, tx, seed=seed)
+    steps = [next(data.batches(e)) for e in range(TRAIN_ZOO_STEPS)]
+    cw = torch.ones(CLASSES, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state, _, _ = train_steps(step, state, steps[:2], cw, torch)  # warm-up: cuDNN plans, allocator
+    times, losses = [], []
+    for r in range(TRAIN_ZOO_REPEATS):
+        if r == 0:
+            zero_zoo_launches()
+        state, run, ms = train_steps(step, state, steps, cw, torch)
+        if r == 0:
+            launches = zoo_launches()
+        times.append(ms)
+        losses += run
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: v // TRAIN_ZOO_STEPS for k, v in launches.items()}
+    print(f"train {model_type} B={batch}, bf16 on f32 master weights, "
+          f"augment on{', turbo flow from gray pairs in the step' if fp else ''}: {spread(times, batch)}; peak "
+          f"memory {peak:.2f} GB; launches a step {per_step}")
+    check(all(math.isfinite(float(x)) for x in losses), f"{model_type}: non-finite training loss")
+    pool = 18 if bundle.two_stream else 0
+    check(launches == {"max_pool_3x3x3_same": pool * TRAIN_ZOO_STEPS, "max_pool_3x3x3_same_backward":
+                       pool * TRAIN_ZOO_STEPS, "salt_pepper": TRAIN_ZOO_STEPS},
+          f"{model_type} train launch counts {launches} in {TRAIN_ZOO_STEPS} steps")
+
+    # One batch again and again: the loss falls.  C3D's is read in eval mode
+    # before and after, as its dropout draws new masks every step.
+    still = make_resident_train_step(bundle, tx, hw, augment=False, **kw)
+    loss_of = make_resident_eval_step(bundle, hw, input_scale=INPUT_SCALE, flow_params=fp)
+    evaluated = lambda: (lambda o: (o["loss_sum"] / o["count"]).item())(loss_of(steps[0]))  # noqa: E731
+    before = evaluated() if model_type == "C3D" else None
+    state, repeated, _ = train_steps(still, state, steps[:1] * 11, cw, torch)
+    first, last = (before, evaluated()) if model_type == "C3D" else (float(repeated[0]), float(repeated[-1]))
+    print(f"train {model_type}: one batch repeated, loss {first:.4f} at the first step, {last:.4f} after 10 steps"
+          f"{' (eval mode, no dropout)' if model_type == 'C3D' else ''}")
+    check(last < first, f"{model_type}: the loss did not fall on a repeated batch: {first} -> {last}")
+    return {"bundle": bundle, "data": data, "steps": steps, "tx": tx, "kw": kw, "state": state, "launches": launches,
+            "ms": times}
+
+
+def check_two_stream_training(torch, np, rng, fam: dict) -> None:
+    """TwoStream only: the flow's own time a step, one step with
+    `flow_from_augmented`, `fit` over 2 epochs with a best checkpoint, and
+    one f32 step through the kernels against the plain versions."""
+    import crowded_scenes_ensemble_classification_tpu_torch.models.i3d as i3d_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.ops.augment as augment_mod
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import gray_pair_flow
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_reference
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper_plain
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        evaluate_model,
+        fit,
+        make_resident_train_step,
+        restore_best,
+        train_policy,
+    )
+
+    bundle, data, kw = fam["bundle"], fam["data"], fam["kw"]
+    hw = (bundle.clip.height, bundle.clip.width)
+    cw = torch.ones(CLASSES, device="cuda")
+    # The flow alone, on one step's gray pairs.
+    idx = torch.as_tensor(fam["steps"][0]["indices"], device="cuda")
+    gray, gray_next = (data.resident[k].index_select(0, idx) for k in ("gray", "gray_next"))
+    with torch.no_grad():
+        flow_times = host_ms(lambda: gray_pair_flow(gray, gray_next, hw, flow_params=kw["flow_params"]), torch,
+                             TRAIN_ZOO_REPEATS, 1)
+        flow_dev = cuda_ms(lambda: gray_pair_flow(gray, gray_next, hw, flow_params=kw["flow_params"]), iters=3,
+                           warmup=1, queue_ahead=False)
+    pairs = gray.shape[0] * gray.shape[1]
+    print(f"train TWOSTREAM_I3D: the flow alone, {pairs} pairs of {tuple(gray.shape[2:4])} → {hw}, turbo: "
+          f"{[round(t, 3) for t in flow_times]} ms a step on the host clock, {flow_dev:.3f} ms between CUDA events "
+          f"(train step mean {sum(fam['ms']) / len(fam['ms']):.3f} ms)")
+    del gray, gray_next
+
+    # One step with the flow from the augmented gray pairs.
+    tx = fam["tx"]
+    aug = make_resident_train_step(bundle, tx, hw, augment=True, flow_from_augmented=True, **kw)
+    zero_zoo_launches()
+    state, losses, ms = train_steps(aug, fam["state"], fam["steps"][:1], cw, torch)
+    launches = zoo_launches()
+    print(f"train TWOSTREAM_I3D flow_from_augmented: loss {float(losses[0]):.4f}, {ms:.3f} ms, launches {launches}")
+    check(math.isfinite(float(losses[0])) and launches == {"max_pool_3x3x3_same": 18,
+                                                          "max_pool_3x3x3_same_backward": 18, "salt_pepper": 1},
+          f"TwoStream flow_from_augmented step: loss {losses[0]}, launches {launches}")
+    del aug, state, fam["state"]
+
+    # fit: 2 epochs over the resident sets, a best checkpoint reloaded.
+    val = zoo_resident(np, rng, bundle, BATCH, BATCH, shuffle=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = fit(bundle, data, val, epochs=2, augment=True, input_scale=INPUT_SCALE, checkpoint_dir=tmp,
+                  flow_params=kw["flow_params"])
+        hist = out["history"]
+        print(f"train TWOSTREAM_I3D fit: 2 epochs of {len(data)} steps in {time.perf_counter() - t0:.1f} s; "
+              f"history {hist}")
+        check(len(hist["val_loss"]) == 2 and all(math.isfinite(x) for v in hist.values() for x in v),
+              "TwoStream fit history is short or not finite")
+        twin = build_model("TWOSTREAM_I3D", dtype=torch.bfloat16, trainable=True,
+                           generator=torch.Generator(device="cuda").manual_seed(77))
+        twin.module.load_state_dict(restore_best(tmp))
+        best = evaluate_model(twin, val, hw, input_scale=INPUT_SCALE, flow_params=kw["flow_params"])["loss"]
+    print(f"train TWOSTREAM_I3D: best checkpoint reloaded, val loss {best:.6f} (fit's best {out['best_val_loss']:.6f})")
+    check(abs(best - out["best_val_loss"]) <= 1e-3 * abs(out["best_val_loss"]),
+          f"the TwoStream best checkpoint evaluates to {best}, not {out['best_val_loss']}")
+    del twin, out, val
+    torch.cuda.empty_cache()
+
+    # One f32 step through the kernels against the plain versions, B=4.
+    small = zoo_resident(np, rng, bundle, 4, 4)
+    batch = next(small.batches(0))
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for plain in (False, True):
+        b = build_model("TWOSTREAM_I3D", trainable=True, generator=torch.Generator(device="cuda").manual_seed(78))
+        ftx, _ = train_policy("TWOSTREAM_I3D")
+        fstep = make_resident_train_step(b, ftx, hw, augment=True, **kw)
+        before = zoo_launches()
+        if plain:
+            with mock.patch.object(i3d_mod, "max_pool_3x3x3_same", max_pool_3x3x3_reference), \
+                    mock.patch.object(augment_mod, "salt_pepper", salt_pepper_plain):
+                fstep(TrainState.create(b.module, ftx, seed=1), batch, cw)
+            check(zoo_launches() == before, "the plain TwoStream run launched a kernel")
+        else:
+            fstep(TrainState.create(b.module, ftx, seed=1), batch, cw)
+        runs.append(({n: p.grad.detach().clone() for n, p in b.module.named_parameters() if p.requires_grad},
+                     {n: p.detach().clone() for n, p in b.module.named_parameters()}))
+        del b, fstep
+    torch.backends.cudnn.deterministic = False
+    grad_err = max(relative_errors(runs[0][0], runs[1][0]).values())
+    param_err = max(relative_errors(runs[0][1], runs[1][1]).values())
+    print(f"train TWOSTREAM_I3D one f32 step, B=4, kernels vs plain versions: max relative error {grad_err:.3g} "
+          f"over the {len(runs[0][0])} gradients, {param_err:.3g} over the updated params")
+    check(grad_err <= 1e-4 and param_err <= 1e-4, f"TwoStream kernel and plain steps differ: {grad_err}, {param_err}")
+
+
+def check_multi_member(torch, np, rng) -> None:
+    """M=2 full-width C3D members for 3 steps of `make_multi_member_train_step`
+    (B=8, augment on, dropout on) against each member trained alone by
+    `make_train_step` from the same weights and seed: params within 1e-6
+    relative error (cuDNN deterministic)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        make_multi_member_train_step,
+        make_train_step,
+        stack_states,
+        train_policy,
+    )
+
+    m, b, steps = 2, 8, 3
+    c = CLIP_SPECS["C3D"]
+    hw = (c.height, c.width)
+    batches = [{"rgb": rng.integers(0, 256, (m, b, c.frames, c.height + 32, c.width + 32, 3), dtype=np.uint8),
+                "label": rng.integers(0, CLASSES, (m, b)), "valid": np.ones((m, b), bool)} for _ in range(steps)]
+    cw = torch.ones(CLASSES, device="cuda")
+    make = lambda i: build_model("C3D", dtype=torch.bfloat16, trainable=True,  # noqa: E731
+                                 generator=torch.Generator(device="cuda").manual_seed(90 + i))
+    torch.backends.cudnn.deterministic = True
+    tx, _ = train_policy("C3D")
+    members = [make(i) for i in range(m)]
+    states = stack_states([TrainState.create(x.module, tx, seed=i) for i, x in enumerate(members)])
+    multi = make_multi_member_train_step(members[0], tx, hw, augment=True, input_scale=INPUT_SCALE)
+    t0 = time.perf_counter()
+    for batch in batches:
+        states, metrics = multi(states, batch, cw)
+    torch.cuda.synchronize()
+    multi_ms = (time.perf_counter() - t0) * 1e3 / steps
+    errs = []
+    for i in range(m):
+        alone = make(i)
+        atx, _ = train_policy("C3D")
+        step = make_train_step(alone, atx, hw, augment=True, input_scale=INPUT_SCALE)
+        state = TrainState.create(alone.module, atx, seed=i)
+        for batch in batches:
+            state, _ = step(state, {k: v[i] for k, v in batch.items()}, cw)
+        ref = dict(alone.module.named_parameters())
+        errs.append(max(relative_errors(dict(members[i].module.named_parameters()), ref).values()))
+        del alone, state, step
+    torch.backends.cudnn.deterministic = False
+    print(f"multi-member: {m} C3D members, B={b}, {steps} steps ({multi_ms:.1f} ms a step for both), losses "
+          f"{[round(x, 4) for x in metrics['loss'].tolist()]}; each member against itself trained alone: max "
+          f"relative error {[f'{e:.3g}' for e in errs]}")
+    check(tuple(metrics["loss"].shape) == (m,) and max(errs) <= 1e-6, f"multi-member differs from alone: {errs}")
+    del members, states, multi
+    torch.cuda.empty_cache()
+
+
+def check_train_zoo(torch, np, dev, kernels) -> None:
+    """Resident training of the rest of the zoo at full width (JAX
+    bench.py:624-720): C3D at B=32, TwoStream-I3D at B=16 with turbo
+    Farnebäck of resident gray pairs in the step, R3D-18 at B=32, then
+    R3D-50 at B=8 for 2 steps; the TwoStream checks; the multi-member
+    step.  Adds the launches of each family's first 5 timed steps to the
+    kernels' record."""
+    rng = np.random.default_rng(19)
+    total = dict.fromkeys(("max_pool_3x3x3_same", "max_pool_3x3x3_same_backward", "salt_pepper"), 0)
+    for i, (model_type, batch) in enumerate(TRAIN_ZOO):
+        fam = train_zoo_family(torch, np, rng, model_type, batch, 100 + i)
+        for k in total:
+            total[k] += fam["launches"][k]
+        if model_type == "TWOSTREAM_I3D":
+            check_two_stream_training(torch, np, rng, fam)
+        del fam
+        torch.cuda.empty_cache()
+
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        make_resident_train_step,
+        train_policy,
+    )
+
+    bundle = build_model("R3D_50", dtype=torch.bfloat16, trainable=True,
+                         generator=torch.Generator(device="cuda").manual_seed(110))
+    data = zoo_resident(np, rng, bundle, 8, 8)
+    tx, l2 = train_policy("R3D_50")
+    step = make_resident_train_step(bundle, tx, (bundle.clip.height, bundle.clip.width), augment=True, l2_weight=l2,
+                                    input_scale=INPUT_SCALE)
+    torch.cuda.reset_peak_memory_stats()
+    zero_zoo_launches()
+    _, losses, ms = train_steps(step, TrainState.create(bundle.module, tx), [next(data.batches(e)) for e in range(2)],
+                                torch.ones(CLASSES, device=dev), torch)
+    launches = zoo_launches()
+    print(f"train R3D_50 B=8, bf16 on f32 master weights, 2 steps (cuDNN plans included): {ms:.1f} ms/step; losses "
+          f"{[round(float(x), 4) for x in losses]}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"launches {launches}")
+    check(all(math.isfinite(float(x)) for x in losses), "R3D_50: non-finite training loss")
+    check(launches == {"max_pool_3x3x3_same": 0, "max_pool_3x3x3_same_backward": 0, "salt_pepper": 2},
+          f"R3D_50 launch counts {launches}")
+    del bundle, data, step
+    torch.cuda.empty_cache()
+    check_multi_member(torch, np, rng)
+    for k in kernels:
+        if k["name"] in total:
+            k["launches_train_zoo"] = total[k["name"]]
+            k["launches"] += total[k["name"]]
+
+
 def same_evaluation(a, b, np) -> bool:
     """Two EnsembleResults equal field for field, weights and predictions
     exactly."""
@@ -1451,6 +1775,8 @@ def main() -> int:
     del families
     torch.cuda.empty_cache()
     phase("twostream", check_twostream, torch, np, dev, kernels)
+    torch.cuda.empty_cache()
+    phase("train_zoo", check_train_zoo, torch, np, dev, kernels)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase {phase_s}")
     print(json.dumps({"kernels": kernels}))

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..flow.farneback import FLOW_CHUNK_PAIRS, farneback_flow_batch, reference_flow_hw
+from ..flow.farneback import gray_pair_flow
 from ..models.common import s2d_stem_stage
 from ..models.i3d import I3D
 from ..models.two_stream_i3d import TwoStreamI3D
@@ -65,28 +65,15 @@ def prepare_member_inputs(
     rgb resized to the model's `out_hw` and scaled by `input_scale` (the
     scale the members trained with); for two-stream members the precomputed
     flow, resized and scaled alike, or else Farnebäck flow from the gray
-    pairs `batch['gray']` → `batch['gray_next']` (B, T, H, W, 1): resized
-    to the reference's flow resolution (`reference_flow_hw`) when staged
-    larger, solved in chunks of FLOW_CHUNK_PAIRS pairs with `flow_params`
-    (or the full schedule) and `flow_fast_warp`, resized to `out_hw`, and
-    not scaled, since it is displacement."""
+    pairs `batch['gray']` → `batch['gray_next']` (B, T, H, W, 1) by
+    `flow.farneback.gray_pair_flow` with `flow_params` (or the full
+    schedule) and `flow_fast_warp`, not scaled, since it is displacement."""
     inputs = {"rgb": identity_resize_batch(batch["rgb"], out_hw) * input_scale}
     if two_stream:
         if "flow" in batch:
             inputs["flow"] = identity_resize_batch(batch["flow"], out_hw) * input_scale
         else:
-            kw = dict(flow_params or {})
-            kw.setdefault("fast_warp", flow_fast_warp)
-            kw.setdefault("chunk_pairs", FLOW_CHUNK_PAIRS)
-            gray, gray_next = batch["gray"].float(), batch["gray_next"].float()
-            flow_hw = reference_flow_hw(gray.shape[2:4])
-            if flow_hw != tuple(gray.shape[2:4]):
-                gray = identity_resize_batch(gray, flow_hw)
-                gray_next = identity_resize_batch(gray_next, flow_hw)
-            flows = farneback_flow_batch(gray[..., 0], gray_next[..., 0], **kw)
-            if flow_hw != tuple(out_hw):
-                flows = identity_resize_batch(flows, out_hw)
-            inputs["flow"] = flows
+            inputs["flow"] = gray_pair_flow(batch["gray"], batch["gray_next"], out_hw, flow_fast_warp, flow_params)
     return inputs
 
 

@@ -24,6 +24,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..ops.resize import crop_resize
 from .pyramid import (
     _channel_taps,
     _const,
@@ -241,6 +242,34 @@ def farneback_flow_batch(
                                  for i in range(0, n, step)]
     out = flows[0] if len(flows) == 1 else torch.cat(flows)
     return out.reshape(lead + (h, w, 2))
+
+
+def gray_pair_flow(
+    gray: torch.Tensor,
+    gray_next: torch.Tensor,
+    out_hw,
+    fast_warp: bool = False,
+    flow_params: dict | None = None,
+) -> torch.Tensor:
+    """Farnebäck flow of staged gray pairs (B, T, H, W, 1) → (B, T, oh, ow, 2)
+    float32 at the model size `out_hw`, as the member forward and the train
+    steps compute it (JAX members.py:66-90, engine.py:75-113): the frames
+    resized to the reference's flow resolution (`reference_flow_hw`) when
+    staged larger, solved over the flat B·T pairs in chunks of
+    FLOW_CHUNK_PAIRS with `flow_params` (None: the full schedule) and
+    `fast_warp`, and the fields resized to out_hw, their values unchanged
+    (displacement, not imagery: no input scale)."""
+    kw = dict(flow_params or {})
+    kw.setdefault("fast_warp", fast_warp)
+    kw.setdefault("chunk_pairs", FLOW_CHUNK_PAIRS)
+    gray, gray_next = gray.float(), gray_next.float()
+    flow_hw = reference_flow_hw(gray.shape[2:4])
+    if flow_hw != tuple(gray.shape[2:4]):
+        gray, gray_next = crop_resize(gray, flow_hw), crop_resize(gray_next, flow_hw)
+    flows = farneback_flow_batch(gray[..., 0], gray_next[..., 0], **kw)
+    if flow_hw != tuple(out_hw):
+        flows = crop_resize(flows, out_hw)
+    return flows
 
 
 def rgb_to_gray(clip: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,12 @@ and fc8.  Attribute names follow the flax tree (`conv3a`, `fc6`), so
 `models/convert.py` maps a flax checkpoint key for key.  Takes NTHWC clips
 and returns float32 logits; the int8 path is not ported (ROADMAP Queue 1
 item 7).
+
+Dropout (train mode only) draws its masks from the `generator` given to
+`forward`, never from torch's global RNG: the train steps seed one per step
+from (state.seed, state.step) on the module's device, as JAX derives its
+dropout key from (state.rng, state.step), so a resumed run draws the masks
+an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -63,11 +69,21 @@ def _dense(c_in: int, c_out: int, generator) -> nn.Linear:
     return dense
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax `nn.Dropout(rate)` in train mode: keep each element with
+    probability 1 − rate, scaled by 1/(1 − rate), the mask drawn from
+    `generator` on x's device."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class C3D(nn.Module):
     """C3D classifier (JAX models/c3d.py:30-98).  `width` shrinks every layer,
     `w = max(int(f·width), 8)` (width 1 is the reference topology);
     `clip_thw` is the (T, H, W) it is built for, which sizes fc6.  Dropout
-    acts in train mode only."""
+    acts in train mode only.  `compute_dtype`, when set, is the dtype the
+    model computes in while its weights stay in theirs (f32 master weights,
+    each cast in the forward, as `I3D`)."""
 
     def __init__(
         self,
@@ -86,21 +102,35 @@ class C3D(nn.Module):
         self.fc6 = _dense(c3d_flat_features(clip_thw, c_in), w(FC_FEATURES), generator)
         self.fc7 = _dense(w(FC_FEATURES), w(FC_FEATURES), generator)
         self.fc8 = _dense(w(FC_FEATURES), num_classes, generator)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
+        self.compute_dtype: Optional[torch.dtype] = None
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv1.weight.dtype
+        """The working dtype: `compute_dtype`, else that of the weights."""
+        return self.compute_dtype or self.conv1.weight.dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = to_ncdhw(x.to(self.dtype))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits of NTHWC clips; in train mode with a dropout rate, the
+        dropout masks come from `generator` (required)."""
+        dt = self.dtype
+        drop = self.training and self.dropout_rate > 0.0
+        if drop and generator is None:
+            raise ValueError("C3D's dropout in train mode draws from an explicit generator; none was given")
+        dense = lambda m, x: F.linear(x, m.weight.to(dt), m.bias.to(dt))  # noqa: E731
+        x = to_ncdhw(x.to(dt))
         for name, _, pool in _CONVS:
-            x = F.relu(getattr(self, name)(x))
+            conv = getattr(self, name)
+            x = F.relu(F.conv3d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1))
             if pool == "pad+pool":  # ZeroPadding3D(((0,0),(0,1),(0,1))) (reference train.py:1259-1261)
                 x = F.pad(x, (0, 1, 0, 1))
                 pool = (2, 2, 2)
             if pool is not None:
                 x = max_pool_3d(x, pool, pool, padding="VALID")
-        x = self.dropout(F.relu(self.fc6(flatten(x))))
-        x = self.dropout(F.relu(self.fc7(x)))
-        return self.fc8(x).float()
+        x = F.relu(dense(self.fc6, flatten(x)))
+        if drop:
+            x = dropout(x, self.dropout_rate, generator)
+        x = F.relu(dense(self.fc7, x))
+        if drop:
+            x = dropout(x, self.dropout_rate, generator)
+        return dense(self.fc8, x).float()

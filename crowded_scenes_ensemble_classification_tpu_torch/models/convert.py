@@ -31,13 +31,12 @@ def _walk(tree: Dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str,
             yield prefix + (k,), np.asarray(v)
 
 
-def _tensor(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
-
-
-def _convert(variables: Dict, family: str, bn_scale: bool, conv_bias: bool) -> Dict[str, torch.Tensor]:
+def _convert(variables: Dict, family: str, bn_scale: bool, conv_bias: bool,
+             dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The shared walk: `bn_scale` says whether the family's BatchNorms
-    carry a trained gamma, `conv_bias` whether its convs carry a bias."""
+    carry a trained gamma, `conv_bias` whether its convs carry a bias;
+    floating values come out in `dtype`."""
+    _tensor = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dtype)  # noqa: E731
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _walk(variables["params"]):
         *mod, name = path
@@ -50,7 +49,7 @@ def _convert(variables: Dict, family: str, bn_scale: bool, conv_bias: bool) -> D
         elif name == "bias" and is_bn:
             out[f"{key}.bias"] = _tensor(leaf)
             if not bn_scale:
-                out[f"{key}.weight"] = torch.ones(leaf.shape, dtype=torch.float32)
+                out[f"{key}.weight"] = torch.ones(leaf.shape, dtype=dtype)
             out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
         elif name == "scale" and is_bn and bn_scale:
             out[f"{key}.weight"] = _tensor(leaf)
@@ -67,44 +66,46 @@ def _convert(variables: Dict, family: str, bn_scale: bool, conv_bias: bool) -> D
     return out
 
 
-def i3d_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+def i3d_state_dict_from_flax(variables: Dict, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """flax I3D variables (numpy leaves) → the port's I3D `state_dict`:
     bias-free convs, BN without gamma, `predictions`."""
-    return _convert(variables, "I3D", bn_scale=False, conv_bias=False)
+    return _convert(variables, "I3D", bn_scale=False, conv_bias=False, dtype=dtype)
 
 
-def two_stream_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+def two_stream_state_dict_from_flax(variables: Dict, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """flax TwoStreamI3D variables → the port's `state_dict`: the I3D rules
     under the `rgb_trunk/` and `flow_trunk/` prefixes, and `predictions`."""
-    out = _convert(variables, "TWOSTREAM_I3D", bn_scale=False, conv_bias=False)
+    out = _convert(variables, "TWOSTREAM_I3D", bn_scale=False, conv_bias=False, dtype=dtype)
     for key in out:
         if not key.startswith(("rgb_trunk.", "flow_trunk.", "predictions.")):
             raise KeyError(f"unexpected flax param for TWOSTREAM_I3D: {key}")
     return out
 
 
-def c3d_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+def c3d_state_dict_from_flax(variables: Dict, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """flax C3D variables → the port's C3D `state_dict`: conv1…conv5b
     kernels and biases, fc6/fc7/fc8; no BatchNorm."""
     if variables.get("batch_stats"):
         raise KeyError("unexpected flax batch stats for C3D: it has no BatchNorm")
-    return _convert(variables, "C3D", bn_scale=False, conv_bias=True)
+    return _convert(variables, "C3D", bn_scale=False, conv_bias=True, dtype=dtype)
 
 
-def r3d_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+def r3d_state_dict_from_flax(variables: Dict, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """flax R3D variables → the port's R3D `state_dict`: convs and
     shortcut projections with bias, full-affine BN (`scale` → `weight`)."""
-    return _convert(variables, "R3D", bn_scale=True, conv_bias=True)
+    return _convert(variables, "R3D", bn_scale=True, conv_bias=True, dtype=dtype)
 
 
-def state_dict_from_flax(model_type: str, variables: Dict) -> Dict[str, torch.Tensor]:
-    """The converter of `model_type`'s family."""
+def state_dict_from_flax(model_type: str, variables: Dict,
+                         dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The converter of `model_type`'s family; floating values in `dtype`
+    (float32, what every module holds its master weights in, unless asked)."""
     if model_type == "I3D":
-        return i3d_state_dict_from_flax(variables)
+        return i3d_state_dict_from_flax(variables, dtype)
     if model_type == "TWOSTREAM_I3D":
-        return two_stream_state_dict_from_flax(variables)
+        return two_stream_state_dict_from_flax(variables, dtype)
     if model_type == "C3D":
-        return c3d_state_dict_from_flax(variables)
+        return c3d_state_dict_from_flax(variables, dtype)
     if model_type.startswith("R3D_"):
-        return r3d_state_dict_from_flax(variables)
+        return r3d_state_dict_from_flax(variables, dtype)
     raise ValueError(f"Unknown model_type {model_type!r}")

@@ -11,9 +11,10 @@ full-volume average pool and Dense.  Attribute names follow the flax tree
 checkpoint key for key.  Takes NTHWC clips and returns float32 logits.
 
 The stem conv stays cuDNN: it is an `nn.Conv` in JAX (r3d.py:151), not the
-I3D stem kernel.  The Keras l2(1e-4) on every kernel is
-`models/common.l2_param_penalty`, for training (not ported for R3D yet,
-ROADMAP Queue 1 item 6).
+I3D stem kernel.  The Keras l2(1e-4) on every conv and dense kernel is
+`models/common.l2_param_penalty`, which the train steps add to R3D's loss
+(`train/engine.R3D_L2_WEIGHT`); `SameConv3d` is an `nn.Conv3d`, so every
+conv here, the shortcut projections too, is counted.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ class SameConv3d(nn.Conv3d):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d_same(x, self.weight, self.bias, self.stride)
+        # x.dtype: the f32 master weights of a trainable model, cast
+        return conv3d_same(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride)
 
 
 class _Shortcut(nn.Module):
@@ -64,7 +66,7 @@ class _Shortcut(nn.Module):
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         strides = tuple(math.ceil(int(a) / int(b)) for a, b in zip(x.shape[2:], residual.shape[2:]))
         if self.proj is not None:
-            x = F.conv3d(x, self.proj.weight, self.proj.bias, stride=strides)
+            x = F.conv3d(x, self.proj.weight.to(x.dtype), self.proj.bias.to(x.dtype), stride=strides)
         elif strides != (1, 1, 1) or x.shape[1] != residual.shape[1]:
             raise ValueError(f"identity shortcut between shapes {tuple(x.shape)} and {tuple(residual.shape)}")
         return x + residual
@@ -124,7 +126,8 @@ class BottleneckBlock3D(nn.Module):
 class R3D(nn.Module):
     """ResNet3D classifier (JAX models/r3d.py:131-177), `depth` ∈ R3D_PRESETS.
     `width` shrinks every stage (base = max(int(64·width), 8); width 1 is
-    the reference topology)."""
+    the reference topology).  `compute_dtype`, when set, is the dtype the
+    model computes in while its weights stay in theirs (as `I3D`)."""
 
     def __init__(
         self,
@@ -156,10 +159,12 @@ class R3D(nn.Module):
         self.predictions = nn.Linear(c_in, num_classes)
         lecun_normal_(self.predictions.weight, c_in, g)
         nn.init.zeros_(self.predictions.bias)
+        self.compute_dtype: Optional[torch.dtype] = None
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv1.weight.dtype
+        """The working dtype: `compute_dtype`, else that of the weights."""
+        return self.compute_dtype or self.conv1.weight.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -171,4 +176,4 @@ class R3D(nn.Module):
         # Full-volume average pool (reference train.py:1502-1507), in float32
         # as I3D's head averages.
         x = x.float().mean(dim=(2, 3, 4)).to(dt)
-        return self.predictions(x).float()
+        return F.linear(x, self.predictions.weight.to(dt), self.predictions.bias.to(dt)).float()

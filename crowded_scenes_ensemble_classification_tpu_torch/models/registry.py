@@ -11,10 +11,10 @@ Two kinds of bundle.  An inference bundle (the default) holds conv and
 dense weights in `dtype` (`cast_for_inference`) and is in eval mode.  A
 trainable bundle (`trainable=True`) keeps every weight in float32, the
 master weights the optimizer updates, and computes in `dtype` by a cast of
-each weight in the forward (`I3D.compute_dtype`; the convs' weights are
-held in channels_last_3d, so the cast copies come out in it): the JAX
-package's `dtype=bfloat16, param_dtype=float32`.  Only I3D trains yet; the
-other families raise with `trainable=True` (ROADMAP Queue 1 item 6).
+each weight in the forward (`compute_dtype`, which every family reads; the
+convs' weights are held in channels_last_3d, so the cast copies come out
+in it): the JAX package's `dtype=bfloat16, param_dtype=float32`.  Every
+one of the eight types trains.
 """
 
 from __future__ import annotations
@@ -58,17 +58,20 @@ class ModelBundle:
             return {"rgb": zeros(self.clip.rgb_shape), "flow": zeros(self.clip.flow_shape)}
         return {"rgb": zeros(self.clip.rgb_shape)}
 
-    def apply(self, batch: Dict, train: bool = False) -> torch.Tensor:
+    def apply(self, batch: Dict, train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, C) float32 logits of `batch['rgb']` (and `batch['flow']` for a
         two-stream model), NTHWC clips, with the module in train mode
         (BatchNorm on batch statistics, updating its running ones) or eval
-        mode.  Training needs a trainable bundle."""
+        mode.  Training needs a trainable bundle; C3D's dropout draws its
+        masks from `generator` (on the module's device) in train mode."""
         if train and not self.trainable:
             raise ValueError("this bundle holds inference weights; build it with trainable=True to train")
         if self.module.training != train:
             self.module.train(train)
         if self.two_stream:
             return self.module(batch["rgb"], batch["flow"])
+        if isinstance(self.module, C3D):
+            return self.module(batch["rgb"], generator)
         return self.module(batch["rgb"])
 
 
@@ -86,14 +89,12 @@ def build_model(
     The weights are drawn on the generator's device (a CUDA generator draws
     them on the card) and then moved to `device`.  By default an inference
     bundle in eval mode, conv and dense weights in `dtype`
-    (`cast_for_inference`); with `trainable` (I3D only), f32 master weights
-    computing in `dtype`, in train mode.  model_kwargs forward to the module
+    (`cast_for_inference`); with `trainable`, f32 master weights computing
+    in `dtype`, in train mode.  model_kwargs forward to the module
     (I3D's stem_impl, s2d_stem, stem_prestaged; TwoStream's stem_prestaged;
     C3D's width and dropout_rate; R3D's width)."""
     spec = clip_spec(model_type)
     device = resolve_device(device)
-    if trainable and model_type != "I3D":
-        raise NotImplementedError(f"training {model_type} is not ported yet (ROADMAP Queue 1 item 6)")
     with torch.device(generator.device if generator is not None else device):
         if model_type == "I3D":
             module = I3D(num_classes, frames=spec.frames, generator=generator, **model_kwargs)
@@ -113,7 +114,7 @@ def build_model(
         if isinstance(m, nn.Conv3d):
             m.weight.data = m.weight.data.contiguous(memory_format=torch.channels_last_3d)
     module.compute_dtype = dtype
-    return ModelBundle(model_type, module.train(), spec, num_classes, two_stream=False, trainable=True)
+    return ModelBundle(model_type, module.train(), spec, num_classes, two_stream=two_stream, trainable=True)
 
 
 def predict_proba(bundle: ModelBundle, batch: Dict) -> torch.Tensor:

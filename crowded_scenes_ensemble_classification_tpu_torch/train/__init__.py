@@ -1,6 +1,7 @@
-"""Training: the steps, the epoch loop, the Keras optimizers, callbacks and
-checkpoints (counterpart of the JAX package's `train/`, without the
-multi-member and wire-fed steps)."""
+"""Training: the steps, the epoch loop, the multi-member step, the Keras
+optimizers, callbacks and checkpoints (counterpart of the JAX package's
+`train/` and its exports, without the wire-fed step, a TPU transfer
+workaround)."""
 
 from .callbacks import (  # noqa: F401
     EarlyStopping,
@@ -25,6 +26,13 @@ from .engine import (  # noqa: F401
     make_resident_train_step,
     make_train_step,
     store_history,
+    train_policy,
+)
+from .multi_member import (  # noqa: F401
+    make_multi_member_train_step,
+    stack_states,
+    unstack_states,
+    zip_member_batches,
 )
 from .state import (  # noqa: F401
     TrainState,

@@ -6,22 +6,25 @@ Counterpart of `crowded_scenes_ensemble_classification_tpu/train/engine.py`
 
     (gather the batch's resident rows) → uint8 → Crowd-11 augment (crop and
     flip as one bilinear resize, then the salt/pepper kernel) or a plain
-    resize → × input_scale → forward in train mode (BatchNorm on batch
-    statistics) → masked, class-weighted cross-entropy (+ R3D's l2) →
-    backward (through the max-pool backward kernel) → optimizer step.
+    resize → × input_scale; for TwoStream the flow: precomputed (resized,
+    × input_scale) or Farnebäck of the gray pairs (optionally of the pairs
+    augmented with the rgb stream's decisions) → forward in train mode
+    (BatchNorm on batch statistics, C3D's dropout) → masked,
+    class-weighted cross-entropy (+ R3D's l2) → backward (through the
+    max-pool backward kernel) → optimizer step.
 
 The JAX package jits each step; here it runs eagerly on the module's
 device, and the state is updated in place.  Augment decisions come from a
-CPU `torch.Generator` seeded by (state.seed, state.step), so a resumed run
-draws the decisions an uninterrupted one would.  Epoch-level control (LR
-policy, early stopping, best-val checkpoint, NaN stop) runs on the host in
-`fit`, with the reference's callback semantics (callbacks.py).
+CPU `torch.Generator` seeded by (state.seed, state.step), and C3D's dropout
+masks from a generator on the module's device seeded by (state.seed,
+state.step, 1), so a resumed run draws what an uninterrupted one would.
+Epoch-level control (LR policy, early stopping, best-val checkpoint, NaN
+stop) runs on the host in `fit`, with the reference's callback semantics
+(callbacks.py).
 
-Not ported: flow inputs (`NotImplementedError`; they come with TwoStream
-training, ROADMAP Queue 1 item 6), the wire-fed step (a TPU transfer
-workaround, Queue 1 item 9), the mesh, and `prefetch_batches` over a
-`BatchPipeline` (Queue 1 item 8): `fit` and `evaluate_model` iterate
-`pipeline.batches(epoch)`.
+Not ported: the wire-fed step (a TPU transfer workaround, Queue 1 item 9),
+the mesh, and `prefetch_batches` over a `BatchPipeline` (Queue 1 item 8):
+`fit` and `evaluate_model` iterate `pipeline.batches(epoch)`.
 """
 
 from __future__ import annotations
@@ -37,42 +40,96 @@ import torch.nn.functional as F
 
 from ..data.pipeline import class_weights_balanced
 from ..data.resident import ResidentClips
+from ..flow.farneback import gray_pair_flow
 from ..models.common import l2_param_penalty
 from ..models.registry import ModelBundle
-from ..ops.augment import crowd11_augment_batch, identity_resize_batch
+from ..ops.augment import (
+    AugmentDecisions,
+    crowd11_augment_from_decisions,
+    crowd11_augment_gray_pair_batch,
+    draw_decisions,
+    identity_resize_batch,
+)
 from .callbacks import EarlyStopping, LRPolicy, lr_policy_for
 from .checkpoints import best_exists, full_exists, restore_best, restore_full, save_best, save_full
 from .state import OptimizerFactory, TrainState, make_optimizer, set_learning_rate
 
 R3D_L2_WEIGHT = 1e-4  # Keras l2(1e-4) on every R3D kernel (train.py:1292)
+_DROPOUT_STREAM = 1  # the dropout generator's seed word after (seed, step)
+
+
+def _step_key(seed: int, step: int, *stream: int) -> int:
+    return int(np.random.SeedSequence([seed, step, *stream]).generate_state(1, np.uint64)[0])
 
 
 def _augment_generator(seed: int, step: int) -> torch.Generator:
     """The CPU generator of one step's augment decisions, seeded by
     (seed, step)."""
-    key = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
-    return torch.Generator().manual_seed(key)
+    return torch.Generator().manual_seed(_step_key(seed, step))
+
+
+def _dropout_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The generator of one step's dropout masks, on the module's device,
+    seeded by (seed, step, 1): a stream apart from the augment decisions, as
+    JAX splits the step's key into rng_aug and rng_drop (engine.py:195-196)."""
+    return torch.Generator(device=device).manual_seed(_step_key(seed, step, _DROPOUT_STREAM))
+
+
+def train_policy(model_type: str, optimizer: Optional[OptimizerFactory] = None) -> Tuple[OptimizerFactory, float]:
+    """(tx, l2 weight) of a family (JAX orchestration._step_policy,
+    orchestration.py:336-350): `optimizer`, else the reference's optimizer
+    at its LR policy's initial rate; R3D_L2_WEIGHT for the R3D family, 0
+    for the others."""
+    tx = optimizer or make_optimizer(model_type, lr_policy_for(model_type).initial_lr)
+    return tx, (R3D_L2_WEIGHT if model_type.startswith("R3D") else 0.0)
 
 
 def _preprocess(
     batch: Dict[str, torch.Tensor],
-    generator: Optional[torch.Generator],
+    decisions: Optional[AugmentDecisions],
     out_hw: Tuple[int, int],
-    augment: bool,
-    p: float,
     two_stream: bool,
     input_scale: float = 1.0,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
+    flow_from_augmented: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """uint8 staged batch → float32 model inputs, on its device (JAX
-    engine.py:40-120, rgb only).  input_scale=1.0 is the reference's raw
-    0-255 pixels (train.py:283-289); scratch training is steadier at 1/255."""
-    if two_stream or "flow" in batch or "gray" in batch:
-        raise NotImplementedError("flow inputs come with TwoStream training, not ported yet (ROADMAP Queue 1 item 6)")
-    if augment:
-        rgb = crowd11_augment_batch(batch["rgb"], out_hw, p, generator)
+    engine.py:40-120).  `decisions` augments the rgb (None: a plain
+    resize).  input_scale=1.0 is the reference's raw 0-255 pixels
+    (train.py:283-289); scratch training is steadier at 1/255.
+
+    Two-stream models take precomputed flow, `batch['flow']`, resized and
+    scaled like the rgb and never augmented (train.py:195-221), or gray
+    pairs, `batch['gray']` and `batch['gray_next']` (B, T, H, W, 1), whose
+    Farnebäck flow (`gray_pair_flow`: no input_scale) is computed here,
+    without gradients.  With `flow_from_augmented` and decisions the pairs
+    first take the rgb stream's crop and flip and salt/pepper of their own
+    (the reference's augmented-Farnebäck mode, train.py:176-184); otherwise
+    the flow is of the unaugmented pairs."""
+    rgb = batch["rgb"]
+    if decisions is not None:
+        rgb = crowd11_augment_from_decisions(rgb, out_hw, decisions)
     else:
-        rgb = identity_resize_batch(batch["rgb"], out_hw)
-    return {"rgb": rgb * input_scale}
+        rgb = identity_resize_batch(rgb, out_hw)
+    out = {"rgb": rgb * input_scale}
+    if not two_stream:
+        return out
+    if "flow" in batch:
+        out["flow"] = identity_resize_batch(batch["flow"], out_hw) * input_scale
+    elif "gray" in batch and "gray_next" in batch:
+        gray, gray_next = batch["gray"], batch["gray_next"]
+        with torch.no_grad():
+            if decisions is not None and flow_from_augmented:
+                if gray.shape[2:4] != batch["rgb"].shape[2:4]:
+                    raise ValueError(f"augmented gray pairs must be staged as the rgb is: {tuple(gray.shape[2:4])} "
+                                     f"against {tuple(batch['rgb'].shape[2:4])}")
+                gray, gray_next = crowd11_augment_gray_pair_batch(gray, gray_next, decisions)
+            out["flow"] = gray_pair_flow(gray, gray_next, out_hw, flow_fast_warp, flow_params)
+    else:
+        raise ValueError("a two-stream model needs batch['flow'] or the gray pairs batch['gray'] and "
+                         f"batch['gray_next']; the batch has {sorted(batch)}")
+    return out
 
 
 def _on_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -100,30 +157,41 @@ def _make_dense_train_body(
     augment_p: float,
     l2_weight: float,
     input_scale: float,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
+    flow_from_augmented: bool = False,
+    weight_normalized: bool = False,
 ):
-    """The train body of both steps: fn(state, batch, class_weights) with
-    batch = {"rgb" uint8, "label", "valid"} tensors on the module's device
-    → (state, {"loss", "accuracy"} device scalars).  The loss is Keras's
-    class_weight mean: Σ ce·mask·w[label] / max(Σ mask, 1) (JAX
-    engine.py:123-172), + l2 for R3D."""
+    """The train body of every step: fn(state, batch, class_weights) with
+    batch = {"rgb" uint8 [+ "flow" | "gray", "gray_next"], "label",
+    "valid"} tensors on the module's device → (state, {"loss",
+    "accuracy"} device scalars).  The loss is Keras's class_weight mean:
+    Σ ce·mask·w[label] / max(Σ mask, 1) (JAX engine.py:123-172), or over
+    max(Σ mask·w[label], 1) with `weight_normalized` (the JAX multi-member
+    step's, multi_member.py:77), + l2 for R3D."""
     module = bundle.module
 
     def train_step(state: TrainState, batch, class_weights):
-        generator = _augment_generator(state.seed, state.step) if augment else None
-        inputs = _preprocess(batch, generator, out_hw, augment, augment_p, bundle.two_stream, input_scale)
+        decisions = None
+        if augment:
+            b, _, h, w, _ = batch["rgb"].shape
+            decisions = draw_decisions(_augment_generator(state.seed, state.step), b, (h, w), augment_p)
+        inputs = _preprocess(batch, decisions, out_hw, bundle.two_stream, input_scale, flow_fast_warp, flow_params,
+                             flow_from_augmented)
         labels = batch["label"].long()
         mask = batch["valid"].float()
-        count = mask.sum().clamp_min(1.0)
+        weights = mask * class_weights[labels]
+        count = (weights.sum() if weight_normalized else mask.sum()).clamp_min(1.0)
         state.optimizer.zero_grad(set_to_none=True)
-        logits = bundle.apply(inputs, train=True)
+        logits = bundle.apply(inputs, train=True, generator=_dropout_generator(state.seed, state.step, bundle.device))
         ce = F.cross_entropy(logits, labels, reduction="none")
-        loss = (ce * mask * class_weights[labels]).sum() / count
+        loss = (ce * weights).sum() / count
         if l2_weight > 0.0:
             loss = loss + l2_param_penalty(module, l2_weight)
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        accuracy = ((logits.detach().argmax(-1) == labels) * mask).sum() / count
+        accuracy = ((logits.detach().argmax(-1) == labels) * mask).sum() / mask.sum().clamp_min(1.0)
         return state, {"loss": loss.detach(), "accuracy": accuracy}
 
     return train_step
@@ -137,12 +205,18 @@ def make_train_step(
     augment_p: float = 0.75,
     l2_weight: float = 0.0,
     input_scale: float = 1.0,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
+    flow_from_augmented: bool = False,
 ):
     """fn(state, batch, class_weights) → (state, metrics) over a dense batch
-    {"rgb": (B, T, H, W, 3) uint8, "label": (B,), "valid": (B,) bool},
-    tensors or numpy arrays.  `state` must come from
+    {"rgb": (B, T, H, W, 3) uint8, "label": (B,), "valid": (B,) bool} (for
+    TwoStream also "flow" (B, T, H, W, 2), or "gray" and "gray_next" (B, T,
+    H, W, 1) from which Farnebäck computes the flow with `flow_params` and
+    `flow_fast_warp`), tensors or numpy arrays.  `state` must come from
     `TrainState.create(bundle.module, tx, seed)`."""
-    body = _make_dense_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale)
+    body = _make_dense_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale, flow_fast_warp,
+                                  flow_params, flow_from_augmented)
 
     def train_step(state: TrainState, batch, class_weights):
         _check_tx(state, tx)
@@ -159,14 +233,19 @@ def make_resident_train_step(
     augment_p: float = 0.75,
     l2_weight: float = 0.0,
     input_scale: float = 1.0,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
+    flow_from_augmented: bool = False,
 ):
     """Train step over a device-resident dataset (`data.resident.ResidentClips`):
     fn(state, batch, class_weights) with batch = {"resident": {name → (N, …)
     device tensor, incl. "label"}, "indices": (B,) int32, "valid": (B,)
     bool}.  Each step gathers its rows on the device and runs the same body
     as `make_train_step`, so it equals that step on the gathered batch; the
-    host ships only the indices and the mask."""
-    body = _make_dense_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale)
+    host ships only the indices and the mask.  Every input mode of the
+    dense step works: rgb, precomputed flow, and gray pairs."""
+    body = _make_dense_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale, flow_fast_warp,
+                                  flow_params, flow_from_augmented)
 
     def train_step(state: TrainState, batch, class_weights):
         _check_tx(state, tx)
@@ -175,15 +254,17 @@ def make_resident_train_step(
     return train_step
 
 
-def _make_dense_eval_body(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float):
+def _make_dense_eval_body(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float,
+                          flow_fast_warp: bool = False, flow_params: Optional[dict] = None):
     """The eval body of both eval steps (JAX engine.py:459-489): the
-    UNWEIGHTED masked loss sum, correct count, valid count and softmax."""
+    UNWEIGHTED masked loss sum, correct count, valid count and softmax.
+    Flow from gray pairs is of the unaugmented pairs."""
 
     def eval_step(batch):
-        inputs = _preprocess(batch, None, out_hw, False, 0.0, bundle.two_stream, input_scale)
-        labels = batch["label"].long()
-        mask = batch["valid"].float()
         with torch.no_grad():
+            inputs = _preprocess(batch, None, out_hw, bundle.two_stream, input_scale, flow_fast_warp, flow_params)
+            labels = batch["label"].long()
+            mask = batch["valid"].float()
             logits = bundle.apply(inputs, train=False)
             ce = F.cross_entropy(logits, labels, reduction="none")
             return {
@@ -196,17 +277,19 @@ def _make_dense_eval_body(bundle: ModelBundle, out_hw: Tuple[int, int], input_sc
     return eval_step
 
 
-def make_eval_step(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float = 1.0):
+def make_eval_step(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float = 1.0,
+                   flow_fast_warp: bool = False, flow_params: Optional[dict] = None):
     """fn(batch) → {"loss_sum", "correct", "count", "probs"} over a dense
     batch, with the module in eval mode and no gradients."""
-    body = _make_dense_eval_body(bundle, out_hw, input_scale)
+    body = _make_dense_eval_body(bundle, out_hw, input_scale, flow_fast_warp, flow_params)
     return lambda batch: body(_on_device(batch, bundle.device))
 
 
-def make_resident_eval_step(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float = 1.0):
+def make_resident_eval_step(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float = 1.0,
+                            flow_fast_warp: bool = False, flow_params: Optional[dict] = None):
     """Eval twin of `make_resident_train_step`: the device-side gather, then
     the same body as `make_eval_step`."""
-    body = _make_dense_eval_body(bundle, out_hw, input_scale)
+    body = _make_dense_eval_body(bundle, out_hw, input_scale, flow_fast_warp, flow_params)
     return lambda batch: body(_gather(batch, bundle.device))
 
 
@@ -216,14 +299,17 @@ def evaluate_model(
     out_hw: Tuple[int, int],
     collect_probs: bool = False,
     input_scale: float = 1.0,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
 ) -> Dict[str, Any]:
     """Masked eval over `pipeline.batches(0)` (reference evaluate(),
     train.py:1925-1971, batched): {"loss", "accuracy", "count"} and, with
     `collect_probs`, the valid rows' probabilities in clip-id order.  The
     module holds the weights, so no variables are passed.  The step is the
-    resident one for a `ResidentClips`, else the dense one."""
+    resident one for a `ResidentClips`, else the dense one; TwoStream gray
+    pairs turn into flow with `flow_params` and `flow_fast_warp`."""
     make = make_resident_eval_step if isinstance(pipeline, ResidentClips) else make_eval_step
-    eval_step = make(bundle, out_hw, input_scale=input_scale)
+    eval_step = make(bundle, out_hw, input_scale=input_scale, flow_fast_warp=flow_fast_warp, flow_params=flow_params)
     sums = torch.zeros(3, dtype=torch.float64, device=bundle.device)  # loss_sum, correct, count
     probs_all, ids_all = [], []
     for batch in pipeline.batches(0):
@@ -264,6 +350,8 @@ def fit(
     metrics_logger=None,
     save_full_every: int = 0,
     resume_full: bool = False,
+    flow_from_augmented: bool = False,
+    flow_params: Optional[dict] = None,
 ) -> Dict[str, Any]:
     """Epoch loop with the reference's callback semantics (JAX
     engine.py:569-744).  Trains `bundle` (a trainable one) in place from its
@@ -274,11 +362,12 @@ def fit(
       first (train.py:1887-1890); `resume_full` then restores the full
       state and the loop's metadata written every `save_full_every` epochs.
     - The steps are the resident ones for a `ResidentClips`, else the
-      dense ones."""
+      dense ones, with the family's optimizer and l2 rule (`train_policy`).
+    - TwoStream gray pairs turn into flow with `flow_params`, in training
+      from the augmented pairs with `flow_from_augmented`."""
     out_hw = (bundle.clip.height, bundle.clip.width)
     policy = lr_policy or lr_policy_for(bundle.model_type)
-    tx = optimizer or make_optimizer(bundle.model_type, policy.initial_lr)
-    l2w = R3D_L2_WEIGHT if bundle.model_type.startswith("R3D") else 0.0
+    tx, l2w = train_policy(bundle.model_type, optimizer or make_optimizer(bundle.model_type, policy.initial_lr))
     if initial_variables is not None:
         bundle.module.load_state_dict(initial_variables)
     state = TrainState.create(bundle.module, tx, seed)
@@ -292,7 +381,8 @@ def fit(
         cw = torch.ones(bundle.num_classes, device=bundle.device)
 
     make = make_resident_train_step if isinstance(train_pipeline, ResidentClips) else make_train_step
-    train_step = make(bundle, tx, out_hw, augment, augment_p, l2w, input_scale=input_scale)
+    train_step = make(bundle, tx, out_hw, augment, augment_p, l2w, input_scale=input_scale,
+                      flow_params=flow_params, flow_from_augmented=flow_from_augmented)
     early = EarlyStopping(patience=early_stopping_patience)
     history = {"loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
     best_val = math.inf
@@ -326,7 +416,7 @@ def fit(
             history["loss"].append(epoch_loss)
             break
 
-        val = evaluate_model(bundle, val_pipeline, out_hw, input_scale=input_scale)
+        val = evaluate_model(bundle, val_pipeline, out_hw, input_scale=input_scale, flow_params=flow_params)
         history["loss"].append(epoch_loss)
         history["accuracy"].append(epoch_acc)
         history["val_loss"].append(val["loss"])

@@ -541,3 +541,147 @@ def test_two_stream_member_probabilities_on_gray_pairs(torch, no_tf32):
     assert max_pool_3x3x3_same.launches - before == 2 * 2 * 18
     assert got.shape == ref.shape == (2, 4, 11)
     assert abs(got - ref).max() <= 1e-4
+
+
+def _two_stream_train_setup(torch, seed, dtype=None):
+    """A trainable TwoStream-I3D for 16-frame 32² clips on the card (weights
+    drawn on the CPU from `seed`), its optimizer and train step (augment on,
+    turbo Farnebäck of gray pairs from the augmented pairs), and one batch
+    of 2 clips staged at 40²: uint8 rgb and moving gray pairs."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ClipSpec
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import TURBO_PARAMS
+    from crowded_scenes_ensemble_classification_tpu_torch.models.registry import ModelBundle
+    from crowded_scenes_ensemble_classification_tpu_torch.models.two_stream_i3d import TwoStreamI3D
+    from crowded_scenes_ensemble_classification_tpu_torch.train import make_optimizer, make_train_step
+
+    module = TwoStreamI3D(11, frames=16, generator=torch.Generator().manual_seed(seed)).cuda().train()
+    module.compute_dtype = dtype
+    bundle = ModelBundle("TWOSTREAM_I3D", module, ClipSpec(16, 32, 32), 11, True, trainable=True)
+    tx = make_optimizer("TWOSTREAM_I3D", 0.003)
+    step = make_train_step(bundle, tx, (32, 32), augment=True, input_scale=1 / 255, flow_params=TURBO_PARAMS,
+                           flow_from_augmented=True)
+    prev, curr = _flow_pairs(torch, 2 * 16, 40, seed)
+    batch = {"rgb": torch.randint(0, 256, (2, 16, 40, 40, 3), generator=torch.Generator().manual_seed(seed),
+                                  dtype=torch.uint8),
+             "gray": prev.reshape(2, 16, 40, 40, 1), "gray_next": curr.reshape(2, 16, 40, 40, 1),
+             "label": torch.tensor([2, 9]), "valid": torch.ones(2, dtype=torch.bool)}
+    return bundle, tx, step, batch
+
+
+def _kernel_launches():
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper
+
+    return (max_pool_3x3x3_same.launches, max_pool_3x3x3_same_backward.launches, salt_pepper.launches)
+
+
+def test_two_stream_train_step_kernels_equal_plain(torch, no_tf32):
+    """One f32 TwoStream train step on the card (augment on, flow computed
+    from the augmented gray pairs) through the kernels against the same
+    step through the plain versions (cuDNN deterministic): every gradient
+    and updated parameter within 1e-4 relative error; the kernel run
+    launches the max pool 18 times, its gradient 18 times and the noise
+    once, the plain run none."""
+    from unittest import mock
+
+    import crowded_scenes_ensemble_classification_tpu_torch.models.i3d as i3d_mod
+    import crowded_scenes_ensemble_classification_tpu_torch.ops.augment as augment_mod
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_reference
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper_plain
+    from crowded_scenes_ensemble_classification_tpu_torch.train import TrainState
+
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for plain in (False, True):
+            bundle, tx, step, batch = _two_stream_train_setup(torch, 12)
+            before = _kernel_launches()
+            if plain:
+                with mock.patch.object(i3d_mod, "max_pool_3x3x3_same", max_pool_3x3x3_reference), \
+                        mock.patch.object(augment_mod, "salt_pepper", salt_pepper_plain):
+                    step(TrainState.create(bundle.module, tx, seed=3), batch, torch.ones(11, device="cuda"))
+            else:
+                step(TrainState.create(bundle.module, tx, seed=3), batch, torch.ones(11, device="cuda"))
+            torch.cuda.synchronize()
+            assert [a - b for a, b in zip(_kernel_launches(), before)] == ([0, 0, 0] if plain else [18, 18, 1])
+            runs.append({n: (p.grad, p.detach()) for n, p in bundle.module.named_parameters() if p.requires_grad})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name, (grad, param) in runs[1].items():
+        assert _relative_error(runs[0][name][0], grad) <= 1e-4, name
+        assert _relative_error(runs[0][name][1], param) <= 1e-4, name
+
+
+def test_two_stream_bf16_train_step_launches(torch):
+    """A bf16 TwoStream train step on f32 master weights (the card's
+    training form): 18 max-pool, 18 gradient and 1 noise launch a step over
+    3 steps, finite losses, f32 gradients."""
+    from crowded_scenes_ensemble_classification_tpu_torch.train import TrainState
+
+    bundle, tx, step, batch = _two_stream_train_setup(torch, 13, torch.bfloat16)
+    state = TrainState.create(bundle.module, tx)
+    before = _kernel_launches()
+    losses = [step(state, batch, torch.ones(11, device="cuda"))[1]["loss"] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_kernel_launches(), before)] == [54, 54, 3]
+    assert all(torch.isfinite(x).item() for x in losses)
+    assert all(p.grad.dtype == torch.float32 for p in bundle.module.parameters() if p.grad is not None)
+
+
+@pytest.mark.parametrize("model_type", ["C3D", "R3D_18"])
+def test_family_f32_train_step_on_card_matches_cpu(torch, no_tf32, model_type):
+    """One f32 train step of C3D (dropout 0: its masks come from a device
+    generator, which draws other bits on the card) and R3D-18 (Adam and
+    its l2 term), width 0.125, 16×32² clips from 40² uint8 staging, augment
+    on (decisions drawn on the host; the noise kernel equals its plain
+    version), on the card against the same step on the CPU (cuDNN
+    deterministic): loss within 1e-5; C3D's updated parameters within 1e-4
+    relative error; R3D's gradients within 1e-4, and its parameters within
+    2·lr, as Keras Adam's first step is lr·g/(|g| + eps), whose sign
+    rounding decides where |g| is near zero.  R3D's conv biases feed
+    train-mode BatchNorm, which removes them: their gradient is 0 but for
+    rounding, under 1e-4 of the largest."""
+    import numpy as np
+
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ClipSpec
+    from crowded_scenes_ensemble_classification_tpu_torch.models.registry import ModelBundle
+    from crowded_scenes_ensemble_classification_tpu_torch.train import TrainState, make_train_step, train_policy
+
+    rng = np.random.default_rng(14)
+    batch = {"rgb": torch.from_numpy(rng.integers(0, 256, (2, 16, 40, 40, 3), dtype=np.uint8)),
+             "label": torch.tensor([1, 6]), "valid": torch.ones(2, dtype=torch.bool)}
+    gen = torch.Generator().manual_seed(15)
+    module = _small_family(torch, model_type, gen)
+    out = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dev in ("cpu", "cuda"):
+            m = _small_family(torch, model_type, gen).to(dev)
+            m.load_state_dict(module.state_dict())
+            if model_type == "C3D":
+                m.dropout_rate = 0.0
+            bundle = ModelBundle(model_type, m.train(), ClipSpec(16, 32, 32), 11, False, trainable=True)
+            tx, l2 = train_policy(model_type)
+            step = make_train_step(bundle, tx, (32, 32), augment=True, l2_weight=l2, input_scale=1 / 255)
+            _, metrics = step(TrainState.create(m, tx, seed=4), batch, torch.ones(11, device=dev))
+            out.append((metrics["loss"].item(),
+                        {n: (p.detach().cpu(), p.grad.detach().cpu()) for n, p in m.named_parameters()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (loss_cpu, cpu), (loss_card, card) = out
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    if model_type == "C3D":
+        for name, (ref, _) in cpu.items():
+            assert _relative_error(card[name][0], ref) <= 1e-4, name
+        return
+    lr = tx.keywords["lr"]
+    largest = max(g.abs().max().item() for _, g in cpu.values())
+    for name, (ref, grad) in cpu.items():
+        if name.endswith(".bias") and not name.endswith("bn.bias") and not name.startswith("predictions"):
+            assert all(g.abs().max().item() <= 1e-4 * largest for g in (grad, card[name][1])), name
+        else:
+            assert _relative_error(card[name][1], grad) <= 1e-4, name
+        assert (card[name][0] - ref).abs().max().item() <= 2 * lr * 1.001, name

@@ -229,8 +229,8 @@ def test_build_model_round_trips_flax_state_dict(torch):
 
 def test_build_model_runs_on_the_card_unless_told(torch, monkeypatch):
     """With no device named, build_model needs a card and raises without
-    one, for every family; training a family not ported for training yet
-    and an unknown family raise too."""
+    one, for every family; on the CPU, C3D builds trainable (f32 master
+    weights computing in bf16, in train mode); an unknown family raises."""
     from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -238,8 +238,9 @@ def test_build_model_runs_on_the_card_unless_told(torch, monkeypatch):
         build_model("I3D")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model("C3D", width=0.125)
-    with pytest.raises(NotImplementedError):
-        build_model("C3D", device="cpu", trainable=True)
+    c3d = build_model("C3D", dtype=torch.bfloat16, device="cpu", trainable=True, width=0.125)
+    assert c3d.trainable and c3d.module.training and c3d.module.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in c3d.module.parameters())
     with pytest.raises(ValueError):
         build_model("I3D_XL", device="cpu")
 

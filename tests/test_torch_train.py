@@ -534,12 +534,54 @@ def test_fit_checkpoints_and_exact_resume(torch, port, tmp_path):
     assert all(np.array_equal(v_res[k], v_ref[k]) for k in v_ref)
 
 
+def _tiny_two_stream(torch, port):
+    """A trainable TwoStream-I3D for 16-frame 32² clips, weights from a fixed
+    generator, with its optimizer."""
+    registry, config, train = port["registry"], port["config"], port["train"]
+    module = importlib.import_module(f"{PORT}.models.two_stream_i3d").TwoStreamI3D(
+        11, frames=16, generator=torch.Generator().manual_seed(10))
+    bundle = registry.ModelBundle("TWOSTREAM_I3D", module.train(), config.ClipSpec(16, 32, 32), 11, True,
+                                  trainable=True)
+    return bundle, train.make_optimizer("TWOSTREAM_I3D", 0.003)
+
+
 def test_flow_inputs_are_not_ported(torch, port):
-    bundle, tr, _ = _tiny_fit_setup(torch, port)
+    """Flow inputs train: a TwoStream step on a precomputed-flow batch gives
+    a finite loss and moves both trunks' weights; a single-stream I3D
+    ignores a flow it is given, as the JAX preprocessing does."""
     train = port["train"]
-    tx = train.make_optimizer("I3D", 0.003)
+    bundle, tx = _tiny_two_stream(torch, port)
+    step = train.make_train_step(bundle, tx, (32, 32), augment=False, input_scale=1 / 255)
+    rng = np.random.default_rng(11)
+    batch = {"rgb": rng.integers(0, 256, (2, 16, 32, 32, 3), dtype=np.uint8),
+             "flow": rng.integers(0, 256, (2, 16, 32, 32, 2), dtype=np.uint8),
+             "label": np.array([1, 4], np.int32), "valid": np.ones(2, bool)}
+    stems = [bundle.module.rgb_trunk.Conv3d_1a_7x7.conv.weight, bundle.module.flow_trunk.Conv3d_1a_7x7.conv.weight]
+    before = [w.detach().clone() for w in stems]
+    _, m = step(train.TrainState.create(bundle.module, tx), batch, torch.ones(11))
+    assert np.isfinite(float(m["loss"])) and not any(torch.equal(w, b) for w, b in zip(stems, before))
+
+    i3d, _, _ = _tiny_fit_setup(torch, port)
+    i3d_tx = train.make_optimizer("I3D", 0.003)
+    i3d_step = train.make_train_step(i3d, i3d_tx, (32, 32), augment=False)
+    _, with_flow = i3d_step(train.TrainState.create(i3d.module, i3d_tx), batch, torch.ones(11))
+    assert np.isfinite(float(with_flow["loss"]))
+
+
+def test_two_stream_batch_without_flow_raises(torch, port):
+    """A two-stream batch with neither precomputed flow nor gray pairs
+    raises, in the train and the eval step; gray pairs staged otherwise
+    than the rgb cannot take its augment decisions."""
+    train = port["train"]
+    bundle, tx = _tiny_two_stream(torch, port)
+    rgb_only = {"rgb": np.zeros((2, 16, 32, 32, 3), np.uint8), "label": np.zeros(2, np.int32),
+                "valid": np.ones(2, bool)}
     step = train.make_train_step(bundle, tx, (32, 32), augment=False)
-    batch = {"rgb": np.zeros((2, 16, 32, 32, 3), np.uint8), "flow": np.zeros((2, 16, 32, 32, 2), np.uint8),
-             "label": np.zeros(2, np.int32), "valid": np.ones(2, bool)}
-    with pytest.raises(NotImplementedError, match="flow"):
-        step(train.TrainState.create(bundle.module, tx), batch, torch.ones(11))
+    with pytest.raises(ValueError, match="gray pairs"):
+        step(train.TrainState.create(bundle.module, tx), rgb_only, torch.ones(11))
+    with pytest.raises(ValueError, match="gray pairs"):
+        train.make_eval_step(bundle, (32, 32))(rgb_only)
+    small = dict(rgb_only, **{k: np.zeros((2, 16, 24, 24, 1), np.uint8) for k in ("gray", "gray_next")})
+    augmented = train.make_train_step(bundle, tx, (32, 32), augment=True, flow_from_augmented=True)
+    with pytest.raises(ValueError, match="staged as the rgb"):
+        augmented(train.TrainState.create(bundle.module, tx), small, torch.ones(11))

@@ -124,7 +124,9 @@ def test_build_model_resolves_every_type(torch, port, model_type):
     family on the meta device, which draws no weights): clip geometry,
     two-stream flag, dummy batch keys and shapes, bf16 conv/dense weights
     with f32 BN, and a summary whose total counts every parameter of the
-    reference."""
+    reference.  Built trainable (every type), the same model keeps f32
+    master weights, channels_last_3d convs and the two-stream flag, in train
+    mode, computing in bf16."""
     reg = port["registry"]
     small = model_type.startswith(("C3D", "R3D"))
     kw = {"width": WIDTH} if small else {}
@@ -146,9 +148,12 @@ def test_build_model_resolves_every_type(torch, port, model_type):
     frozen = sum(b.weight.numel() for b in bns if not b.weight.requires_grad)
     total = sum(p.numel() for p in bundle.module.parameters()) - frozen
     assert port["registry"].summarize(bundle).splitlines()[-1 - bool(bns)] == f"total params: {total:,}"
-    if model_type != "I3D":  # only I3D trains yet
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            reg.build_model(model_type, device="cpu", trainable=True, **kw)
+    trainable = reg.build_model(model_type, dtype=torch.bfloat16, trainable=True, **where, **kw)
+    assert trainable.trainable and trainable.module.training and trainable.two_stream == bundle.two_stream
+    assert trainable.module.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainable.module.parameters())
+    assert all(c.weight.is_contiguous(memory_format=torch.channels_last_3d)
+               for c in trainable.module.modules() if isinstance(c, torch.nn.Conv3d))
 
 
 def test_converters_refuse_foreign_keys(port):

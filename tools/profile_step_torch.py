@@ -14,8 +14,13 @@ members in shared-staging form (cuDNN stem), and the loaded serving
 artifact of the unshared forward.  Last, the resident training step
 (`make_resident_train_step`, augment on, one trainable I3D computing in
 bf16 on f32 master weights, 20×224² from 256² uint8 staging) at B=16 and
-B=64.  Backward ops run on autograd's device thread, outside the ranges
-this script opens, so they are charged to `unlabeled/<aten op>`.  Then the
+B=64, and the other families' resident train steps at chip_smoke.py's
+train_zoo geometry (the JAX bench's, bench.py:624-720): C3D at B=32
+(`train_c3d`), TwoStream-I3D at B=16 with turbo Farnebäck of its resident
+gray pairs in the step, the `flow` stage (`train_twostream`), and R3D-18
+at B=32 (`train_r3d18`).  Backward ops run on autograd's device thread,
+outside the ranges this script opens, so they are charged to
+`unlabeled/<aten op>`.  Then the
 16-member heterogeneous step (`hetero_ensemble_step`, chip_smoke.py's
 members: 4 each of I3D, TwoStream-I3D, C3D and R3D-18, bf16, on 0-255 rgb,
 the flow computed in the step as the JAX bench does) at B=16, with its
@@ -57,6 +62,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FRAMES, SIZE, STAGING, MEMBERS, CLASSES = 20, 224, 256, 4, 11  # as in chip_smoke.py
 BATCHES, TRAIN_BATCHES, STEPS = (16, 48), (16, 64), 3
+TRAIN_ZOO = (("C3D", 32, "train_c3d"), ("TWOSTREAM_I3D", 16, "train_twostream"), ("R3D_18", 32, "train_r3d18"))
 FAMILY_LABELS = {"flow": "flow", "member": "I3D", "two_stream": "TWOSTREAM_I3D", "c3d": "C3D", "r3d": "R3D_18"}
 OWN_KERNELS = {"maxpool3x3x3_kernel": "max_pool_3x3x3_same", "salt_pepper_kernel": "salt_pepper",
                "stem_bf16_kernel": "stem", "maxpool3_bwd_": "max_pool_3x3x3_same_backward"}
@@ -122,7 +128,9 @@ def label_stages(torch):
         wrap(farneback_mod, "upsample_flow", "upsample"),
         wrap(engine_mod, "_gather", "gather"),
         wrap(engine_mod, "_preprocess", "preprocess"),
+        wrap(engine_mod, "gray_pair_flow", "flow"),
         wrap(state_mod.KerasSGD, "step", "optimizer"),
+        wrap(state_mod.KerasAdam, "step", "optimizer"),
     }
 
 
@@ -387,23 +395,27 @@ def profile_member_paths(batch: int, steps: int, torch, np) -> list:
     return out
 
 
-def profile_train(batch: int, steps: int, labels, torch, np) -> dict:
-    """The resident train step at `batch`: 2 warm-up steps, `steps`
-    unprofiled, `steps` profiled."""
-    from crowded_scenes_ensemble_classification_tpu_torch.data.resident import ResidentClips
+def profile_train(model_type: str, batch: int, steps: int, labels, torch, np, path: str = "train_resident") -> dict:
+    """The resident train step of `model_type` at `batch` (chip_smoke.py's
+    `zoo_resident` data: staging the model size + 32, TwoStream's gray
+    pairs with turbo Farnebäck in the step; the family's optimizer and l2):
+    2 warm-up steps, `steps` unprofiled, `steps` profiled."""
+    import chip_smoke
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import flow_schedule_params
     from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
     from crowded_scenes_ensemble_classification_tpu_torch.train import (
         TrainState,
-        make_optimizer,
         make_resident_train_step,
+        train_policy,
     )
 
-    bundle = build_model("I3D", dtype=torch.bfloat16, generator=torch.Generator().manual_seed(13), trainable=True)
-    rng = np.random.default_rng(9)
-    data = ResidentClips({"rgb": rng.integers(0, 256, (batch, FRAMES, STAGING, STAGING, 3), dtype=np.uint8)},
-                         rng.integers(0, CLASSES, batch), batch)
-    tx = make_optimizer("I3D", 0.003)
-    step = make_resident_train_step(bundle, tx, (SIZE, SIZE), augment=True, input_scale=1 / 255.0)
+    bundle = build_model(model_type, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(13),
+                         trainable=True)
+    data = chip_smoke.zoo_resident(np, np.random.default_rng(9), bundle, batch, batch)
+    tx, l2 = train_policy(model_type)
+    fp = flow_schedule_params("turbo") if bundle.two_stream else None
+    step = make_resident_train_step(bundle, tx, (bundle.clip.height, bundle.clip.width), augment=True, l2_weight=l2,
+                                    input_scale=1 / 255.0, flow_params=fp)
     state = TrainState.create(bundle.module, tx)
     cw = torch.ones(CLASSES, device="cuda")
     epoch = iter(range(10**6))
@@ -422,7 +434,7 @@ def profile_train(batch: int, steps: int, labels, torch, np) -> dict:
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         wall_s = run(steps)
-    out = {"path": "train_resident", "batch": batch, "steps": steps,
+    out = {"path": path, "batch": batch, "steps": steps,
            "wall_ms_per_step_unprofiled": plain_s * 1e3 / steps,
            "clips_per_s_unprofiled": steps * batch / plain_s}
     out.update(breakdown(prof.events(), labels, wall_s, steps))
@@ -467,10 +479,15 @@ def main() -> int:
         results.append(r)
         print_record(f"{r['path']} B={r['batch']}", r)
     for batch in TRAIN_BATCHES:
-        r = profile_train(batch, STEPS, labels, torch, np)
+        r = profile_train("I3D", batch, STEPS, labels, torch, np)
         r["device"] = smi
         results.append(r)
         print_record(f"train B={batch}", r)
+    for model_type, batch, path in TRAIN_ZOO:
+        r = profile_train(model_type, batch, STEPS, labels, torch, np, path)
+        r["device"] = smi
+        results.append(r)
+        print_record(f"{path} B={batch}", r)
     for profile in (profile_hetero, profile_twostream):
         r = profile(BATCHES[0], STEPS, labels, torch, np)
         r["device"] = smi
