@@ -122,17 +122,43 @@ Phases, each of which raises on failure (exit code 1):
    relative error; R3D-50 at B=8 for 2 steps (the bottleneck blocks); two
    full-width C3D members through `make_multi_member_train_step` for 3
    steps (B=8, dropout on), each within 1e-6 relative error of itself
-   trained alone by `make_train_step` (cuDNN deterministic).
+   trained alone by `make_train_step` (cuDNN deterministic);
+20. static int8 inference (the JAX bench's `_int8_breakout`, bench.py:1424-1500):
+   4 full-width I3D members (bf16 compute, f32 weights drawn on the card,
+   BN spread) built with quant='calib' are calibrated by
+   `calibrate_members` on 2 batches of the main path's clips and baked;
+   the int8 conv kernel == its plain version (`torch.equal`) at all 57
+   convs of one member on B=2 clips (recorded from its forward) and at
+   `INT8_EXTRA_CASES` (C3D conv1, the R3D-18 stem, a 3³/2 conv, a 1³/2
+   projection, ragged C, odd extents, odd F), the quantize kernel == its
+   plain version, static and dynamic, at the member's 57 inputs; each conv
+   and quantize pass of the member timed at B=16 (warm and cold) beside
+   its bound (int8 operations at 1,979 TOPS, or bytes), its plain version,
+   cuDNN's bf16 conv of the same shape (another function) and, for the
+   1³ convs, `torch._int_mm` + the dequantize (the same function, checked
+   equal), a line each; then
+   `resident_ensemble_step` with the static members at B=16 and B=48 (or
+   32), 3 repeats of 5 steps, 228 int8-conv, 228 quantize, 36 max-pool, 1
+   noise and 0 stem launches a step, probabilities finite and summing to
+   1; against the bf16 main path on the same weights, rows and decisions:
+   max |dprob| printed, fused argmax equal where the top-2 gap exceeds
+   twice the largest fused difference; a small static I3D (f32) on the
+   card against the CPU within 1e-3; and the static forward of C3D,
+   R3D-18, TwoStream-I3D (precomputed flow) and I3D at full width, each
+   calibrated on one batch of B=16: finite probabilities, timed.
 
-Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 67 TFLOP/s
-f32 outside the tensor cores, 3.35 TB/s.  The line before last is the
-kernels' JSON record (4 kernels; the max pool's `launches` counts the main
-path's 3 steps, the heterogeneous phase's 5 steps at B=16 with precomputed
-flow and 15 with the flow on the card, and the TwoStream pipeline's 15
-steps at B=16, and the first 5 timed train steps of each family of
-phase 19; the noise kernel's the main path's, the TwoStream pipeline's and
-phase 19's; the gradient kernel's the I3D training path's and phase
-19's); the last line is `{"ok": true, "device": {...}}`.
+Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 1,979 TOPS
+dense int8, 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s.  The line
+before last is the kernels' JSON record (6 kernels; the max pool's
+`launches` counts the main path's 3 steps, the heterogeneous phase's 5
+steps at B=16 with precomputed flow and 15 with the flow on the card, and
+the TwoStream pipeline's 15 steps at B=16, the first 5 timed train steps
+of each family of phase 19 and the int8 main path's 15 steps at B=16; the
+noise kernel's the main path's, the TwoStream pipeline's, phase 19's and
+the int8 main path's; the gradient kernel's the I3D training path's and
+phase 19's; the int8 conv's and the quantize pass's the int8 main path's
+15 steps at B=16, their times the sums over one member's 57 convs at
+B=16); the last line is `{"ok": true, "device": {...}}`.
 Needs one card and no network.
 """
 
@@ -1727,6 +1753,363 @@ def check_evaluation(torch, np, dev, families) -> None:
               f"best {'+'.join(combos[0][0])} {combos[0][1]:.4f}; card == CPU")
 
 
+INT8_BATCHES = (BATCH, 48, 32)  # B=16, then B=48 (32 if 48 does not fit)
+INT8_STEPS, INT8_REPEATS = 5, 3
+INT8_OPS = 1979e12  # H100 SXM data sheet, dense int8 per second
+# A cold rotation of more calls than the device's launch queue holds (about
+# 1,000) stalls the host: the rotation of the small Mixed_5* inputs stops at
+# 512 copies (38 MB of the 50 MB L2 at the smallest, so partly warm).
+INT8_COLD_COPIES = 512
+I3D_CONVS = 3 + 9 * 6  # stem, Conv3d_2b, Conv3d_2c and six convs in each Mixed block
+# (what, x NTHWC, F, kernel, strides) beyond one I3D member's convs, TF-SAME
+# pads: C3D conv1 and the R3D-18 stem on C = 3 at 16×112², an R3D-18
+# stage-1 3³/2 conv and its 1³/2 VALID projection, and ragged cases (C = 24
+# and 17, odd T/H/W, F = 13, a stride of (1, 2, 1)).
+INT8_EXTRA_CASES = [
+    ("C3D conv1", (2, 16, 112, 112, 3), 64, (3, 3, 3), (1, 1, 1), "SAME"),
+    ("R3D-18 stem", (2, 16, 112, 112, 3), 64, (7, 7, 7), (2, 2, 2), "SAME"),
+    ("R3D-18 3^3/2", (2, 4, 28, 28, 64), 128, (3, 3, 3), (2, 2, 2), "SAME"),
+    ("R3D-18 1^3/2 projection", (2, 4, 28, 28, 64), 128, (1, 1, 1), (2, 2, 2), "VALID"),
+    ("ragged C=24, odd T/H/W", (2, 5, 7, 9, 24), 40, (3, 3, 3), (1, 1, 1), "SAME"),
+    ("ragged C=17, F=13", (1, 3, 5, 7, 17), 13, (3, 3, 3), (1, 2, 1), "SAME"),
+    ("ragged C=3, F=13, odd extents", (1, 3, 5, 7, 3), 13, (3, 3, 3), (1, 1, 1), "SAME"),
+]
+
+
+def int8_launches() -> dict:
+    """`zoo_launches()` with the stem's and the two int8 kernels' counters."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels import int8_conv, stem_conv
+
+    return {**zoo_launches(), "stem_conv_7x7x7_s2": stem_conv.stem_conv_7x7x7_s2.launches,
+            "int8_conv3d": int8_conv.int8_conv3d.launches, "quantize_int8": int8_conv.quantize_int8.launches}
+
+
+def zero_int8_launches() -> None:
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels import int8_conv, stem_conv
+
+    zero_zoo_launches()
+    stem_conv.stem_conv_7x7x7_s2.launches = int8_conv.int8_conv3d.launches = int8_conv.quantize_int8.launches = 0
+
+
+def captured_int8_calls(fn) -> tuple:
+    """Run fn() with the models' int8 conv and quantize calls recorded:
+    ([(x8, wp, scale, bias, kernel, strides, pads)], [(x, scalar, dynamic)])."""
+    import crowded_scenes_ensemble_classification_tpu_torch.models.common as common_mod
+
+    convs, quants = [], []
+    conv, quant = common_mod.int8_conv3d, common_mod.quantize_int8
+
+    def conv_rec(*a):
+        convs.append(a)
+        return conv(*a)
+
+    def quant_rec(x, scalar, dynamic=False):
+        quants.append((x, scalar, dynamic))
+        return quant(x, scalar, dynamic)
+
+    with mock.patch.object(common_mod, "int8_conv3d", conv_rec), mock.patch.object(common_mod, "quantize_int8",
+                                                                                     quant_rec):
+        fn()
+    return convs, quants
+
+
+def int8_plain(call):
+    """The plain version of a recorded int8 conv call, on its own tensors."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv3d_reference,
+        unpack_int8_weights,
+    )
+
+    x8, wp, scale, bias, kernel, strides, pads = call
+    k8 = unpack_int8_weights(wp, scale.shape[0], kernel, x8.shape[-1])
+    return int8_conv3d_reference(x8, k8, scale, bias, strides, pads)
+
+
+def int8_main_clips(torch, resident, seed: int, count: int) -> list:
+    """`count` batches of the main path's clips (decode + augment of the
+    resident rows, 0-255 f32), as `calibrate_members` takes them."""
+    from crowded_scenes_ensemble_classification_tpu_torch.data.wire_format import i420_to_bgr_u8
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import _resident_batch
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.augment import crowd11_augment_from_decisions
+
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for i in range(count):
+        rows, d = _resident_batch(resident, i, gen, BATCH, STAGING)
+        batch = i420_to_bgr_u8(rows, FRAMES, STAGING, STAGING)
+        out.append({"rgb": crowd11_augment_from_decisions(batch, (SIZE, SIZE), d)})
+    return out
+
+
+def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
+    """The int8 kernels against their plain versions (`torch.equal`) at
+    every conv of one I3D member at B=2 on the main path's clips, at
+    INT8_EXTRA_CASES and on both quantize modes; then each of the member's
+    convs and quantize passes at B=16 timed beside its bound, its plain
+    version and the library yardsticks.  Returns the two kernels' records."""
+    import torch.nn.functional as F
+
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import conv_pads
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv3d,
+        int8_conv3d_reference,
+        pack_int8_weights,
+        quantize_int8,
+        quantize_int8_reference,
+        unpack_int8_weights,
+    )
+
+    with torch.inference_mode():
+        convs, quants = captured_int8_calls(lambda: member(xs2))
+    check(len(convs) == I3D_CONVS and len(quants) == I3D_CONVS,
+          f"one static I3D member made {len(convs)} int8 convs and {len(quants)} quantize passes, not {I3D_CONVS}")
+    err = 0.0
+    for i, call in enumerate(convs):
+        got, ref = int8_conv3d(*call), int8_plain(call)
+        err = max(err, (got - ref).abs().max().item())
+        check(torch.equal(got, ref), f"int8 conv kernel != plain at the member's conv {i}: x {tuple(call[0].shape)}, "
+                                     f"kernel {call[4]}, strides {call[5]}, pads {call[6]}")
+    cins = sorted({c[0].shape[-1] for c in convs})
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for what, shape, f, kernel, strides, padding in INT8_EXTRA_CASES:
+        x8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+        k8 = torch.randint(-127, 128, (f, shape[-1], *kernel), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        scale, bias = torch.rand(f, generator=gen, device=dev) * 1e-3, torch.randn(f, generator=gen, device=dev)
+        pads = conv_pads(shape[1:4], kernel, strides, padding)
+        got = int8_conv3d(x8, pack_int8_weights(k8), scale, bias, kernel, strides, pads)
+        check(torch.equal(got, int8_conv3d_reference(x8, k8, scale, bias, strides, pads)),
+              f"int8 conv kernel != plain at {what}")
+    for i, (x, scalar, dynamic) in enumerate(quants):
+        check(not dynamic and torch.equal(quantize_int8(x, scalar), quantize_int8_reference(x, scalar, False)),
+              f"static quantize kernel != plain at the member's pass {i}")
+        sx = x.abs().amax().float().clamp_min(1e-30) / 127.0
+        check(torch.equal(quantize_int8(x, sx, True), quantize_int8_reference(x, sx, True)),
+              f"dynamic quantize kernel != plain at the member's pass {i}")
+    torch.cuda.synchronize()
+    print(f"int8: the kernel == its plain version at all {len(convs)} convs of one static I3D member on B=2 main-path "
+          f"clips (Cin {cins}) and {len(INT8_EXTRA_CASES)} more shapes "
+          f"({'; '.join(c[0] for c in INT8_EXTRA_CASES)}); quantize == plain, static and dynamic, at its "
+          f"{len(quants)} inputs")
+
+    with torch.inference_mode():
+        convs, quants = captured_int8_calls(lambda: member(xs16))
+    conv_tot = dict.fromkeys(("warm", "cold", "plain", "bf16", "bytes", "ops", "mm", "mm_kernel"), 0.0)
+    for i, call in enumerate(convs):
+        x8, wp, scale, bias, kernel, strides, pads = call
+        n, c, f = x8.shape[0], x8.shape[-1], scale.shape[0]
+        got = int8_conv3d(*call)
+        m = got.numel() // f
+        k8 = unpack_int8_weights(wp, f, kernel, c)
+        ops = 2 * m * f * math.prod(kernel) * c
+        nbytes = x8.numel() + k8.numel() + got.numel() * 4 + f * 4
+        warm = cuda_ms(lambda: int8_conv3d(*call))
+        cold = cuda_ms_cold(lambda x: int8_conv3d(x, *call[1:]), cold_inputs(x8)[:INT8_COLD_COPIES])
+        plain = cuda_ms(lambda: int8_plain(call), iters=2, warmup=1, queue_ahead=False)
+        flat = [p for axis in reversed(pads) for p in axis]
+        xb = F.pad(x8.permute(0, 4, 1, 2, 3).to(torch.bfloat16), flat).contiguous(
+            memory_format=torch.channels_last_3d)
+        wb = k8.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        bf16 = cuda_ms(lambda: F.conv3d(xb, wb, stride=strides))
+        line = (f"int8 conv {i:2d} x {tuple(x8.shape)} F={f} k{tuple(kernel)} s{tuple(strides)}: kernel warm {warm:.4f} ms, "
+                f"cold {cold:.4f} ms ({ops / cold / 1e9:.1f} TOPS, {bound(nbytes, ops, INT8_OPS)[0] / cold:.1%} "
+                f"of bound); plain {plain:.3f} ms; cuDNN bf16 conv (another function) {bf16:.4f} ms")
+        if tuple(kernel) == (1, 1, 1) and tuple(strides) == (1, 1, 1):
+            x2, w2 = x8.view(-1, c), k8.reshape(f, c).contiguous().t()  # (C, F) column-major
+            mm = lambda: torch._int_mm(x2, w2).float() * scale  # noqa: E731
+            check(torch.equal(mm().view(got.shape), got), f"torch._int_mm + dequantize != the kernel at conv {i}")
+            mm_ms = cuda_ms(mm)
+            conv_tot["mm"] += mm_ms
+            conv_tot["mm_kernel"] += cold
+            line += f"; torch._int_mm + dequantize {mm_ms:.4f} ms"
+        print(line)
+        for k, v in zip(("warm", "cold", "plain", "bf16", "bytes", "ops"), (warm, cold, plain, bf16, nbytes, ops)):
+            conv_tot[k] += v
+        del xb, wb, got
+    q_tot = dict.fromkeys(("warm", "cold", "plain", "bytes"), 0.0)
+    for x, scalar, _ in quants:
+        q_tot["warm"] += cuda_ms(lambda: quantize_int8(x, scalar))
+        q_tot["cold"] += cuda_ms_cold(lambda v: quantize_int8(v, scalar), cold_inputs(x))
+        q_tot["plain"] += cuda_ms(lambda: quantize_int8_reference(x, scalar, False))
+        q_tot["bytes"] += x.numel() * (x.element_size() + 1)
+    cb, cb_by = bound(conv_tot["bytes"], conv_tot["ops"], INT8_OPS)
+    qb, qb_by = bound(q_tot["bytes"], 0.0, INT8_OPS)
+    print(f"int8 conv, the {len(convs)} convs of one member at B={BATCH}: kernel cold {conv_tot['cold']:.4f} ms "
+          f"({conv_tot['ops'] / conv_tot['cold'] / 1e9:.1f} TOPS, {cb / conv_tot['cold']:.1%} of bound), warm "
+          f"{conv_tot['warm']:.4f} ms; plain {conv_tot['plain']:.3f} ms; bound {cb:.4f} ms ({cb_by}, "
+          f"{conv_tot['ops'] / 1e12:.3f} T int8 ops, {conv_tot['bytes'] / 1e9:.3f} GB); cuDNN bf16 convs of the same "
+          f"shapes {conv_tot['bf16']:.4f} ms; the 1^3 convs: kernel {conv_tot['mm_kernel']:.4f} ms, "
+          f"torch._int_mm + dequantize {conv_tot['mm']:.4f} ms")
+    print(f"quantize, the member's {len(quants)} static passes at B={BATCH}: kernel cold {q_tot['cold']:.4f} ms "
+          f"({qb / q_tot['cold']:.1%} of bound), warm {q_tot['warm']:.4f} ms; plain {q_tot['plain']:.4f} ms; bound "
+          f"{qb:.4f} ms ({qb_by}, {q_tot['bytes'] / 1e9:.3f} GB)")
+    return [
+        {"name": "int8_conv3d", "route": "cuda", "source": f"{PORT}/csrc/int8_conv3d.cu",
+         "replaces": "none (XLA's int8 conv_general_dilated in crowded_scenes_ensemble_classification_tpu/models/"
+                     "common.py:111 and :176)",
+         "launches": 0, "max_abs_err": err, "ms": conv_tot["cold"], "warm_ms": conv_tot["warm"],
+         "plain_ms": conv_tot["plain"], "bound_ms": cb, "bound_by": cb_by, "library_ms": None,
+         "int_mm_1x1_ms": conv_tot["mm"], "kernel_1x1_ms": conv_tot["mm_kernel"],
+         "bf16_cudnn_ms": conv_tot["bf16"]},
+        {"name": "quantize_int8", "route": "cuda", "source": f"{PORT}/csrc/quantize_int8.cu",
+         "replaces": "none (XLA's elementwise quantize in crowded_scenes_ensemble_classification_tpu/models/"
+                     "common.py:196-199)",
+         "launches": 0, "max_abs_err": 0.0, "ms": q_tot["cold"], "warm_ms": q_tot["warm"], "plain_ms": q_tot["plain"],
+         "bound_ms": qb, "bound_by": qb_by, "library_ms": None},
+    ]
+
+
+def check_int8(torch, np, dev, kernels) -> None:
+    """Static int8 inference on the card: calibrate 4 full-width I3D members
+    on the main path's clips, hold the kernels to their plain versions and
+    time them, run the int8 main path at B=16 and B=48, compare it with the
+    bf16 main path, a small static I3D on the card with the CPU, and every
+    family's static forward at full width."""
+    import copy
+
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import (
+        calibrate_members,
+        make_member_forward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import (
+        AUGMENT_P,
+        ensemble_step_from_decisions,
+        resident_ensemble_step,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import s2d_stem_stage
+    from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.quantize import (
+        calibrate,
+        calibration_summary,
+        quantize_variables,
+        set_quant_mode,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.augment import draw_decisions
+
+    ibytes = FRAMES * STAGING * STAGING * 3 // 2
+    rows = np.random.default_rng(23).integers(0, 256, (2 * INT8_BATCHES[1], ibytes), dtype=np.uint8)
+    resident = torch.from_numpy(rows).to(dev)
+    bundles = seeded_members(torch, "I3D", MEMBERS, 1700, quant="calib", stem_prestaged=True)
+    members = [b.module for b in bundles]
+    calib_clips = int8_main_clips(torch, resident, 24, 2)
+    t0 = time.perf_counter()
+    calibrate_members(members, calib_clips, (SIZE, SIZE), num_batches=2)
+    torch.cuda.synchronize()
+    scales = calibration_summary(members[0])
+    print(f"int8 calibration: {MEMBERS} members (bf16 compute, f32 weights) on 2 batches of B={BATCH} main-path clips "
+          f"in {time.perf_counter() - t0:.2f} s; member 0: {len(scales)} sites, act_absmax "
+          f"{min(scales.values()):.4g}..{max(scales.values()):.4g}")
+    check(len(scales) == I3D_CONVS and all(v > 0 for v in scales.values()), "calibration left a site at 0")
+
+    xs16 = s2d_stem_stage(calib_clips[0]["rgb"].to(torch.bfloat16))
+    kernels.extend(check_int8_kernels(torch, dev, members[0], xs16[:2].contiguous(), xs16))
+    conv_k, quant_k = kernels[-2], kernels[-1]
+    maxpool_k = next(k for k in kernels if k["name"] == "max_pool_3x3x3_same")
+    noise_k = next(k for k in kernels if k["name"] == "salt_pepper")
+    del xs16
+
+    per_step = {"int8_conv3d": I3D_CONVS * MEMBERS, "quantize_int8": I3D_CONVS * MEMBERS,
+                "max_pool_3x3x3_same": 9 * MEMBERS, "max_pool_3x3x3_same_backward": 0, "salt_pepper": 1,
+                "stem_conv_7x7x7_s2": 0}
+    for sizes in (INT8_BATCHES[:1], INT8_BATCHES[1:]):
+        for size in sizes:
+            gen = torch.Generator().manual_seed(size)
+            step = lambda i: resident_ensemble_step(  # noqa: E731
+                members, resident, i, gen, batch_size=size, frames=FRAMES, staging=STAGING, out_hw=(SIZE, SIZE))
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                for i in range(2):  # warm-up: allocator, cuDNN plans of the BN
+                    step(i)
+                break
+            except torch.cuda.OutOfMemoryError:
+                print(f"int8 main path B={size} does not fit on the card")
+                torch.cuda.empty_cache()
+        else:
+            raise RuntimeError(f"chip_smoke check failed: no int8 main-path batch of {sizes} fits")
+        zero_int8_launches()
+        outs, counter = [], iter(range(10**6))
+        times = host_ms(lambda: outs.append(step(next(counter))), torch, INT8_REPEATS, INT8_STEPS)
+        launches = int8_launches()
+        steps = INT8_REPEATS * INT8_STEPS
+        print(f"int8 main path, {MEMBERS} static members, B={size}"
+              f"{'' if size == sizes[0] else f' (B={sizes[0]} does not fit)'}: {spread(times, size)}; launches "
+              f"{launches} in {steps} steps ({ {k: v / steps for k, v in launches.items()} } a step); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        check(launches == {k: v * steps for k, v in per_step.items()}, f"int8 main path launch counts {launches}")
+        for probs, fused in outs[-INT8_STEPS:]:
+            check_probs(torch, probs, (MEMBERS, size, CLASSES), f"int8 main path B={size}")
+            check(torch.equal(fused, probs.sum(0).argmax(-1)), "int8 fused predictions are not the SUM argmax")
+        if size == BATCH:
+            conv_k["launches"], quant_k["launches"] = launches["int8_conv3d"], launches["quantize_int8"]
+            maxpool_k["launches_int8"], noise_k["launches_int8"] = (launches["max_pool_3x3x3_same"],
+                                                                    launches["salt_pepper"])
+            maxpool_k["launches"] += launches["max_pool_3x3x3_same"]
+            noise_k["launches"] += launches["salt_pepper"]
+        del outs
+        torch.cuda.empty_cache()
+
+    # the bf16 main path on the same weights, rows and decisions
+    plain = [build_model("I3D", dtype=torch.bfloat16, stem_prestaged=True).module for _ in members]
+    for p, m in zip(plain, members):
+        p.load_state_dict({k: v for k, v in m.state_dict().items() if not k.endswith(("act_absmax", ".k8", ".sw"))})
+    gen = torch.Generator().manual_seed(5)
+    dprob, agrees, dfused = 0.0, True, 0.0
+    for i in range(2):
+        d = draw_decisions(gen, BATCH, (STAGING, STAGING), AUGMENT_P)
+        r = resident[i * BATCH: (i + 1) * BATCH]
+        p8, _ = ensemble_step_from_decisions(members, r, d, FRAMES, STAGING, (SIZE, SIZE))
+        pb, _ = ensemble_step_from_decisions(plain, r, d, FRAMES, STAGING, (SIZE, SIZE))
+        dprob = max(dprob, (p8 - pb).abs().max().item())
+        ok, df = fused_argmax_agrees(pb, p8, torch)
+        agrees, dfused = agrees and ok, max(dfused, df)
+    print(f"int8 against bf16 main path, 2 batches of B={BATCH}, same weights, rows and decisions: max |dprob| "
+          f"{dprob:.3g}, max |dfused| {dfused:.3g}; fused argmax agrees where the top-2 gap exceeds twice that: {agrees}")
+    check(agrees, "the int8 main path's fused argmax differs from the bf16 path's beyond the fused difference")
+    del plain, members, bundles, resident
+    torch.cuda.empty_cache()
+
+    # one small static I3D (f32, TF32 off): the kernels on the card against the plain versions on the CPU
+    gen = torch.Generator().manual_seed(7)
+    cpu = I3D(CLASSES, frames=16, generator=gen, quant="calib").eval()
+    spread_batchnorm(cpu, gen)
+    x = torch.randn(2, 16, 32, 32, 3, generator=gen) * 50.0
+    set_quant_mode(quantize_variables(calibrate(cpu, [x])), "static")
+    card = copy.deepcopy(cpu).to(dev)
+    zero_int8_launches()
+    with torch.inference_mode():
+        ref = torch.softmax(cpu(x), -1)
+        got = torch.softmax(card(x.to(dev)), -1).cpu()
+    err = (got - ref).abs().max().item()
+    print(f"small static I3D (2,16,32,32,3) f32: card (kernels, {int8_launches()['int8_conv3d']} int8 conv launches) "
+          f"vs CPU (plain versions) max |dprob| {err:.3g}")
+    check(int8_launches()["int8_conv3d"] == I3D_CONVS, "the small static I3D did not launch one int8 conv a conv")
+    check(err <= 1e-3, f"card static I3D disagrees with the CPU's: {err}")
+
+    # every family's static forward at full width, each calibrated on one batch
+    for i, (model_type, kw) in enumerate((("C3D", {}), ("R3D_18", {}), ("TWOSTREAM_I3D", {"stem_prestaged": True}),
+                                          ("I3D", {"stem_prestaged": True}))):
+        (bundle,) = seeded_members(torch, model_type, 1, 1800 + 10 * i, quant="calib", **kw)
+        batch = {k: seeded_clips(torch, dev, (BATCH,) + shape, 1900 + i)
+                 for k, shape in (("rgb", bundle.clip.rgb_shape), ("flow", bundle.clip.flow_shape))
+                 if k == "rgb" or bundle.two_stream}
+        hw, share = (bundle.clip.height, bundle.clip.width), bool(kw)
+        (member,) = calibrate_members([bundle.module], [batch], hw, num_batches=1, input_scale=INPUT_SCALE)
+        forward = make_member_forward([member], hw, share_stem_staging=share, input_scale=INPUT_SCALE)
+        torch.cuda.reset_peak_memory_stats()
+        zero_int8_launches()
+        probs = forward(batch)
+        convs = int8_launches()["int8_conv3d"]
+        check_probs(torch, probs, (1, BATCH, CLASSES), f"static {model_type}")
+        ms = cuda_ms(lambda: forward(batch), iters=5, warmup=1, queue_ahead=False)
+        print(f"static int8 {model_type} full width, B={BATCH}: {convs} int8 convs a forward, {ms:.3f} ms per batch, "
+              f"{BATCH * 1e3 / ms:.2f} clips/s, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+              f"max |p - 1/{CLASSES}| {(probs - 1 / CLASSES).abs().max().item():.3g}")
+        check(convs > 0, f"static {model_type} launched no int8 conv")
+        del bundle, member, forward, batch, probs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1777,6 +2160,8 @@ def main() -> int:
     phase("twostream", check_twostream, torch, np, dev, kernels)
     torch.cuda.empty_cache()
     phase("train_zoo", check_train_zoo, torch, np, dev, kernels)
+    torch.cuda.empty_cache()
+    phase("int8", check_int8, torch, np, dev, kernels)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase {phase_s}")
     print(json.dumps({"kernels": kernels}))

@@ -21,14 +21,15 @@ Farnebäck computes the flow on the members' device (displacement, so
 `input_scale` does not apply).
 `stack_variables` and `get_member_forward` have no counterpart: they stack
 flax pytrees for `vmap` and cache `jit`ted forwards, and here each member
-is an `nn.Module` run eagerly.  The member-sharded mesh form,
-`calibrate_members` and the serving export of gray-pair inputs are not
-ported yet (ROADMAP Queue 1 items 7 and 8).
+is an `nn.Module` run eagerly.  `calibrate_members` (JAX members.py:94-162)
+makes static-int8 members.  The member-sharded mesh form and the serving
+export of gray-pair inputs are not ported yet (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+import itertools
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +38,7 @@ import torch.nn as nn
 from ..flow.farneback import gray_pair_flow
 from ..models.common import s2d_stem_stage
 from ..models.i3d import I3D
+from ..models.quantize import calibrate, quantize_variables, set_quant_mode
 from ..models.two_stream_i3d import TwoStreamI3D
 from ..ops.augment import identity_resize_batch
 
@@ -96,6 +98,53 @@ def check_member_form(members: Sequence[nn.Module], share_stem_staging: bool) ->
             )
 
 
+def _member_inputs(members: Sequence[nn.Module], batch: Dict, out_hw: Tuple[int, int], share_stem_staging: bool,
+                   input_scale: float, flow_fast_warp: bool, flow_params: Optional[dict]) -> List[torch.Tensor]:
+    """The members' positional inputs of one batch: preprocessed, cast once
+    to their dtype and, shared, staged once."""
+    two_stream = isinstance(members[0], TwoStreamI3D)
+    inputs = prepare_member_inputs(batch, out_hw, two_stream, input_scale, flow_fast_warp, flow_params)
+    xs = [inputs[k].to(members[0].dtype) for k in (("rgb", "flow") if two_stream else ("rgb",))]
+    return [s2d_stem_stage(x) for x in xs] if share_stem_staging else xs
+
+
+def _on_device(batch: Dict, device: torch.device) -> Dict:
+    return {k: torch.as_tensor(batch[k]).to(device) for k in ("rgb", "flow", "gray", "gray_next") if k in batch}
+
+
+def calibrate_members(
+    members: Sequence[nn.Module],
+    batches: Iterable[Dict],
+    out_hw: Tuple[int, int],
+    num_batches: int = 2,
+    input_scale: float = 1.0,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
+) -> List[nn.Module]:
+    """Static-int8 calibration of every member (JAX members.py:94-162).
+    `members` are of one family, built with quant='calib' (I3D and
+    TwoStream with `stem_prestaged`: they calibrate through the shared s2d
+    staging that `member_probabilities` feeds them, so the prestaged stem
+    records its own scale).  The first `num_batches` of `batches` (dicts
+    as `member_probabilities` takes) are preprocessed once, exactly as
+    for inference, and run through each member; then its weights are baked
+    (`models.quantize.quantize_variables`) and it is switched to 'static'.
+    Returns the members, ready for `member_probabilities` and
+    `make_member_forward` unchanged."""
+    share = isinstance(members[0], (I3D, TwoStreamI3D))
+    check_member_form(members, share)
+    device = next(members[0].parameters()).device
+    with torch.inference_mode():
+        arg_sets = [tuple(_member_inputs(members, _on_device(b, device), out_hw, share, input_scale,
+                                         flow_fast_warp, flow_params))
+                    for b in itertools.islice(batches, num_batches)]
+    if not arg_sets:
+        raise ValueError("calibrate_members: no batches")
+    for m in members:
+        set_quant_mode(quantize_variables(calibrate(m, arg_sets)), "static")
+    return list(members)
+
+
 def member_softmax(
     members: Sequence[nn.Module],
     batch: Dict,
@@ -110,11 +159,7 @@ def member_softmax(
     (B, T, H, W, 1), on the members' device → (M, B, C) float32 softmax.
     Opens no autograd context, so `torch.export` can trace it; callers that
     run it eagerly wrap it in `inference_mode`."""
-    two_stream = isinstance(members[0], TwoStreamI3D)
-    inputs = prepare_member_inputs(batch, out_hw, two_stream, input_scale, flow_fast_warp, flow_params)
-    xs = [inputs[k].to(members[0].dtype) for k in (("rgb", "flow") if two_stream else ("rgb",))]
-    if share_stem_staging:
-        xs = [s2d_stem_stage(x) for x in xs]
+    xs = _member_inputs(members, batch, out_hw, share_stem_staging, input_scale, flow_fast_warp, flow_params)
     return _softmax_stack(members, *xs)
 
 
@@ -163,9 +208,7 @@ def member_probabilities(
     device = next(members[0].parameters()).device
     chunks = []
     for batch in batches:
-        on_device = {k: torch.as_tensor(batch[k]).to(device) for k in ("rgb", "flow", "gray", "gray_next")
-                     if k in batch}
-        probs = forward(on_device).cpu().numpy()
+        probs = forward(_on_device(batch, device)).cpu().numpy()
         valid = np.asarray(batch.get("valid", np.ones(probs.shape[1], bool)), bool)
         chunks.append(probs[:, valid])
     return np.concatenate(chunks, axis=1)

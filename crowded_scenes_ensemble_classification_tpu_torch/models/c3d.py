@@ -5,8 +5,10 @@ Counterpart of `crowded_scenes_ensemble_classification_tpu/models/c3d.py`
 max pools, a zero pad after H and W before pool5, fc6/fc7 with dropout
 and fc8.  Attribute names follow the flax tree (`conv3a`, `fc6`), so
 `models/convert.py` maps a flax checkpoint key for key.  Takes NTHWC clips
-and returns float32 logits; the int8 path is not ported (ROADMAP Queue 1
-item 7).
+and returns float32 logits.  With `quant` (inference only) every conv is a
+`models/common.QuantConv` with its bias on the int8 kernel: its f32 output
+stays f32 through ReLU and pools into the next conv, and only the Dense
+layers compute in `dtype` (JAX models/c3d.py:38-53).
 
 Dropout (train mode only) draws its masks from the `generator` given to
 `forward`, never from torch's global RNG: the train steps seed one per step
@@ -17,13 +19,13 @@ an uninterrupted one would.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import flatten, lecun_normal_, max_pool_3d, to_ncdhw
+from .common import QuantConv, flatten, lecun_normal_, max_pool_3d, quant_mode, to_ncdhw
 
 # (name, features at width 1, VALID pool after it or None) in order
 # (JAX models/c3d.py:65-84).
@@ -54,8 +56,10 @@ def c3d_flat_features(clip_thw: Tuple[int, int, int], features: int) -> int:
     return t * h * w * features
 
 
-def _conv(c_in: int, c_out: int, generator) -> nn.Conv3d:
+def _conv(c_in: int, c_out: int, generator, quant=False) -> nn.Conv3d:
     """3³ stride-1 conv with bias: TF-SAME is a symmetric pad of 1."""
+    if quant:
+        return QuantConv(c_in, c_out, (3, 3, 3), mode=quant_mode(quant), generator=generator)
     conv = nn.Conv3d(c_in, c_out, 3, padding=1)
     lecun_normal_(conv.weight, c_in * 27, generator)
     nn.init.zeros_(conv.bias)
@@ -83,7 +87,8 @@ class C3D(nn.Module):
     `clip_thw` is the (T, H, W) it is built for, which sizes fc6.  Dropout
     acts in train mode only.  `compute_dtype`, when set, is the dtype the
     model computes in while its weights stay in theirs (f32 master weights,
-    each cast in the forward, as `I3D`)."""
+    each cast in the forward, as `I3D`).  `quant` (True or 'dynamic',
+    'calib', 'static') runs the convs in int8, inference only."""
 
     def __init__(
         self,
@@ -92,13 +97,15 @@ class C3D(nn.Module):
         dropout_rate: float = 0.5,
         clip_thw: Tuple[int, int, int] = (16, 112, 112),
         generator: Optional[torch.Generator] = None,
+        quant: Union[bool, str] = False,
     ):
         super().__init__()
         w = lambda f: max(int(f * width), 8)  # noqa: E731
         c_in = 3
         for name, features, _ in _CONVS:
-            setattr(self, name, _conv(c_in, w(features), generator))
+            setattr(self, name, _conv(c_in, w(features), generator, quant))
             c_in = w(features)
+        self.quant = quant
         self.fc6 = _dense(c3d_flat_features(clip_thw, c_in), w(FC_FEATURES), generator)
         self.fc7 = _dense(w(FC_FEATURES), w(FC_FEATURES), generator)
         self.fc8 = _dense(w(FC_FEATURES), num_classes, generator)
@@ -114,14 +121,19 @@ class C3D(nn.Module):
         """Logits of NTHWC clips; in train mode with a dropout rate, the
         dropout masks come from `generator` (required)."""
         dt = self.dtype
+        if self.quant and self.training:
+            raise ValueError("quant C3D is inference-only")
         drop = self.training and self.dropout_rate > 0.0
         if drop and generator is None:
             raise ValueError("C3D's dropout in train mode draws from an explicit generator; none was given")
-        dense = lambda m, x: F.linear(x, m.weight.to(dt), m.bias.to(dt))  # noqa: E731
+        dense = lambda m, x: F.linear(x.to(dt), m.weight.to(dt), m.bias.to(dt))  # noqa: E731
         x = to_ncdhw(x.to(dt))
         for name, _, pool in _CONVS:
             conv = getattr(self, name)
-            x = F.relu(F.conv3d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1))
+            if self.quant:
+                x = F.relu(conv(x))
+            else:
+                x = F.relu(F.conv3d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1))
             if pool == "pad+pool":  # ZeroPadding3D(((0,0),(0,1),(0,1))) (reference train.py:1259-1261)
                 x = F.pad(x, (0, 1, 0, 1))
                 pool = (2, 2, 2)

@@ -13,12 +13,13 @@ pool here pads explicitly with `same_pads`.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.int8_conv import int8_conv3d, pack_int8_weights, quantize_int8
 from ..ops.kernels.stem_conv import s2d_stem_kernel, s2d_stem_stage, stem_conv_7x7x7_s2
 
 # JAX models/common.py:24-25 (Keras 2.2.4 defaults); torch counts momentum
@@ -135,13 +136,19 @@ class BNRelu(nn.Module):
         super().__init__()
         self.bn = KerasBatchNorm3d(features, scale=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(x))
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """In x's dtype, or cast to `dtype` after the BN (flax's
+        BatchNorm(dtype) on an f32 quant conv output computes in f32)."""
+        y = self.bn(x)
+        return F.relu(y if dtype is None else y.to(dtype))
 
 
 class ConvBN(nn.Module):
     """Conv3d (no bias, TF-SAME) + BatchNorm(scale=False) + ReLU on NCDHW
-    (JAX models/common.py:48-107)."""
+    (JAX models/common.py:48-107).  With `quant` (True or 'dynamic',
+    'calib', 'static') the conv is a `QuantConv`, inference only: its f32
+    output goes through the BatchNorm in f32 and is cast to the input's
+    dtype after, as flax's BatchNorm(dtype) computes in f32 and casts last."""
 
     def __init__(
         self,
@@ -150,16 +157,217 @@ class ConvBN(nn.Module):
         kernel: Tuple[int, int, int],
         strides: Tuple[int, int, int] = (1, 1, 1),
         generator: Optional[torch.Generator] = None,
+        quant: Union[bool, str] = False,
     ):
         super().__init__()
         self.strides = tuple(strides)
-        self.conv = nn.Conv3d(in_features, features, kernel, stride=strides, bias=False)
-        lecun_normal_(self.conv.weight, in_features * math.prod(kernel), generator)
+        self.quant = quant
+        if quant:
+            self.conv = QuantConv(in_features, features, kernel, strides, bias=False, mode=quant_mode(quant),
+                                  generator=generator)
+        else:
+            self.conv = nn.Conv3d(in_features, features, kernel, stride=strides, bias=False)
+            lecun_normal_(self.conv.weight, in_features * math.prod(kernel), generator)
         self.bn = KerasBatchNorm3d(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            if self.training:
+                raise ValueError("quant ConvBN is inference-only")
+            return F.relu(self.bn(self.conv(x)).to(x.dtype))
         w = self.conv.weight.to(x.dtype)  # the f32 master weight of a trainable model, cast
         return F.relu(self.bn(conv3d_same(x, w, None, self.strides)))
+
+
+# ----------------------------------------------------------------------
+# int8 quantized inference (JAX models/common.py:111-296).  Weights are
+# quantized per output channel from their f32 values, activations per
+# tensor: by their own max|x| (dynamic) or by a calibrated scale
+# (static).  The contraction is int8 × int8 → int32 in the hand-written
+# kernel `ops/kernels/int8_conv.int8_conv3d`, dequantized to f32 in its
+# epilogue; the quantize pass is `quantize_int8`.  Public functions take
+# NTHWC activations and the port's OIDHW (F, C, kd, kh, kw) kernels.
+# ----------------------------------------------------------------------
+
+QUANT_MODES = ("dynamic", "calib", "static")
+Padding = Union[str, Sequence[Tuple[int, int]]]
+
+
+def quant_mode(quant) -> str:
+    """The zoo-wide `quant` attribute (True or a mode) as a QuantConv mode:
+    True means 'dynamic' (JAX models/common.py:159-162)."""
+    return quant if isinstance(quant, str) else "dynamic"
+
+
+def conv_pads(shape: Sequence[int], kernel: Sequence[int], strides: Sequence[int], padding: Padding):
+    """(before, after) pads of the (D, H, W) axes: 'SAME' (TF-SAME),
+    'VALID', or explicit pairs."""
+    if padding == "SAME":
+        return [same_pads(int(n), k, s) for n, k, s in zip(shape, kernel, strides)]
+    if padding == "VALID":
+        return [(0, 0)] * 3
+    return [tuple(p) for p in padding]
+
+
+def weight_qparams(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 quantization of an OIDHW kernel
+    (JAX models/common.py:165-173): sw = max(max|W[f]|, 1e-30)/127 and
+    k8 = round(W/sw), both from the f32 values; kernel ≈ k8·sw."""
+    kf = kernel.float()
+    sw = kf.abs().amax(dim=tuple(range(1, kf.dim()))).clamp_min(1e-30) / 127.0
+    return torch.round(kf / sw.view(-1, *[1] * (kf.dim() - 1))).to(torch.int8), sw
+
+
+def _int8_conv(x: torch.Tensor, x8: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor], kernel, strides, padding: Padding) -> torch.Tensor:
+    pads = conv_pads(x.shape[1:4], kernel, strides, padding)
+    return int8_conv3d(x8, wp, scale, bias, kernel, strides, pads)
+
+
+def quant_conv_general(x: torch.Tensor, kernel: torch.Tensor, strides, padding: Padding,
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dynamic int8 conv (JAX models/common.py:111-156): NTHWC x × OIDHW
+    kernel → f32 NTHWC.  sx = max(max|x|, 1e-30)/127 over the whole tensor,
+    x8 = round(x/sx) (a division), per-channel weight scales, int32
+    accumulation, dequantized by sx·sw; `bias` added after, in f32."""
+    k8, sw = weight_qparams(kernel)
+    sx = x.abs().amax().float().clamp_min(1e-30) / 127.0
+    x8 = quantize_int8(x.contiguous(), sx, dynamic=True)
+    return _int8_conv(x, x8, pack_int8_weights(k8), sx * sw, bias, k8.shape[2:], strides, padding)
+
+
+def static_operands(k8: torch.Tensor, sw: torch.Tensor, act_scale: torch.Tensor) -> tuple:
+    """What a static conv needs besides x: k8 packed for the kernel
+    (`pack_int8_weights`), inv = 1/max(act_scale, 1e-30) and the
+    dequantize scale act_scale·sw, as JAX computes them."""
+    return pack_int8_weights(k8), 1.0 / act_scale.float().clamp_min(1e-30), act_scale * sw
+
+
+def _static_conv(x: torch.Tensor, operands: tuple, bias: Optional[torch.Tensor], kernel, strides,
+                 padding: Padding) -> torch.Tensor:
+    wp, inv, scale = operands
+    x8 = quantize_int8(x.contiguous(), inv, dynamic=False)
+    return _int8_conv(x, x8, wp, scale, bias, kernel, strides, padding)
+
+
+def static_quant_conv_general(x: torch.Tensor, k8: torch.Tensor, sw: torch.Tensor, act_scale: torch.Tensor,
+                              strides, padding: Padding, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Static int8 conv (JAX models/common.py:176-208): NTHWC x, an OIDHW
+    int8 k8 with its scales sw, a calibrated per-tensor act_scale (a 0-dim
+    f32 tensor) → f32 NTHWC.  inv = 1/max(act_scale, 1e-30), x8 =
+    round(clip(x·inv, −127, 127)) (a multiply: out-of-range activations
+    saturate), dequantized by act_scale·sw; `bias` added after."""
+    return _static_conv(x, static_operands(k8, sw, act_scale), bias, k8.shape[2:], strides, padding)
+
+
+def _tensor_key(t: torch.Tensor) -> tuple:
+    """What identifies a tensor's current values for a cache: its storage,
+    device and, unless it is an inference tensor (which keeps no version
+    counter and cannot be written outside inference mode), its version."""
+    return t.data_ptr(), t.device, None if t.is_inference() else t._version
+
+
+class _QuantBuffers:
+    """The optional quant state of a quantized site: `act_absmax` (the
+    running max|x| of 'calib', read by 'static'; JAX's qstats) and, on a
+    QuantConv, the baked `k8`/`sw` (JAX's qparams).  A state dict without
+    them (a plain checkpoint) loads, its stats starting at 0 as JAX's do;
+    baked ones are taken when present."""
+
+    def _register_quant_buffers(self, mode: str) -> None:
+        if mode not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {mode!r}")
+        self.quant_mode = mode
+        if mode != "dynamic":
+            self.register_buffer("act_absmax", torch.zeros((), dtype=torch.float32))
+
+    def _baked_shapes(self) -> dict:
+        return {}
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        mode = getattr(self, "quant_mode", None)
+        if mode is None:  # an unquantized stem
+            return super()._load_from_state_dict(state_dict, prefix, local_metadata, strict, missing_keys,
+                                                 unexpected_keys, error_msgs)
+        dynamic = mode == "dynamic"
+        for name, (shape, dtype) in self._baked_shapes().items():
+            if not dynamic and prefix + name in state_dict and getattr(self, name) is None:
+                setattr(self, name, torch.empty(shape, dtype=dtype, device=self.act_absmax.device))
+        n_missing, n_unexpected = len(missing_keys), len(unexpected_keys)
+        super()._load_from_state_dict(state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys,
+                                      error_msgs)
+        quant_keys = {prefix + k for k in ("act_absmax", *self._baked_shapes())}
+        missing_keys[n_missing:] = [k for k in missing_keys[n_missing:] if k != prefix + "act_absmax"]
+        if dynamic:  # a dynamic site has no use for a calibrated state
+            unexpected_keys[n_unexpected:] = [k for k in unexpected_keys[n_unexpected:] if k not in quant_keys]
+
+    def record_absmax(self, x: torch.Tensor) -> None:
+        """'calib': act_absmax ← max(act_absmax, max|x|)."""
+        with torch.no_grad():
+            self.act_absmax.copy_(torch.maximum(self.act_absmax, x.abs().amax().float()))
+
+
+class QuantConv(_QuantBuffers, nn.Conv3d):
+    """int8 inference stand-in for a conv with TF-SAME, VALID or explicit
+    padding (JAX models/common.py:211-275).  Its parameters are
+    nn.Conv3d's (`weight` OIDHW f32, optional `bias`), so plain checkpoints
+    load unchanged; only the contraction changes with `quant_mode`:
+
+    - 'dynamic': `quant_conv_general`, a per-call activation scale;
+    - 'calib': the EXACT f32 conv, recording the running max|x| in
+      `act_absmax` (TF32 off: `models.quantize.calibrate` turns it off);
+    - 'static': `static_quant_conv_general` with act_absmax/127, and the
+      baked `k8`/`sw` (`models.quantize.quantize_variables`) when present,
+      else the weights quantized in the forward.  The packed weights and
+      the two scales (`static_operands`) are kept between calls while k8,
+      sw and act_absmax are unchanged.
+
+    Takes NCDHW x of any float dtype, returns f32 NCDHW (channels_last_3d
+    memory); the bias is added in f32 after the dequantize."""
+
+    def __init__(self, in_features: int, features: int, kernel, strides=(1, 1, 1), padding: Padding = "SAME",
+                 bias: bool = True, mode: str = "dynamic", generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, features, kernel, stride=strides, bias=bias)
+        lecun_normal_(self.weight, in_features * math.prod(self.kernel_size), generator)
+        if bias:
+            nn.init.zeros_(self.bias)
+        self.tf_padding = padding
+        self._register_quant_buffers(mode)
+        self.register_buffer("k8", None)
+        self.register_buffer("sw", None)
+        self._static: Optional[tuple] = None  # (key of k8, sw, act_absmax; their `static_operands`)
+
+    def _baked_shapes(self) -> dict:
+        return {"k8": (tuple(self.weight.shape), torch.int8), "sw": ((self.out_channels,), torch.float32)}
+
+    def static_operands(self) -> tuple:
+        """`static_operands` of 'static': from the baked k8/sw, kept between
+        calls while they and act_absmax are unchanged (JAX bakes them once),
+        else from the weights quantized now (JAX's in-graph quantization)."""
+        if self.k8 is None:
+            return static_operands(*weight_qparams(self.weight), self.act_absmax / 127.0)
+        key = tuple(_tensor_key(t) for t in (self.k8, self.sw, self.act_absmax))
+        if self._static is None or self._static[0] != key:
+            self._static = (key, static_operands(self.k8, self.sw, self.act_absmax / 127.0))
+        return self._static[1]
+
+    def forward(self, x: torch.Tensor, strides: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """`strides` overrides the module's (R3D's shortcut takes its strides
+        from the two shapes it joins)."""
+        strides = tuple(strides or self.stride)
+        bias = None if self.bias is None else self.bias.float()
+        if self.quant_mode == "calib":
+            self.record_absmax(x)
+            pads = conv_pads(x.shape[2:], self.kernel_size, strides, self.tf_padding)
+            y = F.conv3d(_pad(x.float(), pads), self.weight.float(), None, stride=strides)
+            return y if bias is None else y + bias.view(-1, 1, 1, 1)
+        xt = to_nthwc(x)
+        if self.quant_mode == "dynamic":
+            y = quant_conv_general(xt, self.weight, strides, self.tf_padding, bias)
+        else:
+            y = _static_conv(xt, self.static_operands(), bias, self.kernel_size, strides, self.tf_padding)
+        return to_ncdhw(y)
 
 
 # ----------------------------------------------------------------------
@@ -186,19 +394,62 @@ def s2d_stem_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return to_nthwc(_s2d_conv(s2d_stem_stage(x), weight))
 
 
-class PrestagedS2DStemConvBN(nn.Module):
+_S2D_KERNEL, _S2D_STRIDES, _S2D_PADS = (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))  # the s2d form's conv
+
+
+class PrestagedS2DStemConvBN(_QuantBuffers, nn.Module):
     """I3D stem on a pre-staged s2d input (NTHWC `s2d_stem_stage` output).
     Holds the canonical 7³ `conv.weight`, so its state dict equals the
-    canonical stem's `ConvBN` (JAX models/common.py:601-667)."""
+    canonical stem's `ConvBN` (JAX models/common.py:601-667).
 
-    def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None):
+    With `quant`, inference only, the conv runs on the DERIVED s2d kernel
+    `s2d_stem_kernel(W)` of the f32 weight: 'dynamic' quantizes it and the
+    input per call; 'calib' runs the exact f32 prestaged conv and records
+    max|xs| in this module's `act_absmax`; 'static' quantizes the derived
+    kernel (kept between calls while the weight is unchanged: the values
+    JAX computes in its forward) against act_absmax/127.  The derived
+    kernel is never baked, as in JAX.  BatchNorm runs on the f32 output and
+    the result is cast to xs's dtype after."""
+
+    def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None,
+                 quant: Union[bool, str] = False):
         super().__init__()
         self.conv = nn.Conv3d(in_features, features, 7, stride=2, bias=False)
         lecun_normal_(self.conv.weight, in_features * 343, generator)
         self.bn = KerasBatchNorm3d(features)
+        self.quant = quant
+        if quant:
+            self._register_quant_buffers(quant_mode(quant))
+            self._static: Optional[tuple] = None  # (key of the weight and act_absmax; `static_operands`)
+
+    def _static_operands(self) -> tuple:
+        """`static_operands` of the derived s2d kernel, kept between calls
+        while the weight and act_absmax are unchanged."""
+        w = self.conv.weight
+        key = (_tensor_key(w), _tensor_key(self.act_absmax))
+        if self._static is None or self._static[0] != key:
+            k8, sw = weight_qparams(s2d_stem_kernel(w.float()))
+            self._static = (key, static_operands(k8, sw, self.act_absmax / 127.0))
+        return self._static[1]
+
+    def _quant_conv(self, xs: torch.Tensor) -> torch.Tensor:
+        """The s2d conv of NTHWC xs under `quant_mode` → f32 NCDHW."""
+        w = self.conv.weight
+        if self.quant_mode == "dynamic":
+            y = quant_conv_general(xs, s2d_stem_kernel(w.float()), _S2D_STRIDES, _S2D_PADS)
+        elif self.quant_mode == "calib":
+            self.record_absmax(xs)
+            return _s2d_conv(xs.float(), w.float())
+        else:
+            y = _static_conv(xs, self._static_operands(), None, _S2D_KERNEL, _S2D_STRIDES, _S2D_PADS)
+        return to_ncdhw(y)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(_s2d_conv(xs, self.conv.weight)))
+        if not self.quant:
+            return F.relu(self.bn(_s2d_conv(xs, self.conv.weight)))
+        if self.training:
+            raise ValueError("quant stem is inference-only")
+        return F.relu(self.bn(self._quant_conv(xs)).to(xs.dtype))
 
 
 class S2DStemConvBN(ConvBN):
@@ -240,9 +491,12 @@ def l2_param_penalty(module: nn.Module, weight: float = 1e-4) -> torch.Tensor:
 def cast_for_inference(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Hold conv and dense weights in `dtype` and in channels_last_3d
     memory; BatchNorm parameters and running stats stay float32 (the JAX
-    models keep param_dtype float32 and compute in `dtype`)."""
+    models keep param_dtype float32 and compute in `dtype`).  The convs of
+    quantized sites keep f32 weights: JAX quantizes them from f32."""
+    quantized = {id(c) for m in module.modules() if getattr(m, "quant_mode", None)
+                 for c in m.modules() if isinstance(c, nn.Conv3d)}
     for m in module.modules():
-        if isinstance(m, (nn.Conv3d, nn.Linear)):
+        if isinstance(m, (nn.Conv3d, nn.Linear)) and id(m) not in quantized:
             m.to(dtype)
         if isinstance(m, nn.Conv3d):
             m.weight.data = m.weight.data.contiguous(memory_format=torch.channels_last_3d)

@@ -9,7 +9,10 @@ Key for key (flax path `trunk/Mixed_3b/b0_1x1/conv/kernel` becomes
   (in, out) → `Linear.weight` (out, in); biases as they are;
 - `bn/bias`, `bn/mean`, `bn/var` → BatchNorm `bias`, `running_mean`,
   `running_var`; `bn/scale` (R3D's full-affine BN) → `weight`, and where
-  the reference has no gamma (I3D's scale=False) the weight is a fixed 1.
+  the reference has no gamma (I3D's scale=False) the weight is a fixed 1;
+- the int8 state, when the variables have it: `qstats/.../act_absmax` →
+  the site's `act_absmax` (f32), `qparams/.../k8` (int8 DHWIO) → `k8`
+  (int8 OIDHW) and `qparams/.../sw` → `sw` (f32), whatever `dtype` is.
 
 Each family's converter refuses a key its family does not have; the
 port's `load_state_dict(strict=True)` then checks names and shapes.
@@ -63,6 +66,18 @@ def _convert(variables: Dict, family: str, bn_scale: bool, conv_bias: bool,
         if name not in stats or mod[-1] != "bn":
             raise KeyError(f"unexpected flax batch stat for {family}: {'/'.join(path)}")
         out[f"{'.'.join(mod)}.{stats[name]}"] = _tensor(leaf)
+    for path, leaf in _walk(variables.get("qstats", {})):
+        if path[-1] != "act_absmax":
+            raise KeyError(f"unexpected flax qstat for {family}: {'/'.join(path)}")
+        out[".".join(path)] = torch.tensor(np.float32(leaf))
+    for path, leaf in _walk(variables.get("qparams", {})):
+        *mod, name = path
+        if name == "k8" and leaf.ndim == 5:
+            out[".".join(path)] = torch.from_numpy(np.ascontiguousarray(leaf.transpose(4, 3, 0, 1, 2)))
+        elif name == "sw":
+            out[".".join(path)] = torch.from_numpy(np.ascontiguousarray(leaf, dtype=np.float32))
+        else:
+            raise KeyError(f"unexpected flax qparam for {family}: {'/'.join(path)}")
     return out
 
 

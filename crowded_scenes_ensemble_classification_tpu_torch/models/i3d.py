@@ -9,12 +9,19 @@ The 3³/1 pool branch of every Mixed_* block runs the hand-written kernel
 route, i3d.py:158-170); there is no switch, and its gradient is a
 hand-written kernel too.  `stem_impl='pallas'` runs the stem's conv on the
 hand-written kernel `ops/kernels/stem_conv`, in eval and train mode.
+
+`quant` (True or 'dynamic', 'calib', 'static') runs the convs in int8 on
+the hand-written int8 kernel (`models/common.QuantConv`), inference only;
+`quant_blocks` limits it to the named sites (`models/quantize`).  The pool
+branch stays on the max-pool kernel, unquantized, and the kernel stem
+(`stem_impl='pallas'`) and the s2d stem take no quant, as in JAX
+(i3d.py:255-267).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -33,6 +40,7 @@ from .common import (
     to_ncdhw,
     to_nthwc,
 )
+from .quantize import resolve_quant_blocks
 
 # (b0_1x1, b1_1x1, b1_3x3, b2_1x1, b2_3x3, b3_pool_proj) per block
 # (JAX models/i3d.py:48-58).
@@ -67,16 +75,17 @@ class InceptionBlock(nn.Module):
     """One Mixed_* block on NCDHW: 4 branches concatenated on channels
     (JAX models/i3d.py:61-172)."""
 
-    def __init__(self, in_features: int, spec, generator: Optional[torch.Generator] = None):
+    def __init__(self, in_features: int, spec, generator: Optional[torch.Generator] = None,
+                 quant: Union[bool, str] = False):
         super().__init__()
         b0_c, b1_r, b1_c, b2_r, b2_c, b3_c = spec
-        g = generator
-        self.b0_1x1 = ConvBN(in_features, b0_c, (1, 1, 1), generator=g)
-        self.b1_1x1 = ConvBN(in_features, b1_r, (1, 1, 1), generator=g)
-        self.b1_3x3 = ConvBN(b1_r, b1_c, (3, 3, 3), generator=g)
-        self.b2_1x1 = ConvBN(in_features, b2_r, (1, 1, 1), generator=g)
-        self.b2_3x3 = ConvBN(b2_r, b2_c, (3, 3, 3), generator=g)
-        self.b3_1x1 = ConvBN(in_features, b3_c, (1, 1, 1), generator=g)
+        g, q = generator, quant
+        self.b0_1x1 = ConvBN(in_features, b0_c, (1, 1, 1), generator=g, quant=q)
+        self.b1_1x1 = ConvBN(in_features, b1_r, (1, 1, 1), generator=g, quant=q)
+        self.b1_3x3 = ConvBN(b1_r, b1_c, (3, 3, 3), generator=g, quant=q)
+        self.b2_1x1 = ConvBN(in_features, b2_r, (1, 1, 1), generator=g, quant=q)
+        self.b2_3x3 = ConvBN(b2_r, b2_c, (3, 3, 3), generator=g, quant=q)
+        self.b3_1x1 = ConvBN(in_features, b3_c, (1, 1, 1), generator=g, quant=q)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branch_0 = self.b0_1x1(x)
@@ -98,7 +107,9 @@ class I3DTrunk(nn.Module):
     in train mode, the port keeps its kernel); s2d_stem=True
     runs the exact s2d rewrite; otherwise the canonical 7³/2 ConvBN.  Every
     stem holds the same `Conv3d_1a_7x7` state.  `channels` is the input's:
-    3 for RGB, 2 for TwoStream's flow trunk."""
+    3 for RGB, 2 for TwoStream's flow trunk.  `quant` applies at every site
+    (the three stem convs and the nine Mixed blocks) or, with
+    `quant_blocks`, at the named ones (JAX i3d.py:240-244)."""
 
     def __init__(
         self,
@@ -107,26 +118,33 @@ class I3DTrunk(nn.Module):
         stem_impl: str = "auto",
         generator: Optional[torch.Generator] = None,
         channels: int = RGB_CHANNELS,
+        quant: Union[bool, str] = False,
+        quant_blocks=None,
     ):
         super().__init__()
         if stem_impl not in ("auto", "pallas"):
             raise ValueError(f"stem_impl must be 'auto' or 'pallas', got {stem_impl!r}")
         g = generator
+        blocks = resolve_quant_blocks(quant_blocks)
+        site_quant = lambda name: quant if blocks is None or name in blocks else False  # noqa: E731
         self.stem_prestaged = stem_prestaged
         if stem_prestaged:
-            self.Conv3d_1a_7x7 = PrestagedS2DStemConvBN(channels, 64, generator=g)
+            self.Conv3d_1a_7x7 = PrestagedS2DStemConvBN(channels, 64, generator=g,
+                                                        quant=site_quant("Conv3d_1a_7x7"))
         elif stem_impl == "pallas":
             self.Conv3d_1a_7x7 = PallasStemConvBN(channels, 64, generator=g)
         elif s2d_stem:
             self.Conv3d_1a_7x7 = S2DStemConvBN(channels, 64, generator=g)
         else:
-            self.Conv3d_1a_7x7 = ConvBN(channels, 64, (7, 7, 7), (2, 2, 2), generator=g)
-        self.Conv3d_2b_1x1 = ConvBN(64, 64, (1, 1, 1), generator=g)
-        self.Conv3d_2c_3x3 = ConvBN(64, 192, (3, 3, 3), generator=g)
+            self.Conv3d_1a_7x7 = ConvBN(channels, 64, (7, 7, 7), (2, 2, 2), generator=g,
+                                        quant=site_quant("Conv3d_1a_7x7"))
+        self.Conv3d_2b_1x1 = ConvBN(64, 64, (1, 1, 1), generator=g, quant=site_quant("Conv3d_2b_1x1"))
+        self.Conv3d_2c_3x3 = ConvBN(64, 192, (3, 3, 3), generator=g, quant=site_quant("Conv3d_2c_3x3"))
         features = 192
         for _, names in _BLOCK_GROUPS:
             for name in names:
-                setattr(self, name, InceptionBlock(features, INCEPTION_SPECS[name], generator=g))
+                setattr(self, name, InceptionBlock(features, INCEPTION_SPECS[name], generator=g,
+                                                   quant=site_quant(name)))
                 features = block_out_features(INCEPTION_SPECS[name])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -169,7 +187,9 @@ class I3D(nn.Module):
     (`I3DTrunk`).  `compute_dtype`, when set, is the dtype the model
     computes in while its weights stay in theirs (f32 master weights, each
     cast in the forward, as the JAX dtype/param_dtype pair); None computes
-    in the weights' dtype."""
+    in the weights' dtype.  `quant` and `quant_blocks` quantize the trunk's
+    convs (`I3DTrunk`); a quantized model keeps its conv weights in f32 and
+    computes in `compute_dtype` (`models.registry.build_model`)."""
 
     def __init__(
         self,
@@ -179,10 +199,13 @@ class I3D(nn.Module):
         s2d_stem: bool = False,
         stem_impl: str = "auto",
         generator: Optional[torch.Generator] = None,
+        quant: Union[bool, str] = False,
+        quant_blocks=None,
     ):
         super().__init__()
         self.stem_prestaged = stem_prestaged
-        self.trunk = I3DTrunk(stem_prestaged, s2d_stem, stem_impl, generator=generator)
+        self.trunk = I3DTrunk(stem_prestaged, s2d_stem, stem_impl, generator=generator, quant=quant,
+                              quant_blocks=quant_blocks)
         features = head_features(frames)
         self.predictions = nn.Linear(features, num_classes)
         lecun_normal_(self.predictions.weight, features, generator)

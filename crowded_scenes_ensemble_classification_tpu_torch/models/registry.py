@@ -15,6 +15,11 @@ each weight in the forward (`compute_dtype`, which every family reads; the
 convs' weights are held in channels_last_3d, so the cast copies come out
 in it): the JAX package's `dtype=bfloat16, param_dtype=float32`.  Every
 one of the eight types trains.
+
+A quantized bundle (`quant=True` or 'dynamic', 'calib', 'static', with
+`quant_blocks` for the I3D family) is an inference bundle whose quantized
+convs keep f32 weights, as JAX quantizes them from f32, and which computes
+in `dtype` (`compute_dtype`); its other weights are cast as usual.
 """
 
 from __future__ import annotations
@@ -82,6 +87,8 @@ def build_model(
     device=None,
     generator: Optional[torch.Generator] = None,
     trainable: bool = False,
+    quant=False,
+    quant_blocks=None,
     **model_kwargs,
 ) -> ModelBundle:
     """A random-init model of any of the eight `MODEL_TYPES` (weights from
@@ -92,8 +99,18 @@ def build_model(
     (`cast_for_inference`); with `trainable`, f32 master weights computing
     in `dtype`, in train mode.  model_kwargs forward to the module
     (I3D's stem_impl, s2d_stem, stem_prestaged; TwoStream's stem_prestaged;
-    C3D's width and dropout_rate; R3D's width)."""
+    C3D's width and dropout_rate; R3D's width).  `quant` quantizes the
+    convs for inference (see the module docstring); `quant_blocks` limits
+    it to the named I3D sites (`models.quantize.resolve_quant_blocks`)."""
     spec = clip_spec(model_type)
+    if quant and trainable:
+        raise ValueError("quant is inference-only: a trainable bundle cannot be quantized")
+    if quant_blocks is not None:
+        if model_type not in ("I3D", "TWOSTREAM_I3D"):
+            raise ValueError(f"quant_blocks applies to the I3D family, not {model_type}")
+        model_kwargs["quant_blocks"] = quant_blocks
+    if quant:
+        model_kwargs["quant"] = quant
     device = resolve_device(device)
     with torch.device(generator.device if generator is not None else device):
         if model_type == "I3D":
@@ -109,6 +126,8 @@ def build_model(
     two_stream = model_type == "TWOSTREAM_I3D"
     if not trainable:
         module = cast_for_inference(module, dtype).eval()
+        if quant:
+            module.compute_dtype = dtype
         return ModelBundle(model_type, module, spec, num_classes, two_stream=two_stream)
     for m in module.modules():
         if isinstance(m, nn.Conv3d):

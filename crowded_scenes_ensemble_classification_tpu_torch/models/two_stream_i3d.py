@@ -15,7 +15,7 @@ gray pairs (`ensemble/members.prepare_member_inputs`, and the train steps'
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
@@ -32,7 +32,9 @@ class TwoStreamI3D(nn.Module):
     stem_prestaged both in the `s2d_stem_stage` layout, computed once per
     batch and shared by ensemble members (JAX two_stream_i3d.py:29-65).
     Returns float32 logits.  `compute_dtype`, when set, is the dtype the
-    model computes in while its weights stay in theirs (as `I3D`)."""
+    model computes in while its weights stay in theirs (as `I3D`).
+    `quant` and `quant_blocks` quantize both trunks alike (JAX
+    two_stream_i3d.py:37-53)."""
 
     def __init__(
         self,
@@ -40,11 +42,14 @@ class TwoStreamI3D(nn.Module):
         frames: int = 20,
         stem_prestaged: bool = False,
         generator: Optional[torch.Generator] = None,
+        quant: Union[bool, str] = False,
+        quant_blocks=None,
     ):
         super().__init__()
         self.stem_prestaged = stem_prestaged
-        self.rgb_trunk = I3DTrunk(stem_prestaged, generator=generator)
-        self.flow_trunk = I3DTrunk(stem_prestaged, generator=generator, channels=FLOW_CHANNELS)
+        q = dict(quant=quant, quant_blocks=quant_blocks)
+        self.rgb_trunk = I3DTrunk(stem_prestaged, generator=generator, **q)
+        self.flow_trunk = I3DTrunk(stem_prestaged, generator=generator, channels=FLOW_CHANNELS, **q)
         features = 2 * head_features(frames)
         self.predictions = nn.Linear(features, num_classes)
         lecun_normal_(self.predictions.weight, features, generator)

@@ -45,6 +45,8 @@ SIGNATURES = {
         [_I64, _I64, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
         ctypes.c_int,
     ),
+    "int8_conv3d": ([*[_P] * 5, *[_I64] * 10, *[ctypes.c_int] * 11, _P], ctypes.c_int),
+    "quantize_int8": ([_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
 }
 
 

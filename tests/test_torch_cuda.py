@@ -10,6 +10,8 @@ torch is imported by the fixture, not at collection (see
 tests/torch_port_memory.py).
 """
 
+import math
+
 import pytest
 
 pytestmark = pytest.mark.cuda
@@ -397,22 +399,23 @@ def _spread_batchnorm(torch, module, gen):
             m.bias.data.normal_(0.0, 0.1, generator=gen)
 
 
-def _small_family(torch, model_type, gen, prestaged=False, hw=32):
+def _small_family(torch, model_type, gen, prestaged=False, hw=32, quant=False):
     """A CPU module of `model_type` (C3D and R3D at width 0.125, C3D for
-    16×hw² clips), random weights from `gen`, BN spread, in eval mode."""
+    16×hw² clips), random weights from `gen`, BN spread, in eval mode;
+    quantized with `quant`."""
     from crowded_scenes_ensemble_classification_tpu_torch.models.c3d import C3D
     from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3D
     from crowded_scenes_ensemble_classification_tpu_torch.models.r3d import R3D
     from crowded_scenes_ensemble_classification_tpu_torch.models.two_stream_i3d import TwoStreamI3D
 
     if model_type == "C3D":
-        module = C3D(11, 0.125, clip_thw=(16, hw, hw), generator=gen)
+        module = C3D(11, 0.125, clip_thw=(16, hw, hw), generator=gen, quant=quant)
     elif model_type.startswith("R3D_"):
-        module = R3D(11, int(model_type.split("_")[1]), 0.125, generator=gen)
+        module = R3D(11, int(model_type.split("_")[1]), 0.125, generator=gen, quant=quant)
     elif model_type == "I3D":
-        module = I3D(11, frames=16, stem_prestaged=prestaged, generator=gen)
+        module = I3D(11, frames=16, stem_prestaged=prestaged, generator=gen, quant=quant)
     else:
-        module = TwoStreamI3D(11, frames=16, stem_prestaged=prestaged, generator=gen)
+        module = TwoStreamI3D(11, frames=16, stem_prestaged=prestaged, generator=gen, quant=quant)
     _spread_batchnorm(torch, module, gen)
     return module.eval()
 
@@ -685,3 +688,201 @@ def test_family_f32_train_step_on_card_matches_cpu(torch, no_tf32, model_type):
         else:
             assert _relative_error(card[name][1], grad) <= 1e-4, name
         assert (card[name][0] - ref).abs().max().item() <= 2 * lr * 1.001, name
+
+
+# ----------------------------------------------------------------------
+# int8 inference: csec::int8_conv3d and csec::quantize_int8
+# ----------------------------------------------------------------------
+
+_S, _V = ((1, 1), (1, 1), (1, 1)), ((0, 0), (0, 0), (0, 0))
+# (x NTHWC, F, kernel, strides, pads): the prestaged rgb and flow stems
+# (4C = 12 and 8, asymmetric temporal pads), I3D's 1³ and 3³ convs, Mixed_4c's
+# b2_3x3 on Cin = 24, C3D conv1 and the R3D stem on C = 3, a 3³/2 TF-SAME
+# conv on odd extents, a 1³/2 VALID projection, K = 27·512 (C3D conv5),
+# odd C and F with asymmetric pads.
+INT8_CONV_CASES = [
+    ((2, 10, 115, 115, 12), 64, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
+    ((1, 6, 19, 21, 8), 64, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
+    ((2, 10, 56, 56, 64), 64, (1, 1, 1), (1, 1, 1), _V),
+    ((2, 10, 56, 56, 64), 192, (3, 3, 3), (1, 1, 1), _S),
+    ((2, 5, 14, 14, 24), 64, (3, 3, 3), (1, 1, 1), _S),
+    ((2, 3, 7, 7, 832), 384, (1, 1, 1), (1, 1, 1), _V),
+    ((2, 16, 28, 28, 3), 8, (3, 3, 3), (1, 1, 1), _S),
+    ((2, 16, 28, 28, 3), 16, (7, 7, 7), (2, 2, 2), ((2, 3), (2, 3), (2, 3))),
+    ((2, 5, 7, 9, 64), 128, (3, 3, 3), (2, 2, 2), ((1, 1), (1, 1), (1, 1))),
+    ((2, 5, 7, 9, 48), 96, (1, 1, 1), (2, 2, 2), _V),
+    ((1, 2, 3, 3, 512), 40, (3, 3, 3), (1, 1, 1), _S),
+    ((1, 3, 5, 7, 17), 13, (3, 3, 3), (1, 2, 1), ((1, 1), (0, 2), (1, 0))),
+]
+
+
+def _int8(torch, shape, gen):
+    return torch.randint(-127, 128, shape, device="cuda", generator=gen, dtype=torch.int32).to(torch.int8)
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("case", INT8_CONV_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-F{c[1]}")
+def test_int8_conv_kernel_equals_plain(torch, case, with_bias):
+    """The int8 conv kernel == its plain version (the exact float64
+    integer conv, then the same f32 dequantize) bit for bit, at full-scale
+    int8 operands; one launch counted per call."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv3d,
+        int8_conv3d_reference,
+        pack_int8_weights,
+    )
+
+    shape, f, kernel, strides, pads = case
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x8, k8 = _int8(torch, shape, gen), _int8(torch, (f, shape[-1], *kernel), gen)
+    scale = torch.rand(f, device="cuda", generator=gen) * 1e-3
+    bias = torch.randn(f, device="cuda", generator=gen) if with_bias else None
+    before = int8_conv3d.launches
+    got = int8_conv3d(x8, pack_int8_weights(k8), scale, bias, kernel, strides, pads)
+    torch.cuda.synchronize()
+    assert int8_conv3d.launches == before + 1
+    ref = int8_conv3d_reference(x8, k8, scale, bias, strides, pads)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert torch.equal(got, ref)
+
+
+def test_int8_conv_kernel_misaligned_input(torch):
+    """An int8 input one byte off 16-byte alignment takes single-byte loads
+    and still equals the plain version."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv3d,
+        int8_conv3d_reference,
+        pack_int8_weights,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shape = (2, 4, 9, 9, 32)
+    x8 = torch.empty(math.prod(shape) + 1, dtype=torch.int8, device="cuda")[1:].view(shape)
+    x8.copy_(_int8(torch, shape, gen))
+    assert x8.data_ptr() % 2 == 1
+    k8 = _int8(torch, (48, 32, 3, 3, 3), gen)
+    scale = torch.rand(48, device="cuda", generator=gen)
+    got = int8_conv3d(x8, pack_int8_weights(k8), scale, None, (3, 3, 3), (1, 1, 1), _S)
+    assert torch.equal(got, int8_conv3d_reference(x8, k8, scale, None, (1, 1, 1), _S))
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,offset", [((2, 10, 56, 56, 64), 0), ((3, 5, 7, 9, 3), 0), ((2, 4, 8, 8, 16), 1)])
+def test_quantize_kernel_equals_plain(torch, dtype, dynamic, shape, offset):
+    """The quantize pass == its plain version bit for bit, static with
+    codes that saturate and dynamic at the tensor's own scale, vector and
+    single-element paths (a length not a multiple of 8, an input off
+    16-byte alignment); one launch counted per call."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
+        quantize_int8,
+        quantize_int8_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt = getattr(torch, dtype)
+    n = math.prod(shape)
+    x = torch.empty(n + offset, dtype=dt, device="cuda")[offset:].view(shape)
+    x.copy_(torch.randn(shape, device="cuda", generator=gen) * 3.0)
+    if dynamic:
+        scalar = x.abs().amax().float().clamp_min(1e-30) / 127.0
+    else:
+        scalar = 1.0 / (torch.tensor(2.5, device="cuda") / 127.0)  # |x| > 2.5 saturates
+    before = quantize_int8.launches
+    got = quantize_int8(x, scalar, dynamic)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches == before + 1
+    ref = quantize_int8_reference(x, scalar, dynamic)
+    assert got.dtype == torch.int8 and torch.equal(got, ref)
+    assert int(got.abs().max()) == 127
+
+
+def test_uncalibrated_static_conv_on_card_equals_cpu(torch):
+    """A static conv with act_absmax = 0 (never calibrated): inv = 1e30, the
+    codes saturate and the dequantize multiplies by 0, on the card as on the
+    CPU, without raising."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import (
+        static_quant_conv_general,
+        weight_qparams,
+    )
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 4, 9, 9, 24, generator=gen)
+    k8, sw = weight_qparams(torch.randn(32, 24, 3, 3, 3, generator=gen))
+    act_scale = torch.zeros(())
+    ref = static_quant_conv_general(x, k8, sw, act_scale, (1, 1, 1), "SAME")
+    got = static_quant_conv_general(x.cuda(), k8.cuda(), sw.cuda(), act_scale.cuda(), (1, 1, 1), "SAME")
+    assert torch.equal(got.cpu(), ref) and not ref.any()
+
+
+def test_int8_kernels_reject_what_they_do_not_take(torch):
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv3d,
+        pack_int8_weights,
+        quantize_int8,
+    )
+
+    x8 = torch.zeros(1, 2, 4, 4, 8, dtype=torch.int8, device="cuda")
+    wp = pack_int8_weights(torch.zeros(16, 8, 1, 1, 1, dtype=torch.int8, device="cuda"))
+    scale = torch.ones(16, device="cuda")
+    with pytest.raises(TypeError):
+        int8_conv3d(x8.float(), wp, scale, None, (1, 1, 1), (1, 1, 1), _V)
+    with pytest.raises(ValueError):
+        int8_conv3d(x8, wp, scale, None, (3, 3, 3), (1, 1, 1), _V)  # wp packed for a 1³ kernel
+    with pytest.raises(ValueError):
+        int8_conv3d(x8.transpose(2, 3), wp, scale, None, (1, 1, 1), (1, 1, 1), _V)
+    with pytest.raises(TypeError):
+        quantize_int8(x8, torch.ones((), device="cuda"))
+    with pytest.raises(TypeError):
+        quantize_int8(x8.float(), torch.ones(()))  # the scalar on the CPU
+
+
+@pytest.mark.parametrize("model_type", ["I3D", "C3D", "R3D_18", "TWOSTREAM_I3D"])
+def test_static_family_kernels_equal_plain_on_card(torch, no_tf32, model_type):
+    """A small static-int8 model of each family (f32, calibrated on one
+    batch on the CPU and baked) on the card: through the kernels, one int8
+    conv launch and one quantize launch per conv, and logits equal to the
+    same model on the card with the two kernels' plain versions in their
+    place.  (Against the CPU it agrees within 1.3e-7 in probability for
+    I3D, TwoStream and C3D, but not R3D-18 at width 0.125: cuDNN's affine
+    BatchNorm rounds apart from the CPU's, and the few int8 codes that
+    cross a rounding boundary move that 8-channel net's probabilities by
+    0.012.  chip_smoke.py holds a static I3D to the CPU.)"""
+    from unittest import mock
+
+    import crowded_scenes_ensemble_classification_tpu_torch.models.common as common_mod
+    from crowded_scenes_ensemble_classification_tpu_torch.models.quantize import (
+        calibrate,
+        quant_sites,
+        quantize_variables,
+        set_quant_mode,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv3d,
+        int8_conv3d_reference,
+        quantize_int8,
+        quantize_int8_reference,
+        unpack_int8_weights,
+    )
+
+    def plain_conv(x8, wp, scale, bias, kernel, strides, pads):
+        k8 = unpack_int8_weights(wp, scale.shape[0], kernel, x8.shape[-1])
+        return int8_conv3d_reference(x8, k8, scale, bias, strides, pads)
+
+    gen = torch.Generator().manual_seed(9)
+    module = _small_family(torch, model_type, gen, quant="calib")
+    shapes = [(2, 16, 32, 32, 3)] + ([(2, 16, 32, 32, 2)] if model_type == "TWOSTREAM_I3D" else [])
+    x = tuple(torch.rand(s, generator=gen) for s in shapes)
+    set_quant_mode(quantize_variables(calibrate(module, [x])), "static")
+    card, xc = module.cuda(), tuple(t.cuda() for t in x)
+    with torch.inference_mode():
+        before = (int8_conv3d.launches, quantize_int8.launches)
+        got = card(*xc)
+        launched = (int8_conv3d.launches - before[0], quantize_int8.launches - before[1])
+        with mock.patch.object(common_mod, "int8_conv3d", plain_conv), \
+                mock.patch.object(common_mod, "quantize_int8", quantize_int8_reference):
+            ref = card(*xc)
+    sites = len(quant_sites(card))
+    assert launched == (sites, sites) and (int8_conv3d.launches, quantize_int8.launches) == tuple(
+        b + n for b, n in zip(before, launched))
+    assert torch.equal(got, ref)

@@ -30,7 +30,13 @@ inputs` for the stagings and casts, `fusion`).  Then the resident TwoStream
 pipeline (`twostream_ensemble_step`, chip_smoke.py's 4 TwoStream members
 on its moving-texture I420 rows) at B=16, and turbo Farnebäck alone on the
 JAX bench's 76 pairs of 224², its time split into the solver's parts
-(`pyramid`, `poly_exp`, `warp`, `update`, `upsample`).
+(`pyramid`, `poly_exp`, `warp`, `update`, `upsample`).  Last, the int8
+main path (`int8`: chip_smoke.py's phase 20, 4 static-int8 I3D members
+calibrated by `calibrate_members` on 2 batches of main-path clips) at B=16
+and B=48, its int8 convs and quantize passes charged to
+`member/csec::int8_conv3d` and `member/csec::quantize_int8`.
+`--paths int8` (a comma list of main, member, train, zoo, hetero,
+twostream, flow, int8) profiles only those.
 
 - Busy time is the union of the intervals of every kernel, memcpy and
   memset on the card, so it cannot exceed the wall clock of the profiled
@@ -65,7 +71,9 @@ BATCHES, TRAIN_BATCHES, STEPS = (16, 48), (16, 64), 3
 TRAIN_ZOO = (("C3D", 32, "train_c3d"), ("TWOSTREAM_I3D", 16, "train_twostream"), ("R3D_18", 32, "train_r3d18"))
 FAMILY_LABELS = {"flow": "flow", "member": "I3D", "two_stream": "TWOSTREAM_I3D", "c3d": "C3D", "r3d": "R3D_18"}
 OWN_KERNELS = {"maxpool3x3x3_kernel": "max_pool_3x3x3_same", "salt_pepper_kernel": "salt_pepper",
-               "stem_bf16_kernel": "stem", "maxpool3_bwd_": "max_pool_3x3x3_same_backward"}
+               "stem_bf16_kernel": "stem", "maxpool3_bwd_": "max_pool_3x3x3_same_backward",
+               "int8_conv3d_kernel": "int8_conv3d", "quantize_int8_kernel": "quantize_int8"}
+PATHS = ("main", "member", "train", "zoo", "hetero", "twostream", "flow", "int8")
 
 
 def busy_us(intervals) -> float:
@@ -334,6 +342,31 @@ def profile_batch(batch: int, steps: int, labels, torch, np) -> dict:
     return out
 
 
+def profile_int8(batches, steps: int, labels, torch, np) -> list:
+    """The int8 main path at each batch: chip_smoke.py's static members on
+    its resident rows, one record a batch."""
+    import chip_smoke
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import calibrate_members
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import resident_ensemble_step
+
+    dev = torch.device("cuda")
+    ibytes = FRAMES * STAGING * STAGING * 3 // 2
+    rows = np.random.default_rng(23).integers(0, 256, (steps * max(batches), ibytes), dtype=np.uint8)
+    resident = torch.from_numpy(rows).to(dev)
+    members = [b.module for b in chip_smoke.seeded_members(torch, "I3D", MEMBERS, 1700, quant="calib",
+                                                           stem_prestaged=True)]
+    calibrate_members(members, chip_smoke.int8_main_clips(torch, resident, 24, 2), (SIZE, SIZE), num_batches=2)
+    out = []
+    for batch in batches:
+        gen = torch.Generator().manual_seed(4)
+        out.append(profile_run("int8", batch, steps, lambda i: resident_ensemble_step(
+            members, resident, i, gen, batch_size=batch, frames=FRAMES, staging=STAGING, out_hw=(SIZE, SIZE)),
+            labels, torch))
+    del members, resident
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_member_paths(batch: int, steps: int, torch, np) -> list:
     """chip_smoke.py's per-member paths at `batch`, one record each.  Runs
     before `label_stages`, whose ranges `torch.export` would trace into the
@@ -457,7 +490,11 @@ def print_record(title: str, r: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/profile_step_torch.json")
+    ap.add_argument("--paths", default=",".join(PATHS), help="comma list of " + ", ".join(PATHS))
     args = ap.parse_args()
+    paths = set(args.paths.split(","))
+    if not paths <= set(PATHS):
+        ap.error(f"unknown paths {sorted(paths - set(PATHS))}")
 
     import numpy as np
     import torch
@@ -466,38 +503,33 @@ def main() -> int:
 
     smi = require_cuda()
     print(smi)
-    member_records = profile_member_paths(BATCHES[0], STEPS, torch, np)
+    member_records = profile_member_paths(BATCHES[0], STEPS, torch, np) if "member" in paths else []
     labels = label_stages(torch)
     results = []
-    for batch in BATCHES:
-        r = profile_batch(batch, STEPS, labels, torch, np)
+
+    def record(title: str, r: dict) -> dict:
         r["device"] = smi
         results.append(r)
-        print_record(f"B={batch}", r)
+        print_record(title, r)
+        return r
+
+    for batch in BATCHES if "main" in paths else ():
+        record(f"B={batch}", profile_batch(batch, STEPS, labels, torch, np))
     for r in member_records:
-        r["device"] = smi
-        results.append(r)
-        print_record(f"{r['path']} B={r['batch']}", r)
-    for batch in TRAIN_BATCHES:
-        r = profile_train("I3D", batch, STEPS, labels, torch, np)
-        r["device"] = smi
-        results.append(r)
-        print_record(f"train B={batch}", r)
-    for model_type, batch, path in TRAIN_ZOO:
-        r = profile_train(model_type, batch, STEPS, labels, torch, np, path)
-        r["device"] = smi
-        results.append(r)
-        print_record(f"{path} B={batch}", r)
-    for profile in (profile_hetero, profile_twostream):
+        record(f"{r['path']} B={r['batch']}", r)
+    for batch in TRAIN_BATCHES if "train" in paths else ():
+        record(f"train B={batch}", profile_train("I3D", batch, STEPS, labels, torch, np))
+    for model_type, batch, path in TRAIN_ZOO if "zoo" in paths else ():
+        record(f"{path} B={batch}", profile_train(model_type, batch, STEPS, labels, torch, np, path))
+    for profile in (p for name, p in (("hetero", profile_hetero), ("twostream", profile_twostream)) if name in paths):
         r = profile(BATCHES[0], STEPS, labels, torch, np)
-        r["device"] = smi
-        results.append(r)
-        print_record(f"{r['path']} B={r['batch']}", r)
+        record(f"{r['path']} B={r['batch']}", r)
         print("  by family: " + ", ".join(f"{k} {v:.3f} ms" for k, v in r["families_ms_per_step"].items()))
-    r = profile_flow(STEPS, labels, torch, np)
-    r["device"] = smi
-    results.append(r)
-    print_record(r["path"], r)
+    if "flow" in paths:
+        r = profile_flow(STEPS, labels, torch, np)
+        record(r["path"], r)
+    for r in profile_int8(BATCHES, STEPS, labels, torch, np) if "int8" in paths else ():
+        record(f"int8 B={r['batch']}", r)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
