@@ -127,16 +127,21 @@ Phases, each of which raises on failure (exit code 1):
    4 full-width I3D members (bf16 compute, f32 weights drawn on the card,
    BN spread) built with quant='calib' are calibrated by
    `calibrate_members` on 2 batches of the main path's clips and baked;
-   the int8 conv kernel == its plain version (`torch.equal`) at all 57
-   convs of one member on B=2 clips (recorded from its forward) and at
-   `INT8_EXTRA_CASES` (C3D conv1, the R3D-18 stem, a 3³/2 conv, a 1³/2
-   projection, ragged C, odd extents, odd F), the quantize kernel == its
+   member 0 exported alone (shared staging, B=2), saved and loaded: its
+   probabilities `torch.equal` to the eager forward's, 57 int8 conv and
+   57 quantize launches; the int8 conv kernel == its plain version
+   (`torch.equal`) at all 57 convs of one member on B=2 clips (recorded
+   from its forward) and at `INT8_EXTRA_CASES` (C3D conv1, the R3D-18
+   stem, a 3³/2 conv, a 1³/2 projection, ragged C, odd extents, odd F, the
+   4-byte and byte-gather routes, a split K), the quantize kernel == its
    plain version, static and dynamic, at the member's 57 inputs; each conv
    and quantize pass of the member timed at B=16 (warm and cold) beside
-   its bound (int8 operations at 1,979 TOPS, or bytes), its plain version,
-   cuDNN's bf16 conv of the same shape (another function) and, for the
-   1³ convs, `torch._int_mm` + the dequantize (the same function, checked
-   equal), a line each; then
+   its route and tile (`int8_conv_route`), its bound (int8 operations at
+   1,979 TOPS, or bytes), its plain version, cuDNN's bf16 conv of the same
+   shape (another function) and, for the 1³ convs, `torch._int_mm` + the
+   dequantize (the same function, checked equal), a line each (the stem
+   on the row-slab route, the rest tiled), then the sums by kind (stem,
+   3x3x3, 1x1x1) beside the earlier mma.sync design; then
    `resident_ensemble_step` with the static members at B=16 and B=48 (or
    32), 3 repeats of 5 steps, 228 int8-conv, 228 quantize, 36 max-pool, 1
    noise and 0 stem launches a step, probabilities finite and summing to
@@ -1756,15 +1761,18 @@ def check_evaluation(torch, np, dev, families) -> None:
 INT8_BATCHES = (BATCH, 48, 32)  # B=16, then B=48 (32 if 48 does not fit)
 INT8_STEPS, INT8_REPEATS = 5, 3
 INT8_OPS = 1979e12  # H100 SXM data sheet, dense int8 per second
-# A cold rotation of more calls than the device's launch queue holds (about
-# 1,000) stalls the host: the rotation of the small Mixed_5* inputs stops at
-# 512 copies (38 MB of the 50 MB L2 at the smallest, so partly warm).
+# A cold rotation of more launches than the device's launch queue holds
+# (about 1,000) stalls the host: the rotation of the small Mixed_5* inputs
+# stops at 512 launches (38 MB of the 50 MB L2 at the smallest, so partly
+# warm; a split-K conv launches twice a call, so half as many copies).
 INT8_COLD_COPIES = 512
 I3D_CONVS = 3 + 9 * 6  # stem, Conv3d_2b, Conv3d_2c and six convs in each Mixed block
-# (what, x NTHWC, F, kernel, strides) beyond one I3D member's convs, TF-SAME
-# pads: C3D conv1 and the R3D-18 stem on C = 3 at 16×112², an R3D-18
-# stage-1 3³/2 conv and its 1³/2 VALID projection, and ragged cases (C = 24
-# and 17, odd T/H/W, F = 13, a stride of (1, 2, 1)).
+# (what, x NTHWC, F, kernel, strides, padding) beyond one I3D member's
+# convs: C3D conv1 and the R3D-18 stem on C = 3 at 16×112², an R3D-18
+# stage-1 3³/2 conv and its 1³/2 VALID projection, ragged cases (C = 24
+# and 17, odd T/H/W, F = 13, a stride of (1, 2, 1)), and routes the
+# member's convs do not take: the stem's 4C = 12 unpadded (4-byte copies;
+# the models pad it to 16), C = 2 (byte gather) and a split K.
 INT8_EXTRA_CASES = [
     ("C3D conv1", (2, 16, 112, 112, 3), 64, (3, 3, 3), (1, 1, 1), "SAME"),
     ("R3D-18 stem", (2, 16, 112, 112, 3), 64, (7, 7, 7), (2, 2, 2), "SAME"),
@@ -1773,6 +1781,9 @@ INT8_EXTRA_CASES = [
     ("ragged C=24, odd T/H/W", (2, 5, 7, 9, 24), 40, (3, 3, 3), (1, 1, 1), "SAME"),
     ("ragged C=17, F=13", (1, 3, 5, 7, 17), 13, (3, 3, 3), (1, 2, 1), "SAME"),
     ("ragged C=3, F=13, odd extents", (1, 3, 5, 7, 3), 13, (3, 3, 3), (1, 1, 1), "SAME"),
+    ("C=12 on 4-byte copies", (2, 10, 30, 30, 12), 64, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
+    ("C=2, byte gather", (2, 4, 10, 10, 2), 16, (3, 3, 3), (1, 1, 1), "SAME"),
+    ("Mixed_5c 3^3 at B=16, split K", (16, 3, 7, 7, 192), 384, (3, 3, 3), (1, 1, 1), "SAME"),
 ]
 
 
@@ -1841,14 +1852,89 @@ def int8_main_clips(torch, resident, seed: int, count: int) -> list:
     return out
 
 
+# The kernel's earlier mma.sync design (128 x 64 tiles, one K step in
+# flight, registers staging the loads) on the same 57 convs at B=16, cold,
+# by kind (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W), printed beside
+# this run's.
+INT8_MMA_SYNC_MS = {"stem": 1.848, "3x3x3": 3.084, "1x1x1": 0.929, "all": 5.8609}
+
+
+def int8_conv_kind(kernel) -> str:
+    return "stem" if tuple(kernel) == (7, 4, 4) else "x".join(map(str, kernel))
+
+
+def time_int8_convs(torch, convs) -> dict:
+    """Time each recorded int8 conv call (kernel warm and cold, plain
+    version, cuDNN's bf16 conv of the same shape, and for the 1³/1 convs
+    `torch._int_mm` + the dequantize, checked equal), a line each with its
+    route and tile; then the sums by kind (stem, 3x3x3, 1x1x1) beside the
+    earlier mma.sync design.  Returns the sums over all convs, with
+    `by_kind`."""
+    import torch.nn.functional as F
+
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels import int8_conv as ic
+
+    keys = ("warm", "cold", "plain", "bf16", "bytes", "ops", "mm", "mm_kernel")
+    conv_tot, by_kind = dict.fromkeys(keys, 0.0), {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, call in enumerate(convs):
+        x8, wp, scale, bias, kernel, strides, pads = call
+        c, f = x8.shape[-1], scale.shape[0]
+        got = ic.int8_conv3d(*call)
+        m = got.numel() // f
+        k8 = ic.unpack_int8_weights(wp, f, kernel, c)
+        ops = 2 * m * f * math.prod(kernel) * c
+        nbytes = x8.numel() + k8.numel() + got.numel() * 4 + f * 4
+        route = ic.int8_conv_route(x8, wp, f, kernel, strides, pads, sms)
+        launches = 2 if route["splits"] > 1 else 1  # a split K adds the finish kernel
+        warm = cuda_ms(lambda: ic.int8_conv3d(*call))
+        cold = cuda_ms_cold(lambda x: ic.int8_conv3d(x, *call[1:]),
+                            cold_inputs(x8)[:INT8_COLD_COPIES // launches])
+        plain = cuda_ms(lambda: int8_plain(call), iters=2, warmup=1, queue_ahead=False)
+        flat = [p for axis in reversed(pads) for p in axis]
+        xb = F.pad(x8.permute(0, 4, 1, 2, 3).to(torch.bfloat16), flat).contiguous(
+            memory_format=torch.channels_last_3d)
+        wb = k8.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+        bf16 = cuda_ms(lambda: F.conv3d(xb, wb, stride=strides))
+        line = (f"int8 conv {i:2d} x {tuple(x8.shape)} F={f} k{tuple(kernel)} s{tuple(strides)} "
+                f"[{route['tile']} tile, split K {route['splits']}, A by {route['a_copy']}]: kernel warm {warm:.4f} ms, "
+                f"cold {cold:.4f} ms ({ops / cold / 1e9:.1f} TOPS, {bound(nbytes, ops, INT8_OPS)[0] / cold:.1%} "
+                f"of bound); plain {plain:.3f} ms; cuDNN bf16 conv (another function) {bf16:.4f} ms")
+        kind = by_kind.setdefault(int8_conv_kind(kernel), dict.fromkeys(("n", *keys), 0.0))
+        if tuple(kernel) == (1, 1, 1) and tuple(strides) == (1, 1, 1):
+            x2, w2 = x8.view(-1, c), k8.reshape(f, c).contiguous().t()  # (C, F) column-major
+            mm = lambda: torch._int_mm(x2, w2).float() * scale  # noqa: E731
+            check(torch.equal(mm().view(got.shape), got), f"torch._int_mm + dequantize != the kernel at conv {i}")
+            mm_ms = cuda_ms(mm)
+            for tot in (conv_tot, kind):
+                tot["mm"] += mm_ms
+                tot["mm_kernel"] += cold
+            line += f"; torch._int_mm + dequantize {mm_ms:.4f} ms"
+        print(line)
+        for tot in (conv_tot, kind):
+            for k, v in zip(("warm", "cold", "plain", "bf16", "bytes", "ops"), (warm, cold, plain, bf16, nbytes, ops)):
+                tot[k] += v
+        kind["n"] += 1
+        del xb, wb, got
+    for name, t in sorted(by_kind.items()) + [("all", conv_tot)]:
+        n = len(convs) if name == "all" else int(t["n"])
+        b, by = bound(t["bytes"], t["ops"], INT8_OPS)
+        mm = f", torch._int_mm + dequantize {t['mm']:.4f} ms" if t["mm"] else ""
+        print(f"int8 conv by kind, {name} ({n} convs) at B={convs[0][0].shape[0]}: kernel cold {t['cold']:.4f} ms "
+              f"({t['ops'] / t['cold'] / 1e9:.1f} TOPS, {b / t['cold']:.1%} of its {b:.4f} ms bound by {by}), warm "
+              f"{t['warm']:.4f} ms; the mma.sync design {INT8_MMA_SYNC_MS[name]} ms; cuDNN bf16 {t['bf16']:.4f} ms{mm}; plain "
+              f"{t['plain']:.3f} ms; {t['ops'] / 1e12:.3f} T int8 ops, {t['bytes'] / 1e9:.3f} GB")
+    conv_tot["by_kind"] = by_kind
+    return conv_tot
+
+
 def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
     """The int8 kernels against their plain versions (`torch.equal`) at
     every conv of one I3D member at B=2 on the main path's clips, at
     INT8_EXTRA_CASES and on both quantize modes; then each of the member's
-    convs and quantize passes at B=16 timed beside its bound, its plain
-    version and the library yardsticks.  Returns the two kernels' records."""
-    import torch.nn.functional as F
-
+    convs (`time_int8_convs`) and quantize passes at B=16 timed beside its
+    bound, its plain version and the library yardsticks.  Returns the two
+    kernels' records."""
     from crowded_scenes_ensemble_classification_tpu_torch.models.common import conv_pads
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
         int8_conv3d,
@@ -1856,7 +1942,6 @@ def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
         pack_int8_weights,
         quantize_int8,
         quantize_int8_reference,
-        unpack_int8_weights,
     )
 
     with torch.inference_mode():
@@ -1894,38 +1979,7 @@ def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
 
     with torch.inference_mode():
         convs, quants = captured_int8_calls(lambda: member(xs16))
-    conv_tot = dict.fromkeys(("warm", "cold", "plain", "bf16", "bytes", "ops", "mm", "mm_kernel"), 0.0)
-    for i, call in enumerate(convs):
-        x8, wp, scale, bias, kernel, strides, pads = call
-        n, c, f = x8.shape[0], x8.shape[-1], scale.shape[0]
-        got = int8_conv3d(*call)
-        m = got.numel() // f
-        k8 = unpack_int8_weights(wp, f, kernel, c)
-        ops = 2 * m * f * math.prod(kernel) * c
-        nbytes = x8.numel() + k8.numel() + got.numel() * 4 + f * 4
-        warm = cuda_ms(lambda: int8_conv3d(*call))
-        cold = cuda_ms_cold(lambda x: int8_conv3d(x, *call[1:]), cold_inputs(x8)[:INT8_COLD_COPIES])
-        plain = cuda_ms(lambda: int8_plain(call), iters=2, warmup=1, queue_ahead=False)
-        flat = [p for axis in reversed(pads) for p in axis]
-        xb = F.pad(x8.permute(0, 4, 1, 2, 3).to(torch.bfloat16), flat).contiguous(
-            memory_format=torch.channels_last_3d)
-        wb = k8.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
-        bf16 = cuda_ms(lambda: F.conv3d(xb, wb, stride=strides))
-        line = (f"int8 conv {i:2d} x {tuple(x8.shape)} F={f} k{tuple(kernel)} s{tuple(strides)}: kernel warm {warm:.4f} ms, "
-                f"cold {cold:.4f} ms ({ops / cold / 1e9:.1f} TOPS, {bound(nbytes, ops, INT8_OPS)[0] / cold:.1%} "
-                f"of bound); plain {plain:.3f} ms; cuDNN bf16 conv (another function) {bf16:.4f} ms")
-        if tuple(kernel) == (1, 1, 1) and tuple(strides) == (1, 1, 1):
-            x2, w2 = x8.view(-1, c), k8.reshape(f, c).contiguous().t()  # (C, F) column-major
-            mm = lambda: torch._int_mm(x2, w2).float() * scale  # noqa: E731
-            check(torch.equal(mm().view(got.shape), got), f"torch._int_mm + dequantize != the kernel at conv {i}")
-            mm_ms = cuda_ms(mm)
-            conv_tot["mm"] += mm_ms
-            conv_tot["mm_kernel"] += cold
-            line += f"; torch._int_mm + dequantize {mm_ms:.4f} ms"
-        print(line)
-        for k, v in zip(("warm", "cold", "plain", "bf16", "bytes", "ops"), (warm, cold, plain, bf16, nbytes, ops)):
-            conv_tot[k] += v
-        del xb, wb, got
+    conv_tot = time_int8_convs(torch, convs)
     q_tot = dict.fromkeys(("warm", "cold", "plain", "bytes"), 0.0)
     for x, scalar, _ in quants:
         q_tot["warm"] += cuda_ms(lambda: quantize_int8(x, scalar))
@@ -1934,12 +1988,6 @@ def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
         q_tot["bytes"] += x.numel() * (x.element_size() + 1)
     cb, cb_by = bound(conv_tot["bytes"], conv_tot["ops"], INT8_OPS)
     qb, qb_by = bound(q_tot["bytes"], 0.0, INT8_OPS)
-    print(f"int8 conv, the {len(convs)} convs of one member at B={BATCH}: kernel cold {conv_tot['cold']:.4f} ms "
-          f"({conv_tot['ops'] / conv_tot['cold'] / 1e9:.1f} TOPS, {cb / conv_tot['cold']:.1%} of bound), warm "
-          f"{conv_tot['warm']:.4f} ms; plain {conv_tot['plain']:.3f} ms; bound {cb:.4f} ms ({cb_by}, "
-          f"{conv_tot['ops'] / 1e12:.3f} T int8 ops, {conv_tot['bytes'] / 1e9:.3f} GB); cuDNN bf16 convs of the same "
-          f"shapes {conv_tot['bf16']:.4f} ms; the 1^3 convs: kernel {conv_tot['mm_kernel']:.4f} ms, "
-          f"torch._int_mm + dequantize {conv_tot['mm']:.4f} ms")
     print(f"quantize, the member's {len(quants)} static passes at B={BATCH}: kernel cold {q_tot['cold']:.4f} ms "
           f"({qb / q_tot['cold']:.1%} of bound), warm {q_tot['warm']:.4f} ms; plain {q_tot['plain']:.4f} ms; bound "
           f"{qb:.4f} ms ({qb_by}, {q_tot['bytes'] / 1e9:.3f} GB)")
@@ -1950,13 +1998,49 @@ def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
          "launches": 0, "max_abs_err": err, "ms": conv_tot["cold"], "warm_ms": conv_tot["warm"],
          "plain_ms": conv_tot["plain"], "bound_ms": cb, "bound_by": cb_by, "library_ms": None,
          "int_mm_1x1_ms": conv_tot["mm"], "kernel_1x1_ms": conv_tot["mm_kernel"],
-         "bf16_cudnn_ms": conv_tot["bf16"]},
+         "bf16_cudnn_ms": conv_tot["bf16"],
+         "cold_ms_by_kind": {k: v["cold"] for k, v in sorted(conv_tot["by_kind"].items())}},
         {"name": "quantize_int8", "route": "cuda", "source": f"{PORT}/csrc/quantize_int8.cu",
          "replaces": "none (XLA's elementwise quantize in crowded_scenes_ensemble_classification_tpu/models/"
                      "common.py:196-199)",
          "launches": 0, "max_abs_err": 0.0, "ms": q_tot["cold"], "warm_ms": q_tot["warm"], "plain_ms": q_tot["plain"],
          "bound_ms": qb, "bound_by": qb_by, "library_ms": None},
     ]
+
+
+def check_int8_export(torch, dev, bundle) -> None:
+    """One baked static-int8 member at full width through the serving export
+    (shared staging, B=2): exported, saved and loaded, its probabilities
+    equal the eager `make_member_forward`'s exactly, and the loaded program
+    launches one int8 conv and one quantize pass a conv."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import make_member_forward
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import int8_conv3d, quantize_int8
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    batch = {"rgb": torch.randint(0, 256, (2, FRAMES, SIZE, SIZE, 3), generator=gen, device=dev, dtype=torch.uint8)}
+    eager = make_member_forward([bundle.module], (SIZE, SIZE), share_stem_staging=True)(batch)
+    t0 = time.perf_counter()
+    program = export_ensemble([bundle], serving_batch_example(bundle, 2), share_stem_staging=True)
+    export_s = time.perf_counter() - t0
+    ops = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    check({"csec.int8_conv3d.default", "csec.quantize_int8.default"} <= ops, "the static export calls no int8 op")
+    with tempfile.TemporaryDirectory() as tmp:
+        serve, _ = load_serving_artifact(save_serving_artifact(os.path.join(tmp, "int8.zip"), program, {}))
+    before = (int8_conv3d.launches, quantize_int8.launches)
+    out = serve(batch)
+    torch.cuda.synchronize()
+    launched = (int8_conv3d.launches - before[0], quantize_int8.launches - before[1])
+    same = torch.equal(out["probs"], eager)
+    print(f"int8 serving export: one baked static I3D member, full width, B=2, shared staging: export {export_s:.1f} s; "
+          f"loaded artifact == eager make_member_forward: {same}; int8 conv / quantize launches {launched}")
+    check(launched == (I3D_CONVS, I3D_CONVS), f"the loaded static program launched {launched}")
+    check(same, "the loaded static-int8 artifact differs from the eager forward")
 
 
 def check_int8(torch, np, dev, kernels) -> None:
@@ -2002,6 +2086,7 @@ def check_int8(torch, np, dev, kernels) -> None:
           f"{min(scales.values()):.4g}..{max(scales.values()):.4g}")
     check(len(scales) == I3D_CONVS and all(v > 0 for v in scales.values()), "calibration left a site at 0")
 
+    check_int8_export(torch, dev, bundles[0])
     xs16 = s2d_stem_stage(calib_clips[0]["rgb"].to(torch.bfloat16))
     kernels.extend(check_int8_kernels(torch, dev, members[0], xs16[:2].contiguous(), xs16))
     conv_k, quant_k = kernels[-2], kernels[-1]

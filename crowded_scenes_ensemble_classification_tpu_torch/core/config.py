@@ -2,7 +2,7 @@
 
 Restated from `crowded_scenes_ensemble_classification_tpu/core/config.py:18-83`
 (reference define_input, train.py:1566-1616).  The experiment config and
-its legacy artifact names are not ported yet (ROADMAP Queue 1 item 8).
+its legacy artifact names are not ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations

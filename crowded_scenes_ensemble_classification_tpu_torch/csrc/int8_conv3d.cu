@@ -1,323 +1,126 @@
-// int8 x int8 -> int32 3D convolution (implicit GEMM) with the dequantize in
-// its epilogue: y[m, f] = float(acc[m, f]) * scale[f] (+ bias[f]), f32 NDHWC.
-//
-// Replaces no Pallas kernel: the JAX package leaves its int8 contraction to
-// XLA, `jax.lax.conv_general_dilated(x8, k8, preferred_element_type=int32)`
-// in crowded_scenes_ensemble_classification_tpu/models/common.py
-// (`quant_conv_general`, line 111; `static_quant_conv_general`, line 176),
-// and PyTorch has no int8 conv3d on CUDA.  The wrapper and the plain version
-// (an exact float64 `F.conv3d` on the int8 values) are in
-// ops/kernels/int8_conv.py.
-//
-// GEMM view: M = N*Do*Ho*Wo output positions, N_gemm = F output channels,
-// K in (tap, channel) order.  x is int8 NDHWC; the weights are packed once
-// per module as (Fpad, Kpad) int8, K contiguous, zero past F and K
-// (`pack_int8_weights`).  Where C is not a multiple of 16 but at least 8,
-// each tap's channels are padded to Cp = the next multiple of 16 (zero
-// weights), so that a 16-byte chunk of K never straddles two taps; below
-// 8 channels (C3D's and R3D's C = 3) K is taps*C unpadded.  Strides and
-// (before) zero pads are per axis; the output extent carries the (after)
-// pads, so TF-SAME's asymmetric pads need nothing more.
-//
-// Bound: at the I3D shapes the int8 operations (2*M*F*K over 1,979 TOPS)
-// bound the big convs and the f32 output bytes the 1x1 ones with few input
-// channels.  This first design is simple and right, not yet fast: a block
-// computes a 128 x 64 output tile with 8 warps of mma.sync m16n8k32 s8 (each
-// warp 32 x 32), K in steps of 64 through two shared-memory buffers that
-// are filled from registers loaded during the previous step's products.
-// Each thread gathers one 16-byte chunk of K for two rows of the A tile: a
-// tap cursor, advanced 64 bytes a step, gives the chunk's tap and channel
-// without a division, and the chunk loads as one 16-, two 8-, four 4- or
-// sixteen 1-byte loads, whichever C and the alignment allow (`vec`), zero
-// where the tap falls in the padding or past C.  Rows of 64 bytes are
-// padded to 80 so the fragment loads of a warp hit 32 distinct banks.
-// The dequantize is __fmul_rn then __fadd_rn: no FMA contraction, so the
-// output equals the plain version bit for bit.  wgmma, TMA and a fused
-// quantize/BN epilogue are later work.
+// The int8 implicit-GEMM 3D conv: the C entry point, the split-K finish and
+// the kernel instance with an F tile of 64.  The design, what it replaces and
+// what bounds it are in int8_conv3d.cuh.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int8_conv3d.cuh"
+
+namespace csec_int8 {
+
+cudaError_t launch_n64(const Conv& p, const CUtensorMap& b_map, dim3 grid, cudaStream_t s) {
+  return launch<64>(p, b_map, grid, s);
+}
 
 namespace {
 
-constexpr int BM = 128, BN = 64, BK = 64, THREADS = 256;
-constexpr int ROW = BK + 16;  // bytes per shared-memory row
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-struct Conv {
-  const int8_t* x;
-  const int8_t* wp;
-  const float* scale;
-  const float* bias;
-  float* y;
-  int64_t D, H, W, Do, Ho, Wo, F, Kpad, M;
-  int C, Cp, K, kd, kh, kw, khw, sd, sh, sw, pd, ph, pw;  // K = kd*kh*kw*Cp
-};
-
-// One output row's input origin.
-struct RowOrigin {
-  int64_t base;  // offset of image n in x
-  int d0, h0, w0;
-  bool valid;
-};
-
-__device__ __forceinline__ RowOrigin row_origin(const Conv& p, int64_t m) {
-  RowOrigin r;
-  r.valid = m < p.M;
-  const int64_t mm = r.valid ? m : 0;
-  const int64_t ow = mm % p.Wo;
-  int64_t t = mm / p.Wo;
-  const int64_t oh = t % p.Ho;
-  t /= p.Ho;
-  const int64_t od = t % p.Do;
-  const int64_t n = t / p.Do;
-  r.base = n * p.D * p.H * p.W * (int64_t)p.C;
-  r.d0 = (int)(od * p.sd) - p.pd;
-  r.h0 = (int)(oh * p.sh) - p.ph;
-  r.w0 = (int)(ow * p.sw) - p.pw;
-  return r;
-}
-
-// Where a reduction index k lies: channel c of tap (td, th, tw).
-struct TapCursor {
-  int c, td, th, tw;
-};
-
-__device__ __forceinline__ TapCursor cursor_at(const Conv& p, int k) {
-  TapCursor q;
-  const int tap = k / p.Cp;
-  q.c = k - tap * p.Cp;
-  q.td = tap / p.khw;
-  const int rest = tap - q.td * p.khw;
-  q.th = rest / p.kw;
-  q.tw = rest - q.th * p.kw;
-  return q;
-}
-
-// k += step, walking the taps in (td, th, tw) order.
-__device__ __forceinline__ void advance(const Conv& p, TapCursor& q, int step) {
-  q.c += step;
-  while (q.c >= p.Cp) {
-    q.c -= p.Cp;
-    if (++q.tw == p.kw) {
-      q.tw = 0;
-      if (++q.th == p.kh) {
-        q.th = 0;
-        ++q.td;
-      }
-    }
+// The tensor map of the packed weights (Fpad rows of Kpad bytes) read in
+// boxes of 128 bytes x bn rows with the 128-byte swizzle.  The encoder,
+// cuTensorMapEncodeTiled, is fetched once through the CUDA runtime's entry
+// point query, so nothing links libcuda.
+cudaError_t weight_tensor_map(CUtensorMap* map, const void* wp, int64_t Fpad, int64_t Kpad, int bn) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault);
+    if (err != cudaSuccess || !fn) return err != cudaSuccess ? err : cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  const cuuint64_t dims[2] = {(cuuint64_t)Kpad, (cuuint64_t)Fpad};
+  const cuuint64_t strides[1] = {(cuuint64_t)Kpad};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)bn};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(wp), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Address of x at the cursor for this row, or nullptr where the tap lies
-// in the padding or past the kernel.
-__device__ __forceinline__ const int8_t* tap_address(const Conv& p, const RowOrigin& r, const TapCursor& q) {
-  if (!r.valid || q.td >= p.kd) return nullptr;
-  const int d = r.d0 + q.td, h = r.h0 + q.th, w = r.w0 + q.tw;
-  if (d < 0 || d >= p.D || h < 0 || h >= p.H || w < 0 || w >= p.W) return nullptr;
-  return p.x + r.base + ((((int64_t)d * p.H + h) * p.W + w) * p.C + q.c);
-}
-
-// 16 bytes of the A tile for one row: channels q.c .. q.c+15 of one tap
-// (Cp % 16 == 0), the part below C in VEC-byte loads, zero past it.
-template <int VEC>
-__device__ __forceinline__ uint4 load_tap_chunk(const Conv& p, const RowOrigin& r, const TapCursor& q) {
-  uint4 out = make_uint4(0u, 0u, 0u, 0u);
-  const int8_t* src = tap_address(p, r, q);
-  if (!src) return out;
-  if (VEC == 16) {
-    out = __ldg(reinterpret_cast<const uint4*>(src));
-  } else if (VEC == 8) {
-    uint2 v[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-      v[s] = q.c + 8 * s < p.C ? __ldg(reinterpret_cast<const uint2*>(src) + s) : make_uint2(0u, 0u);
-    out = make_uint4(v[0].x, v[0].y, v[1].x, v[1].y);
-  } else if (VEC == 4) {
-    uint32_t v[4];
-#pragma unroll
-    for (int s = 0; s < 4; ++s)
-      v[s] = q.c + 4 * s < p.C ? __ldg(reinterpret_cast<const unsigned int*>(src) + s) : 0u;
-    out = make_uint4(v[0], v[1], v[2], v[3]);
-  } else {
-    uint32_t v[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int s = 0; s < 16; ++s)
-      if (q.c + s < p.C) v[s >> 2] |= (uint32_t)(uint8_t)__ldg(src + s) << (8 * (s & 3));
-    out = make_uint4(v[0], v[1], v[2], v[3]);
-  }
-  return out;
-}
-
-// 16 bytes of the A tile for one row with K = taps*C unpadded (C < 8):
-// each byte at its own tap, zero in the padding and past K.
-__device__ __forceinline__ uint4 load_flat_chunk(const Conv& p, const RowOrigin& r, int k) {
-  uint32_t v[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int s = 0; s < 16; ++s) {
-    if (k + s >= p.K) break;
-    const int8_t* src = tap_address(p, r, cursor_at(p, k + s));
-    if (src) v[s >> 2] |= (uint32_t)(uint8_t)__ldg(src) << (8 * (s & 3));
-  }
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float dequant(int acc, float scale, float bias, bool has_bias) {
-  const float v = __fmul_rn(__int2float_rn(acc), scale);
-  return has_bias ? __fadd_rn(v, bias) : v;
-}
-
-// VEC > 0: the padded (tap, channel) layout loaded VEC bytes at a time;
-// VEC == 0: the unpadded layout of C < 8, byte by byte.
-template <int VEC>
-__global__ void __launch_bounds__(THREADS) int8_conv3d_kernel(const Conv p) {
-  __shared__ __align__(16) int8_t As[2][BM][ROW];
-  __shared__ __align__(16) int8_t Bs[2][BN][ROW];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;  // warp tile: rows wm*32, channels wn*32
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int64_t f0 = (int64_t)blockIdx.y * BN;
-
-  // This thread fills rows tid/4 and tid/4 + 64 of A and row tid/4 of B, at
-  // byte kc of each 64-byte K step.
-  const int arow = tid >> 2, kc = (tid & 3) * 16;
-  const RowOrigin r0 = row_origin(p, m0 + arow), r1 = row_origin(p, m0 + arow + 64);
-  const int8_t* bsrc = p.wp + (f0 + arow) * p.Kpad + kc;
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int steps = (int)(p.Kpad / BK);
-  TapCursor q = cursor_at(p, kc);
-  auto load_a = [&](const RowOrigin& r, int k) {
-    return VEC ? load_tap_chunk<VEC ? VEC : 16>(p, r, q) : load_flat_chunk(p, r, k);
-  };
-  uint4 ra0 = load_a(r0, kc), ra1 = load_a(r1, kc);
-  uint4 rb = __ldg(reinterpret_cast<const uint4*>(bsrc));
-  for (int it = 0; it < steps; ++it) {
-    const int buf = it & 1;
-    *reinterpret_cast<uint4*>(&As[buf][arow][kc]) = ra0;
-    *reinterpret_cast<uint4*>(&As[buf][arow + 64][kc]) = ra1;
-    *reinterpret_cast<uint4*>(&Bs[buf][arow][kc]) = rb;
-    __syncthreads();  // with two buffers, one barrier a step suffices
-    if (it + 1 < steps) {
-      const int k = (it + 1) * BK + kc;
-      if (VEC) advance(p, q, BK);
-      ra0 = load_a(r0, k);
-      ra1 = load_a(r1, k);
-      rb = __ldg(reinterpret_cast<const uint4*>(bsrc + (int64_t)(it + 1) * BK));
-    }
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = wm * 32 + i * 16 + g;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(&As[buf][row][ks + t * 4]);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(&As[buf][row + 8][ks + t * 4]);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(&As[buf][row][ks + 16 + t * 4]);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(&As[buf][row + 8][ks + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = wn * 32 + j * 8 + g;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(&Bs[buf][col][ks + t * 4]);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(&Bs[buf][col][ks + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
-  }
-
-  // Epilogue: accumulator e of tile (i, j) is row g (+8 for e >= 2), column
-  // 2t (+1 for odd e) of that 16 x 8 tile.
+// The split-K finish: y = dequant(sum of the splits' partial sums) over (M, F).
+__global__ void int8_dequant_kernel(const Conv p) {
+  const int64_t total = p.M * p.F;
   const bool has_bias = p.bias != nullptr;
-  const bool pairs = (p.F & 1) == 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int64_t f = f0 + wn * 32 + j * 8 + 2 * t;
-    if (f >= p.F) continue;
-    const bool second = f + 1 < p.F;
-    const float s0 = __ldg(p.scale + f), s1 = second ? __ldg(p.scale + f + 1) : 0.0f;
-    const float b0 = has_bias ? __ldg(p.bias + f) : 0.0f;
-    const float b1 = (has_bias && second) ? __ldg(p.bias + f + 1) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int64_t m = m0 + wm * 32 + i * 16 + g + 8 * half;
-        if (m >= p.M) continue;
-        const float v0 = dequant(acc[i][j][2 * half], s0, b0, has_bias);
-        const float v1 = dequant(acc[i][j][2 * half + 1], s1, b1, has_bias);
-        float* dst = p.y + m * p.F + f;
-        if (pairs) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-        } else {
-          dst[0] = v0;
-          if (second) dst[1] = v1;
-        }
-      }
-    }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += (int64_t)gridDim.x * blockDim.x) {
+    int sum = 0;
+    for (int z = 0; z < p.splits; ++z) sum += p.acc[z * total + i];
+    const int f = (int)(i % p.F);
+    p.y[i] = dequant(sum, __ldg(p.scale + f), has_bias ? __ldg(p.bias + f) : 0.0f, has_bias);
   }
 }
 
 }  // namespace
+}  // namespace csec_int8
 
-// x: (N, D, H, W, C) int8 contiguous; wp: (Fpad, Kpad) int8, Fpad % 64 == 0,
-// Kpad % 64 == 0, Kpad >= kd*kh*kw*Cp, with each tap's channels padded to
+using namespace csec_int8;
+
+// x: (N, D, H, W, C) int8 contiguous; wp: (Fpad, Kpad) int8, Fpad >= F,
+// Kpad % 128 == 0, Kpad >= kd*kh*kw*Cp, with each tap's channels padded to
 // Cp (= C, or a multiple of 16 above C: `padded_channels`); scale: (F,)
 // f32; bias: (F,) f32 or null; y: (N, Do, Ho, Wo, F) f32.  vec in
-// {16, 8, 4, 1} must divide C and the alignment of x.  Returns cudaError_t.
-extern "C" int int8_conv3d(const void* x, const void* wp, const void* scale, const void* bias, void* y,
+// {16, 8, 4, 1} must divide C and the alignment of x (vec is ignored below
+// 8 channels, where Cp == C < 8).  bn in {64, 128, 192, 256} is the F tile;
+// splits > 1 splits K into that many parts of ceil(steps / splits) stages,
+// none empty, which then need acc, a (splits, M, F) int32 workspace.
+// slab = 1 takes the row-slab route (int8_conv3d_slab.cu; bn 64, no
+// split), for convs it fits.  Returns cudaError_t.
+extern "C" int int8_conv3d(const void* x, const void* wp, const void* scale, const void* bias, void* y, void* acc,
                            int64_t N, int64_t D, int64_t H, int64_t W, int64_t C,
-                           int64_t Do, int64_t Ho, int64_t Wo, int64_t F, int64_t Kpad,
+                           int64_t Do, int64_t Ho, int64_t Wo, int64_t F, int64_t Fpad, int64_t Kpad,
                            int kd, int kh, int kw, int sd, int sh, int sw, int pd, int ph, int pw,
-                           int Cp, int vec, void* stream) {
+                           int Cp, int vec, int bn, int splits, int slab, void* stream) {
   Conv p;
   p.x = static_cast<const int8_t*>(x);
   p.wp = static_cast<const int8_t*>(wp);
   p.scale = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
   p.y = static_cast<float*>(y);
-  p.D = D; p.H = H; p.W = W; p.C = (int)C; p.Cp = (int)Cp;
-  p.Do = Do; p.Ho = Ho; p.Wo = Wo; p.F = F; p.Kpad = Kpad;
+  p.acc = splits > 1 ? static_cast<int*>(acc) : nullptr;
+  p.D = (int)D; p.H = (int)H; p.W = (int)W; p.C = (int)C; p.Cp = (int)Cp;
+  p.dW = (int)((W - kw) * C);
+  p.dH = (int)((H - kh) * W * C);
+  p.Do = (int)Do; p.Ho = (int)Ho; p.Wo = (int)Wo; p.F = F; p.Fpad = Fpad; p.Kpad = Kpad;
   p.M = N * Do * Ho * Wo;
   const int64_t K = (int64_t)kd * kh * kw * Cp;
   p.K = (int)K;
   p.kd = kd; p.kh = kh; p.kw = kw; p.khw = kh * kw;
   p.sd = sd; p.sh = sh; p.sw = sw; p.pd = pd; p.ph = ph; p.pw = pw;
+  p.vec = Cp % 16 ? 0 : vec;  // 0: the unpadded layout of C < 8, byte by byte
   if (p.M == 0 || F == 0) return (int)cudaSuccess;
-  if (Kpad % BK || Kpad < K || K >= (1ll << 30) || C <= 0 || vec <= 0 || C % vec || (Cp != C && (Cp % 16 || Cp < C)))
+  const int64_t steps = Kpad / BK;
+  if (Kpad % BK || Kpad < K || K >= (1ll << 30) || Fpad < F || C <= 0 || vec <= 0 || C % vec ||
+      (D + kd) * (H + kh) * (W + kw) * C >= (1ll << 31) ||  // a tap's offset within an image fits an int
+      p.M >= (1ll << 31) - BM ||                             // and so does every row index
+      (Cp != C && (Cp % 16 || Cp < C)) || (Cp % 16 && Cp >= 8) || splits < 1 || splits > steps ||
+      (splits > 1 && acc == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int64_t fparts = (F + BN - 1) / BN;
-  const int64_t mtiles = (p.M + BM - 1) / BM;
-  if (fparts > 65535 || mtiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)mtiles, (unsigned)fparts);
+  p.steps_per_split = (int)((steps + splits - 1) / splits);
+  p.splits = splits;
+  const int64_t mtiles = (p.M + BM - 1) / BM, ftiles = (F + bn - 1) / bn;
+  if ((steps + p.steps_per_split - 1) / p.steps_per_split != splits || ftiles > 65535 || mtiles > 0x7fffffff ||
+      splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)mtiles, (unsigned)ftiles, (unsigned)splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (Cp % 16 ? 0 : vec) {
-    case 16: int8_conv3d_kernel<16><<<grid, THREADS, 0, s>>>(p); break;
-    case 8: int8_conv3d_kernel<8><<<grid, THREADS, 0, s>>>(p); break;
-    case 4: int8_conv3d_kernel<4><<<grid, THREADS, 0, s>>>(p); break;
-    case 1: int8_conv3d_kernel<1><<<grid, THREADS, 0, s>>>(p); break;
-    case 0: int8_conv3d_kernel<0><<<grid, THREADS, 0, s>>>(p); break;
+  CUtensorMap b_map;
+  if (slab) {  // the row-slab route: F tiles of 64, no split
+    if (!slab_route_fits(p) || bn != 64 || splits != 1) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = weight_tensor_map(&b_map, wp, Fpad, Kpad, 64);
+    return (int)(err != cudaSuccess ? err : launch_slab(p, b_map, s));
+  }
+  cudaError_t err = weight_tensor_map(&b_map, wp, Fpad, Kpad, bn);
+  if (err != cudaSuccess) return (int)err;
+  switch (bn) {
+    case 64: err = launch_n64(p, b_map, grid, s); break;
+    case 128: err = launch_n128(p, b_map, grid, s); break;
+    case 192: err = launch_n192(p, b_map, grid, s); break;
+    case 256: err = launch_n256(p, b_map, grid, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess || !p.acc) return (int)err;
+  const int64_t total = p.M * F;
+  const unsigned blocks = (unsigned)((total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024);
+  int8_dequant_kernel<<<blocks, 256, 0, s>>>(p);
   return (int)cudaGetLastError();
 }

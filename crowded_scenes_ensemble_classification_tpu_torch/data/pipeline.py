@@ -2,7 +2,7 @@
 
 Counterpart of part of `crowded_scenes_ensemble_classification_tpu/data/pipeline.py`:
 only `class_weights_balanced` (lines 261-267) so far.  `BatchPipeline` and
-`prefetch_batches` wait for the decode path (ROADMAP Queue 1 item 8).
+`prefetch_batches` wait for the decode path (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

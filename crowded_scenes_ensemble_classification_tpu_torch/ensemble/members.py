@@ -23,7 +23,8 @@ Farnebäck computes the flow on the members' device (displacement, so
 flax pytrees for `vmap` and cache `jit`ted forwards, and here each member
 is an `nn.Module` run eagerly.  `calibrate_members` (JAX members.py:94-162)
 makes static-int8 members.  The member-sharded mesh form and the serving
-export of gray-pair inputs are not ported yet (ROADMAP Queue 1 item 8).
+export of gray-pair inputs are not ported yet (ROADMAP Queue 1 items 7
+and 2).
 """
 
 from __future__ import annotations

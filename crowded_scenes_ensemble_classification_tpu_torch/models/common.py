@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.int8_conv import int8_conv3d, pack_int8_weights, quantize_int8
+from ..ops.kernels.int8_conv import int8_conv3d, pack_int8_weights, padded_channels, quantize_int8
 from ..ops.kernels.stem_conv import s2d_stem_kernel, s2d_stem_stage, stem_conv_7x7x7_s2
 
 # JAX models/common.py:24-25 (Keras 2.2.4 defaults); torch counts momentum
@@ -220,7 +220,15 @@ def weight_qparams(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _int8_conv(x: torch.Tensor, x8: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
                bias: Optional[torch.Tensor], kernel, strides, padding: Padding) -> torch.Tensor:
+    """The int8 conv of NTHWC x8 (quantized from x) with packed weights.
+    Below 16 channels (the s2d stems' 4C = 12 and 8) x8's channels are
+    zero-padded to the packed weights' 16 a tap first: the packing is the
+    same and so is every sum, and the kernel then copies whole 16-byte
+    chunks where it would copy 4 or 8 bytes at a time."""
     pads = conv_pads(x.shape[1:4], kernel, strides, padding)
+    c = x8.shape[-1]
+    if 8 <= c < 16:
+        x8 = F.pad(x8, (0, padded_channels(c) - c))
     return int8_conv3d(x8, wp, scale, bias, kernel, strides, pads)
 
 
@@ -267,6 +275,19 @@ def _tensor_key(t: torch.Tensor) -> tuple:
     return t.data_ptr(), t.device, None if t.is_inference() else t._version
 
 
+def _traced(*tensors: torch.Tensor) -> bool:
+    """Whether this call is being traced (`torch.compile`, `torch.export`):
+    the tensors are then fake or functional stand-ins with no storage."""
+    return torch.compiler.is_compiling() or any(type(t) not in (torch.Tensor, nn.Parameter) for t in tensors)
+
+
+_STATIC_OPERANDS = ("static_wp", "static_inv", "static_scale")
+
+
+def _refresh_after_load(module: nn.Module, incompatible_keys) -> None:
+    module.refresh_static_operands()
+
+
 class _QuantBuffers:
     """The optional quant state of a quantized site: `act_absmax` (the
     running max|x| of 'calib', read by 'static'; JAX's qstats) and, on a
@@ -283,6 +304,54 @@ class _QuantBuffers:
 
     def _baked_shapes(self) -> dict:
         return {}
+
+    # The static operands (`static_operands`: packed k8, inv, dequantize
+    # scale) are held as non-persistent buffers, computed when a site turns
+    # static, is baked or loaded (`refresh_static_operands`), so the state
+    # dict is unchanged, `.to()` moves them, and a traced forward reads them
+    # as constants: a static site is a pure function of its variables, as
+    # JAX's is.  Eager calls recompute them first when a source changed.
+
+    def _register_static_operands(self) -> None:
+        for name in _STATIC_OPERANDS:
+            self.register_buffer(name, None, persistent=False)
+        self._static_key: Optional[tuple] = None  # `_tensor_key`s of the sources they were computed from
+        self.register_load_state_dict_post_hook(_refresh_after_load)
+
+    def _static_sources(self) -> Optional[tuple]:
+        """The tensors the static operands are computed from, or None where
+        the site holds none (not static, or a QuantConv not baked)."""
+        raise NotImplementedError
+
+    def _compute_static_operands(self) -> tuple:
+        raise NotImplementedError
+
+    def refresh_static_operands(self) -> None:
+        """Recompute the held static operands if a source changed since they
+        were computed (or drop them where the site holds none).  Never
+        called while tracing: it reads storage pointers."""
+        sources = self._static_sources()
+        if sources is None or any(t.is_meta for t in sources):
+            self._static_key = None
+            for name in _STATIC_OPERANDS:
+                setattr(self, name, None)
+            return
+        key = tuple(_tensor_key(t) for t in sources)
+        if self.static_wp is None or key != self._static_key:
+            with torch.inference_mode(False), torch.no_grad():  # plain tensors, which an export can carry
+                for name, t in zip(_STATIC_OPERANDS, self._compute_static_operands()):
+                    setattr(self, name, t)
+            self._static_key = key
+
+    def held_static_operands(self) -> tuple:
+        """The static operands: refreshed and held in eager calls; while
+        tracing, the held buffers (where none are held, as on the meta
+        device, the same computation in the call or the graph)."""
+        if not _traced(*self._static_sources()):
+            self.refresh_static_operands()
+        if self.static_wp is None:
+            return self._compute_static_operands()
+        return tuple(getattr(self, name) for name in _STATIC_OPERANDS)
 
     def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys,
                               error_msgs):
@@ -319,9 +388,9 @@ class QuantConv(_QuantBuffers, nn.Conv3d):
       `act_absmax` (TF32 off: `models.quantize.calibrate` turns it off);
     - 'static': `static_quant_conv_general` with act_absmax/127, and the
       baked `k8`/`sw` (`models.quantize.quantize_variables`) when present,
-      else the weights quantized in the forward.  The packed weights and
-      the two scales (`static_operands`) are kept between calls while k8,
-      sw and act_absmax are unchanged.
+      else the weights quantized in the forward.  With k8/sw baked, the
+      packed weights and the two scales (`static_operands`) are held as
+      non-persistent buffers, recomputed when k8, sw or act_absmax change.
 
     Takes NCDHW x of any float dtype, returns f32 NCDHW (channels_last_3d
     memory); the bias is added in f32 after the dequantize."""
@@ -336,21 +405,26 @@ class QuantConv(_QuantBuffers, nn.Conv3d):
         self._register_quant_buffers(mode)
         self.register_buffer("k8", None)
         self.register_buffer("sw", None)
-        self._static: Optional[tuple] = None  # (key of k8, sw, act_absmax; their `static_operands`)
+        self._register_static_operands()
 
     def _baked_shapes(self) -> dict:
         return {"k8": (tuple(self.weight.shape), torch.int8), "sw": ((self.out_channels,), torch.float32)}
 
+    def _static_sources(self) -> Optional[tuple]:
+        if self.quant_mode != "static" or self.k8 is None:
+            return None
+        return self.k8, self.sw, self.act_absmax
+
+    def _compute_static_operands(self) -> tuple:
+        return static_operands(self.k8, self.sw, self.act_absmax / 127.0)
+
     def static_operands(self) -> tuple:
-        """`static_operands` of 'static': from the baked k8/sw, kept between
-        calls while they and act_absmax are unchanged (JAX bakes them once),
-        else from the weights quantized now (JAX's in-graph quantization)."""
+        """`static_operands` of 'static': from the baked k8/sw, held between
+        calls (JAX bakes them once), else from the weights quantized now
+        (JAX's in-graph quantization)."""
         if self.k8 is None:
             return static_operands(*weight_qparams(self.weight), self.act_absmax / 127.0)
-        key = tuple(_tensor_key(t) for t in (self.k8, self.sw, self.act_absmax))
-        if self._static is None or self._static[0] != key:
-            self._static = (key, static_operands(self.k8, self.sw, self.act_absmax / 127.0))
-        return self._static[1]
+        return self.held_static_operands()
 
     def forward(self, x: torch.Tensor, strides: Optional[Sequence[int]] = None) -> torch.Tensor:
         """`strides` overrides the module's (R3D's shortcut takes its strides
@@ -406,10 +480,11 @@ class PrestagedS2DStemConvBN(_QuantBuffers, nn.Module):
     `s2d_stem_kernel(W)` of the f32 weight: 'dynamic' quantizes it and the
     input per call; 'calib' runs the exact f32 prestaged conv and records
     max|xs| in this module's `act_absmax`; 'static' quantizes the derived
-    kernel (kept between calls while the weight is unchanged: the values
-    JAX computes in its forward) against act_absmax/127.  The derived
-    kernel is never baked, as in JAX.  BatchNorm runs on the f32 output and
-    the result is cast to xs's dtype after."""
+    kernel against act_absmax/127: the values JAX computes in its forward,
+    held as non-persistent buffers and recomputed when the weight or
+    act_absmax change.  The derived kernel is never baked into the state
+    dict, as in JAX.  BatchNorm runs on the f32 output and the result is
+    cast to xs's dtype after."""
 
     def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None,
                  quant: Union[bool, str] = False):
@@ -420,17 +495,15 @@ class PrestagedS2DStemConvBN(_QuantBuffers, nn.Module):
         self.quant = quant
         if quant:
             self._register_quant_buffers(quant_mode(quant))
-            self._static: Optional[tuple] = None  # (key of the weight and act_absmax; `static_operands`)
+            self._register_static_operands()
 
-    def _static_operands(self) -> tuple:
-        """`static_operands` of the derived s2d kernel, kept between calls
-        while the weight and act_absmax are unchanged."""
-        w = self.conv.weight
-        key = (_tensor_key(w), _tensor_key(self.act_absmax))
-        if self._static is None or self._static[0] != key:
-            k8, sw = weight_qparams(s2d_stem_kernel(w.float()))
-            self._static = (key, static_operands(k8, sw, self.act_absmax / 127.0))
-        return self._static[1]
+    def _static_sources(self) -> Optional[tuple]:
+        return (self.conv.weight, self.act_absmax) if self.quant_mode == "static" else None
+
+    def _compute_static_operands(self) -> tuple:
+        """`static_operands` of the derived s2d kernel."""
+        k8, sw = weight_qparams(s2d_stem_kernel(self.conv.weight.float()))
+        return static_operands(k8, sw, self.act_absmax / 127.0)
 
     def _quant_conv(self, xs: torch.Tensor) -> torch.Tensor:
         """The s2d conv of NTHWC xs under `quant_mode` → f32 NCDHW."""
@@ -441,7 +514,7 @@ class PrestagedS2DStemConvBN(_QuantBuffers, nn.Module):
             self.record_absmax(xs)
             return _s2d_conv(xs.float(), w.float())
         else:
-            y = _static_conv(xs, self._static_operands(), None, _S2D_KERNEL, _S2D_STRIDES, _S2D_PADS)
+            y = _static_conv(xs, self.held_static_operands(), None, _S2D_KERNEL, _S2D_STRIDES, _S2D_PADS)
         return to_ncdhw(y)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,10 @@ into a model built with quant='static', and a plain one into any quant model.
    derived kernel itself and gets none, as in JAX;
 3. `set_quant_mode(module, 'static')` (or a model built with
    quant='static' that loads the state dict) then runs every conv on the
-   int8 kernel with the calibrated scales.
+   int8 kernel with the calibrated scales.  Each static site then holds its
+   packed weights and scales as non-persistent buffers, so its forward
+   traces (`torch.export`, `torch.compile`) as a pure function of its
+   variables and the state dict stays as it was.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ def set_quant_mode(module: nn.Module, mode: str) -> nn.Module:
         if m.quant_mode == "dynamic":
             raise ValueError(f"{name} is a dynamic quant site: it has no calibrated stats")
         m.quant_mode = mode
+        m.refresh_static_operands()
     return module
 
 
@@ -112,6 +116,7 @@ def quantize_variables(module: nn.Module) -> nn.Module:
         for m in sites:
             if isinstance(m, QuantConv):
                 m.k8, m.sw = weight_qparams(m.weight)
+            m.refresh_static_operands()
     return module
 
 

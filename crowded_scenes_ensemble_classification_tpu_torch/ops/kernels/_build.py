@@ -2,7 +2,9 @@
 
 `csrc/*.cu` expose a plain C interface, so they compile with `nvcc` alone,
 without PyTorch's headers, in seconds: one `nvcc -c` per source, all
-started together, then one link.  The library lands in
+started together, then one link (`csrc/*.cuh` are included by them; a
+kernel with several heavy template instances puts each in a source of its
+own, so that they compile side by side).  The library lands in
 `<repo>/build/kernels/`, named by a hash of the sources and flags: a changed
 source rebuilds, an unchanged one loads the library already built.  Nothing
 is built when this module is imported; the first kernel launch builds.
@@ -45,7 +47,7 @@ SIGNATURES = {
         [_I64, _I64, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
         ctypes.c_int,
     ),
-    "int8_conv3d": ([*[_P] * 5, *[_I64] * 10, *[ctypes.c_int] * 11, _P], ctypes.c_int),
+    "int8_conv3d": ([*[_P] * 6, *[_I64] * 11, *[ctypes.c_int] * 14, _P], ctypes.c_int),
     "quantize_int8": ([_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
 }
 
@@ -66,9 +68,9 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # *.cu and *.cuh
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcsec_kernels_{h.hexdigest()[:16]}.so"

@@ -16,7 +16,11 @@ quantized inference is inference only.
 - `int8_conv3d(x8, wp, scale, bias, kernel, strides, pads)`: int8 NTHWC ×
   packed int8 weights (`pack_int8_weights`) → f32 NTHWC,
   `float(acc)·scale[f]` then `+ bias[f]`, two roundings as in JAX.
-  Strides and (before, after) zero pads are per axis.
+  Strides and (before, after) zero pads are per axis.  The kernel takes
+  one of two routes (`int8_conv_route`): tiles of 128 positions × F with
+  A gathered chunk by chunk, or, for 16-channel convs with no spatial
+  pads (the I3D stems on their staging), whole input rows in shared
+  memory.
 
 The plain conv is exact: `F.conv3d` in float64 on the int8 values (|Σ| ≤
 K·127² < 2^53 for any K here; float32 stops being exact once K·127² passes
@@ -25,6 +29,7 @@ K·127² < 2^53 for any K here; float32 stops being exact once K·127² passes
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -33,8 +38,11 @@ import torch.nn.functional as F
 
 from ._build import check_launch, load_library
 
-K_STEP = 64  # the kernel's K step: packed rows are padded to a multiple
-F_TILE = 64  # the kernel's output-channel tile: packed F is padded to a multiple
+K_STEP = 128  # the kernel's K stage, one 128-byte swizzle atom: packed rows are padded to a multiple
+F_TILE = 16  # packed F is padded to a multiple (the kernel zero-fills weight rows past it)
+M_TILE = 128  # the kernel's rows of output positions a block
+F_TILES = (64, 128, 192, 256)  # the kernel's F tiles (wgmma N), one instance each
+H100_SMS = 132
 
 Pads = Sequence[Tuple[int, int]]
 
@@ -47,11 +55,28 @@ def padded_channels(c: int) -> int:
     return c if c % 16 == 0 or c < 8 else -(-c // 16) * 16
 
 
+def int8_conv_tiling(m: int, f: int, kpad: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(F tile, K splits) of the kernel for M output positions, F channels
+    and packed depth kpad.  The F tile keeps the padded products and the
+    re-reads of A (one per F tile, priced at 64 columns) least.  K is split
+    when that fills more of the card's `sms` (one block an SM), in units of
+    one K stage's time: s splits cost the waves they take times the stages
+    a block walks plus 5 for its prologue and epilogue, plus 10 for the
+    finish kernel that adds the splits; a split walks ceil(steps / s)
+    stages, and none is left empty."""
+    bn = min(F_TILES, key=lambda b: (-(-f // b) * (b + 64), -b))
+    blocks, steps = -(-m // M_TILE) * -(-f // bn), kpad // K_STEP
+    cost = lambda s: -(-blocks * s // sms) * (-(-steps // s) + 5) + 10 * (s > 1)  # noqa: E731
+    per = -(-steps // min(range(1, min(8, steps) + 1), key=cost))  # stages a split walks
+    return bn, -(-steps // per)  # no split left empty
+
+
 def pack_int8_weights(k8: torch.Tensor) -> torch.Tensor:
     """int8 OIDHW (F, C, kd, kh, kw) → the kernel's (Fpad, Kpad) int8,
     contiguous: row f holds K = kd·kh·kw·Cp in (tap, channel) order, each
     tap's channels zero-padded from C to Cp (`padded_channels`), then
-    zeros to Kpad (a multiple of 64); rows past F are zero."""
+    zeros to Kpad (a multiple of K_STEP); rows past F are zero, to a
+    multiple of F_TILE."""
     f, c = k8.shape[:2]
     taps = k8.permute(0, 2, 3, 4, 1).reshape(f, -1, c)
     rows = F.pad(taps, (0, padded_channels(c) - c)).reshape(f, -1)
@@ -124,6 +149,46 @@ def _int8_conv_op(
     return int8_conv3d_reference(x8, k8, scale, bias, stride, _pairs(pad))
 
 
+def _fits_row_slab(c: int, vec: int, kpad: int, kernel, strides, pads, wo: int) -> bool:
+    """Whether a conv takes the kernel's row-slab route
+    (csrc/int8_conv3d_slab.cu, `slab_route_fits`): 16 channels at 16-byte
+    alignment, unit spatial strides and no spatial pads, taps in pairs
+    along W and whole 128-byte stages a temporal tap, rows of at most two
+    64-row tiles.  The I3D stems on their staging (with x8 padded to 16
+    channels) fit."""
+    kd, kh, kw = kernel
+    slot = -(-(16 * kh * kw * 64 + (kh + 1) * -(-(2 * 64 + kw - 1) * 16 // 128) * 128) // 1024) * 1024
+    return (c == 16 and vec == 16 and tuple(strides[1:]) == (1, 1) and not any(pads[1]) and not any(pads[2])
+            and kw % 2 == 0 and kh * kw % 8 == 0 and wo <= 128 and kpad == kd * kh * kw * 16
+            and 4 * slot + 1056 <= 113 * 1024)
+
+
+def int8_conv_route(x8: torch.Tensor, wp: torch.Tensor, f: int, kernel, strides, pads, sms: int = H100_SMS) -> dict:
+    """How the kernel runs the conv of int8 NTHWC x8 (its shape and
+    address) with packed weights wp of depth Kpad to F channels: the
+    row-slab route where it fits (`_fits_row_slab`), else the tiled one with
+    its tile (`int8_conv_tiling`) and K splits; and how A reaches shared
+    memory (whole input rows by bulk copy; or 16-byte chunks by 16-, 8- or
+    4-byte cp.async, `vec`, 1 through registers, C < 8 byte by byte at each
+    byte's own tap)."""
+    c = x8.shape[-1]
+    out = conv_output_shape(x8.shape[1:4], kernel, strides, pads)
+    m, kpad = x8.shape[0] * math.prod(out), wp.shape[1]
+    vec = _alignment_vec(c, x8.data_ptr())
+    if _fits_row_slab(c, vec, kpad, kernel, strides, pads, out[2]):
+        return {"tile": "2 rows x 128 x 64 (row slab)", "bn": 64, "splits": 1, "vec": vec, "slab": 1,
+                "a_copy": "bulk copy of whole input rows"}
+    bn, splits = int8_conv_tiling(m, f, kpad, sms)
+    copy = "byte gather (C < 8)" if padded_channels(c) % 16 else (
+        "register gather" if vec == 1 else f"cp.async {vec} B")
+    return {"tile": f"{M_TILE}x{bn}", "bn": bn, "splits": splits, "vec": vec, "slab": 0, "a_copy": copy}
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _alignment_vec(c: int, ptr: int) -> int:
     """The widest load (16, 8, 4 or 1 bytes) that divides C and x's address."""
     return next(v for v in (16, 8, 4, 1) if c % v == 0 and ptr % v == 0)
@@ -160,12 +225,16 @@ def _int8_conv_cuda(
         raise ValueError(f"int8_conv3d: no output for input {tuple(x8.shape)}, kernel {kernel}, "
                          f"strides {stride}, pads {pads}")
     y = torch.empty((n, *out, features), dtype=torch.float32, device=x8.device)
+    route = int8_conv_route(x8, wp, features, kernel, stride, pads, _sm_count(x8.device))
+    splits = route["splits"]
+    acc = torch.empty((splits, *y.shape), dtype=torch.int32, device=x8.device) if splits > 1 else None
     with torch.cuda.device(x8.device):
         stream = torch.cuda.current_stream(x8.device).cuda_stream
         err = load_library().int8_conv3d(
             x8.data_ptr(), wp.data_ptr(), scale.data_ptr(), bias.data_ptr() if bias is not None else None,
-            y.data_ptr(), n, d, h, w, c, *out, features, wp.shape[1], *kernel, *stride,
-            *(b for b, _ in pads), padded_channels(c), _alignment_vec(c, x8.data_ptr()), stream,
+            y.data_ptr(), acc.data_ptr() if acc is not None else None, n, d, h, w, c, *out, features,
+            *wp.shape, *kernel, *stride, *(b for b, _ in pads), padded_channels(c), route["vec"], route["bn"],
+            route["splits"], route["slab"], stream,
         )
     check_launch("int8_conv3d", err)
     int8_conv3d.launches += 1

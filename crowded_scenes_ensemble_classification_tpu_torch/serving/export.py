@@ -14,8 +14,10 @@ loaded program's launches too.  An artifact runs on the device type it was
 exported on, recorded in its metadata.
 
 Artifact = one zip: `module.pt2` (`torch.export.save`) + `metadata.json`.
-Not ported yet (ROADMAP Queue 1 item 12): `bake_params=False`, the mesh
-form, and the CLI's `export`/`serve` commands.
+Static-int8 members export with their packed weights and scales as
+constants (`models/common.QuantConv`).  Not ported yet (ROADMAP Queue 1
+item 2): TwoStream's flow inputs, `bake_params=False`, the mesh form, and
+the CLI's `export`/`serve` commands.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 import torch.nn as nn
 
 from ..ensemble.members import check_member_form, member_softmax
+from ..models.quantize import quant_sites
 from ..models.registry import ModelBundle
 from ..utils.device import resolve_device
 
@@ -84,6 +87,8 @@ def export_ensemble(
         raise ValueError("export_ensemble: members must share model type and clip geometry")
     modules = [b.module for b in members]
     check_member_form(modules, share_stem_staging)
+    for site in (s for m in modules for s in quant_sites(m).values()):
+        site.refresh_static_operands()  # a static site's packed weights enter the program as constants
     w = torch.ones(len(members)) if weights is None else torch.as_tensor(weights, dtype=torch.float32)
     model = _ServingEnsemble(
         modules, (first.clip.height, first.clip.width), share_stem_staging, input_scale,

@@ -22,8 +22,9 @@ Epoch-level control (LR policy, early stopping, best-val checkpoint, NaN
 stop) runs on the host in `fit`, with the reference's callback semantics
 (callbacks.py).
 
-Not ported: the wire-fed step (a TPU transfer workaround, Queue 1 item 9),
-the mesh, and `prefetch_batches` over a `BatchPipeline` (Queue 1 item 8):
+Not ported: the wire-fed step (a TPU transfer workaround, left out: ROADMAP
+Queue 1 item 8), the mesh (item 7), and `prefetch_batches` over a
+`BatchPipeline` (item 4):
 `fit` and `evaluate_model` iterate `pipeline.batches(epoch)`.
 """
 

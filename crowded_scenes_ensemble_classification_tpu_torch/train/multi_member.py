@@ -14,7 +14,7 @@ are in-place writes to buffers, and the `csec::` custom ops (the max pool,
 its gradient, the noise) have no vmap rule.
 
 The member-sharded mesh form, which puts members on different devices,
-waits for the port's distributed layer (ROADMAP Queue 1 item 8).
+waits for the port's distributed layer (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -699,7 +699,13 @@ _S, _V = ((1, 1), (1, 1), (1, 1)), ((0, 0), (0, 0), (0, 0))
 # (4C = 12 and 8, asymmetric temporal pads), I3D's 1³ and 3³ convs, Mixed_4c's
 # b2_3x3 on Cin = 24, C3D conv1 and the R3D stem on C = 3, a 3³/2 TF-SAME
 # conv on odd extents, a 1³/2 VALID projection, K = 27·512 (C3D conv5),
-# odd C and F with asymmetric pads.
+# odd C and F with asymmetric pads; then the wgmma design's edges: K not a
+# multiple of its 128-byte stage (80, 27·48), F = 208 and 48 against its F
+# tiles, M below one 128-row tile, M below one wave (split K, 1³ and 3³),
+# strides (1, 2, 1) on C = 64, and C = 2 and 12 on the byte-gather and
+# 4-byte routes; then the row-slab route (C = 16, no spatial pads): the
+# stem's form at odd H and at Wo = 112 with F = 13, and a (3, 2, 4) kernel
+# with odd Ho, Wo = 67 over two tiles and two F tiles.
 INT8_CONV_CASES = [
     ((2, 10, 115, 115, 12), 64, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
     ((1, 6, 19, 21, 8), 64, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
@@ -713,6 +719,19 @@ INT8_CONV_CASES = [
     ((2, 5, 7, 9, 48), 96, (1, 1, 1), (2, 2, 2), _V),
     ((1, 2, 3, 3, 512), 40, (3, 3, 3), (1, 1, 1), _S),
     ((1, 3, 5, 7, 17), 13, (3, 3, 3), (1, 2, 1), ((1, 1), (0, 2), (1, 0))),
+    ((2, 3, 9, 9, 80), 64, (1, 1, 1), (1, 1, 1), _V),
+    ((2, 4, 7, 7, 48), 128, (3, 3, 3), (1, 1, 1), _S),
+    ((2, 5, 14, 14, 96), 208, (3, 3, 3), (1, 1, 1), _S),
+    ((2, 5, 14, 14, 480), 48, (1, 1, 1), (1, 1, 1), _V),
+    ((1, 1, 3, 5, 64), 96, (3, 3, 3), (1, 1, 1), _S),
+    ((16, 3, 7, 7, 832), 384, (1, 1, 1), (1, 1, 1), _V),
+    ((4, 3, 7, 7, 160), 320, (3, 3, 3), (1, 1, 1), _S),
+    ((2, 4, 9, 8, 64), 64, (3, 3, 3), (1, 2, 1), ((1, 1), (0, 1), (1, 1))),
+    ((2, 4, 10, 10, 2), 16, (3, 3, 3), (1, 1, 1), _S),
+    ((1, 3, 9, 9, 12), 24, (3, 3, 3), (1, 1, 1), _S),
+    ((2, 10, 19, 21, 16), 64, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
+    ((1, 6, 9, 115, 16), 13, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
+    ((2, 4, 6, 70, 16), 72, (3, 2, 4), (1, 1, 1), ((1, 1), (0, 0), (0, 0))),
 ]
 
 
@@ -746,8 +765,10 @@ def test_int8_conv_kernel_equals_plain(torch, case, with_bias):
     assert torch.equal(got, ref)
 
 
-def test_int8_conv_kernel_misaligned_input(torch):
-    """An int8 input one byte off 16-byte alignment takes single-byte loads
+@pytest.mark.parametrize("offset", [1, 4, 8])
+def test_int8_conv_kernel_misaligned_input(torch, offset):
+    """An int8 input 1, 4 or 8 bytes off 16-byte alignment takes
+    register-gathered single bytes, or 4- or 8-byte asynchronous copies,
     and still equals the plain version."""
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
         int8_conv3d,
@@ -757,13 +778,35 @@ def test_int8_conv_kernel_misaligned_input(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     shape = (2, 4, 9, 9, 32)
-    x8 = torch.empty(math.prod(shape) + 1, dtype=torch.int8, device="cuda")[1:].view(shape)
+    x8 = torch.empty(math.prod(shape) + offset, dtype=torch.int8, device="cuda")[offset:].view(shape)
     x8.copy_(_int8(torch, shape, gen))
-    assert x8.data_ptr() % 2 == 1
+    assert x8.data_ptr() % 16 == offset
     k8 = _int8(torch, (48, 32, 3, 3, 3), gen)
     scale = torch.rand(48, device="cuda", generator=gen)
     got = int8_conv3d(x8, pack_int8_weights(k8), scale, None, (3, 3, 3), (1, 1, 1), _S)
     assert torch.equal(got, int8_conv3d_reference(x8, k8, scale, None, (1, 1, 1), _S))
+
+
+@pytest.mark.parametrize("features", [64, 128, 192, 256])
+def test_int8_conv_single_wgmma_tile_equals_plain_product(torch, features):
+    """One 128 × F × 128 tile, the kernel's unit (a 1³ conv of 128
+    positions × 128 channels, F = each of its F tiles): the int32 sums,
+    dequantized by 1, equal the int64 matrix product exactly (|Σ| ≤
+    128·127² < 2^24, exact in f32).  A wrong shared-memory descriptor or
+    swizzle gives wrong numbers, not a fault."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv3d,
+        int8_conv_tiling,
+        pack_int8_weights,
+    )
+
+    assert int8_conv_tiling(128, features, 128) == (features, 1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x8, k8 = _int8(torch, (1, 1, 1, 128, 128), gen), _int8(torch, (features, 128, 1, 1, 1), gen)
+    got = int8_conv3d(x8, pack_int8_weights(k8), torch.ones(features, device="cuda"), None, (1, 1, 1),
+                      (1, 1, 1), _V)
+    want = x8.view(128, 128).cpu().long() @ k8.view(features, 128).cpu().long().t()
+    assert torch.equal(got.view(128, features).cpu(), want.float())
 
 
 @pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
@@ -886,3 +929,46 @@ def test_static_family_kernels_equal_plain_on_card(torch, no_tf32, model_type):
     assert launched == (sites, sites) and (int8_conv3d.launches, quantize_int8.launches) == tuple(
         b + n for b, n in zip(before, launched))
     assert torch.equal(got, ref)
+
+
+def test_static_member_export_on_card_equals_eager(torch, no_tf32, tmp_path):
+    """A small prestaged static-int8 I3D (f32, calibrated on the card by
+    `calibrate_members` and baked) exported on the card with shared
+    staging: the saved and loaded artifact calls the int8 kernels (one
+    conv and one quantize launch a site) and its probabilities equal the
+    eager `make_member_forward`'s exactly."""
+    import numpy as np
+
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ClipSpec
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import (
+        calibrate_members,
+        make_member_forward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.models.quantize import quant_sites
+    from crowded_scenes_ensemble_classification_tpu_torch.models.registry import ModelBundle
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import int8_conv3d, quantize_int8
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    gen = torch.Generator().manual_seed(11)
+    module = _small_family(torch, "I3D", gen, prestaged=True, quant="calib").cuda()
+    rng = np.random.default_rng(12)
+    calib, batch = ({"rgb": torch.from_numpy(rng.integers(0, 256, (2, 16, 32, 32, 3), dtype=np.uint8)).cuda()}
+                    for _ in range(2))
+    (module,) = calibrate_members([module], [calib], (32, 32), num_batches=1, input_scale=1 / 255)
+    eager = make_member_forward([module], (32, 32), share_stem_staging=True, input_scale=1 / 255)(batch)
+    bundle = ModelBundle("I3D", module, ClipSpec(16, 32, 32), 11, False)
+    program = export_ensemble([bundle], serving_batch_example(bundle, 2), input_scale=1 / 255,
+                              share_stem_staging=True)
+    serve, meta = load_serving_artifact(save_serving_artifact(str(tmp_path / "s.zip"), program, {}))
+    assert meta["device"] == "cuda"
+    before = (int8_conv3d.launches, quantize_int8.launches)
+    out = serve(batch)
+    torch.cuda.synchronize()
+    sites = len(quant_sites(module))
+    assert (int8_conv3d.launches - before[0], quantize_int8.launches - before[1]) == (sites, sites)
+    assert torch.equal(out["probs"], eager)

@@ -303,6 +303,49 @@ def test_prestaged_stem_quant_matches_flax(torch, port, mode):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("site", ["quant_conv", "prestaged_stem"])
+def test_static_sites_trace_as_pure_functions(torch, port, site):
+    """A static site (a baked QuantConv, the prestaged stem) holds its packed
+    weights and scales as non-persistent buffers: its state dict has none of
+    them, and `torch.export` and `torch.compile` (fullgraph) trace it into
+    graphs that call the int8 ops on those constants and equal eager bit for
+    bit.  An in-place edit of a source (k8, act_absmax, the weight) is seen
+    by the next eager call, which equals the uncached computation."""
+    c, q = port["common"], port["quantize"]
+    gen = torch.Generator().manual_seed(31)
+    if site == "quant_conv":
+        mod = c.QuantConv(12, 8, (3, 3, 3), mode="calib", generator=gen).eval()
+        x = torch.randn(2, 12, 4, 9, 9, generator=gen)  # NCDHW
+    else:
+        mod = c.PrestagedS2DStemConvBN(3, 16, generator=gen, quant="calib").eval()
+        x = c.s2d_stem_stage(torch.rand(2, 8, 16, 16, 3, generator=gen))  # NTHWC staging
+    keys = set(q.calibrate(mod, [x]).state_dict()) | ({"k8", "sw"} if site == "quant_conv" else set())
+    q.set_quant_mode(q.quantize_variables(mod), "static")
+    assert set(mod.state_dict()) == keys and mod.static_wp is not None
+    with torch.no_grad():
+        eager = mod(x)
+        exported = torch.export.export(mod, (x,), strict=False)
+        ops = {str(n.target) for n in exported.graph.nodes if n.op == "call_function"}
+        assert {"csec.int8_conv3d.default", "csec.quantize_int8.default"} <= ops
+        assert torch.equal(exported.module()(x), eager)
+        torch._dynamo.reset()
+        assert torch.equal(torch.compile(mod, backend="aot_eager", fullgraph=True)(x), eager)
+
+        if site == "quant_conv":
+            mod.k8.mul_(-1)
+            mod.act_absmax.mul_(0.5)
+            fresh = c.to_ncdhw(c.static_quant_conv_general(
+                c.to_nthwc(x), mod.k8, mod.sw, mod.act_absmax / 127.0, (1, 1, 1), "SAME", mod.bias))
+        else:
+            mod.conv.weight.mul_(-0.5)
+            k8, sw = c.weight_qparams(c.s2d_stem_kernel(mod.conv.weight.float()))
+            conv = c.static_quant_conv_general(x, k8, sw, mod.act_absmax / 127.0, (2, 1, 1),
+                                               ((2, 3), (0, 0), (0, 0)))
+            fresh = torch.relu(mod.bn(c.to_ncdhw(conv)).to(x.dtype))
+        edited = mod(x)
+        assert not torch.equal(edited, eager) and torch.equal(edited, fresh)
+
+
 # ----------------------------------------------------------------------
 # Calibration and whole models, on JAX's calibrated variables
 # ----------------------------------------------------------------------
@@ -552,3 +595,228 @@ def test_quant_is_inference_only(torch, port):
             m.train()(inp)
     with pytest.raises(ValueError, match="inference-only"):
         port["registry"].build_model("I3D", device="cpu", quant="static", trainable=True)
+
+
+# ----------------------------------------------------------------------
+# The int8 conv kernel's layout and walk (csrc/int8_conv3d.cu), which the
+# CPU cannot run: the packed weights, the tile choice, and a pure-torch
+# emulation of the walk held to the plain version
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("features", [13, 48, 64, 192, 208])
+@pytest.mark.parametrize("channels", [2, 3, 12, 16, 17, 24, 64])
+def test_packed_int8_weights_unpack_exactly(torch, port, channels, features):
+    """`unpack_int8_weights(pack_int8_weights(k8)) == k8`, for 3³ and 1³
+    kernels; the packed rows are whole 128-byte stages and whole F_TILEs,
+    zero past F, past K and in each tap's padded channels."""
+    ic = port["int8_conv"]
+    gen = torch.Generator().manual_seed(channels * 1000 + features)
+    for kernel in ((3, 3, 3), (1, 1, 1)):
+        k8 = torch.randint(-127, 128, (features, channels, *kernel), generator=gen, dtype=torch.int8)
+        wp = ic.pack_int8_weights(k8)
+        cp = ic.padded_channels(channels)
+        k = math.prod(kernel) * cp
+        assert wp.shape == (-(-features // ic.F_TILE) * ic.F_TILE, -(-k // ic.K_STEP) * ic.K_STEP)
+        assert wp.is_contiguous() and ic.K_STEP == 128
+        assert torch.equal(ic.unpack_int8_weights(wp, features, kernel, channels), k8)
+        taps = wp[:features, :k].reshape(features, -1, cp)
+        assert not wp[features:].any() and not wp[:, k:].any() and not taps[..., channels:].any()
+
+
+@pytest.mark.parametrize(
+    "m,f,kpad,want",
+    [(2007040, 64, 1792, (64, 1)), (501760, 192, 1792, (192, 1)), (125440, 96, 256, (128, 1)),
+     (125440, 16, 256, (64, 1)), (15680, 208, 2688, (256, 1)), (15680, 288, 3968, (192, 1)),
+     (2352, 384, 896, (192, 1)), (2352, 320, 4352, (192, 3)), (2352, 384, 5248, (192, 3)),
+     (2352, 128, 1408, (128, 1)), (105, 13, 256, (64, 1)), (128, 256, 128, (256, 1))],
+)
+def test_int8_conv_tiling(port, m, f, kpad, want):
+    """The kernel's tile choice at I3D's shapes (B=16) and small ones: the F
+    tile that wastes least (F = 208 → 256, 288 → 2 × 192, 96 → 128); K
+    split only where the row and F tiles fill less than one wave of 132
+    SMs and K is long enough to pay for the finish kernel (Mixed_5b/5c's
+    3³ convs, M = 2,352; not their 1³ ones), into at most 8 parts, each
+    walking at least one stage, that fill at most one wave."""
+    ic = port["int8_conv"]
+    bn, splits = ic.int8_conv_tiling(m, f, kpad, sms=132)
+    assert (bn, splits) == want and bn in ic.F_TILES
+    blocks, steps = -(-m // ic.M_TILE) * -(-f // bn), kpad // ic.K_STEP
+    assert 1 <= splits <= min(8, steps)
+    if splits > 1:
+        per = -(-steps // splits)
+        assert blocks < 132 and -(-steps // per) == splits and blocks * splits <= 132
+
+
+def _kernel_walk(torch, ic, x8, wp, scale, bias, kernel, strides, pads, splits):
+    """The kernel's computation in torch, as csrc/int8_conv3d.cuh walks it:
+    K in stages of 128 bytes (K_STEP), each the 8 16-byte chunks of every
+    row of output positions; chunk j of a stage found by a tap cursor that
+    starts at the split's first byte and advances 128 bytes a stage by
+    additions alone, its byte offset from each row's origin included
+    (padded layout, C ≥ 8), or byte by byte at its own tap (C < 8); the
+    bytes read from the flat x at origin + offset, zero where the tap falls
+    in the padding, past the kernel or past C; each split's exact partial
+    sums added, then one f32 dequantize."""
+    n, d, h, w, c = x8.shape
+    kd, kh, kw = kernel
+    cp = ic.padded_channels(c)
+    k_real = kd * kh * kw * cp
+    out = ic.conv_output_shape((d, h, w), kernel, strides, pads)
+    m = torch.arange(n * math.prod(out))
+    ow, oh, od, img = m % out[2], m // out[2] % out[1], m // (out[2] * out[1]) % out[0], m // math.prod(out)
+    origin = [od * strides[0] - pads[0][0], oh * strides[1] - pads[1][0], ow * strides[2] - pads[2][0]]
+    row_ptr = (((img * d + origin[0]) * h + origin[1]) * w + origin[2]) * c  # may lie in the padding
+    x_flat = torch.nn.functional.pad(x8.reshape(-1), (0, 16))  # a chunk may run past the last pixel's C
+
+    def cursor_at(k):  # [channel, td, th, tw, offset from a row's origin] of reduction index k
+        tap, ch = divmod(k, cp)
+        td, rest = divmod(tap, kh * kw)
+        th, tw = divmod(rest, kw)
+        return [ch, td, th, tw, ((td * h + th) * w + tw) * c + ch]
+
+    def advance(q, step):  # additions alone, as the kernel's `advance`
+        q[0] += step
+        q[4] += step
+        while q[0] >= cp:
+            q[0] -= cp
+            q[4] += c - cp
+            q[3] += 1
+            if q[3] == kw:
+                q[3] = 0
+                q[4] += (w - kw) * c
+                q[2] += 1
+                if q[2] == kh:
+                    q[2] = 0
+                    q[4] += (h - kh) * w * c
+                    q[1] += 1
+
+    def tap_bytes(q, count):  # (M, count) bytes at channels q[0].. of tap q[1:4], zero outside
+        ch, taps, off = q[0], q[1:4], q[4]
+        if taps[0] >= kd:
+            return torch.zeros(len(m), count, dtype=torch.int8)
+        pos = [o + t for o, t in zip(origin, taps)]
+        ok = (pos[0] >= 0) & (pos[0] < d) & (pos[1] >= 0) & (pos[1] < h) & (pos[2] >= 0) & (pos[2] < w)
+        addr = torch.where(ok, row_ptr + off, 0)[:, None] + torch.arange(count)
+        got = torch.where(torch.arange(count) < c - ch, x_flat[addr], 0)  # past C: zero
+        return torch.where(ok[:, None], got, torch.zeros_like(got))
+
+    steps = wp.shape[1] // ic.K_STEP
+    per = -(-steps // splits)
+    acc = torch.zeros(len(m), wp.shape[0], dtype=torch.int64)
+    for first in range(0, steps, per):  # one split: its blocks' partial sums, then the atomics
+        cursors = [cursor_at(first * 128 + 16 * j) for j in range(8)]
+        part = torch.zeros_like(acc)
+        for step in range(first, min(first + per, steps)):
+            chunks = []
+            for j in range(8):
+                k = step * 128 + 16 * j
+                if cp % 16 == 0:
+                    chunks.append(tap_bytes(cursors[j], 16))
+                    advance(cursors[j], 128)
+                else:
+                    cols = [tap_bytes(cursor_at(k + s), 1) if k + s < k_real
+                            else torch.zeros(len(m), 1, dtype=torch.int8) for s in range(16)]
+                    chunks.append(torch.cat(cols, 1))
+            a = torch.cat(chunks, 1).long()
+            part += a @ wp[:, step * 128:(step + 1) * 128].long().t()
+        acc += part
+    f = scale.shape[0]
+    assert acc.abs().max() < 2 ** 31  # the kernel's int32 sums
+    y = acc[:, :f].to(torch.int32).float() * scale
+    if bias is not None:
+        y = y + bias
+    return y.view(n, *out, f)
+
+
+# (x NTHWC, F, kernel, strides, pads): the prestaged stem on 4C = 12, ragged
+# C = 24 and 17 with asymmetric pads and a (1, 2, 1) stride, C = 3 and 2 on
+# the byte-gather layout (the R3D stem's 7³/2), a 1³/2 VALID projection,
+# and a small-M 3³ conv on C = 160 (K = 4,320, 34 stages) that splits K.
+WALK_CASES = [
+    ((1, 6, 9, 9, 12), 13, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
+    ((2, 3, 5, 7, 24), 40, (3, 3, 3), (1, 1, 1), ((1, 1), (1, 1), (1, 1))),
+    ((1, 3, 5, 7, 17), 13, (3, 3, 3), (1, 2, 1), ((1, 1), (0, 2), (1, 0))),
+    ((1, 4, 6, 6, 3), 8, (3, 3, 3), (1, 1, 1), ((1, 1), (1, 1), (1, 1))),
+    ((1, 4, 8, 8, 2), 16, (7, 7, 7), (2, 2, 2), ((2, 3), (2, 3), (2, 3))),
+    ((2, 4, 6, 6, 64), 48, (1, 1, 1), (2, 2, 2), ((0, 0), (0, 0), (0, 0))),
+    ((1, 2, 3, 3, 160), 20, (3, 3, 3), (1, 1, 1), ((1, 1), (1, 1), (1, 1))),
+]
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-F{c[1]}")
+def test_kernel_walk_equals_plain_int8_conv(torch, port, case):
+    """The emulated walk of the int8 conv kernel (`_kernel_walk`) equals
+    the plain version bit for bit, unsplit and with K split as the tiling
+    chooses at one SM (every small case then splits) and into 3 parts."""
+    ic = port["int8_conv"]
+    shape, f, kernel, strides, pads = case
+    gen = torch.Generator().manual_seed(sum(shape) + f)
+    x8 = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+    k8 = torch.randint(-127, 128, (f, shape[-1], *kernel), generator=gen, dtype=torch.int8)
+    scale, bias = torch.rand(f, generator=gen) * 1e-3, torch.randn(f, generator=gen)
+    wp = ic.pack_int8_weights(k8)
+    want = ic.int8_conv3d_reference(x8, k8, scale, bias, strides, pads)
+    m = want.numel() // f
+    _, chosen = ic.int8_conv_tiling(m, f, wp.shape[1], sms=1 if m <= ic.M_TILE else 132)
+    steps = wp.shape[1] // ic.K_STEP
+    for splits in sorted({1, chosen, min(3, steps)}):
+        got = _kernel_walk(torch, ic, x8, wp, scale, bias, kernel, strides, pads, splits)
+        assert torch.equal(got, want), splits
+
+
+def _slab_walk(torch, ic, x8, wp, scale, bias, kernel, strides, pads):
+    """The row-slab route's computation in torch, as
+    csrc/int8_conv3d_slab.cu walks it: for each output row and each
+    temporal tap inside the clip (the others skipped whole), k32 steps j
+    over (th, a pair of taps along W): the A operand is 32 bytes of the
+    input row, pixels wo + 2 pp and the next (the overlapping core
+    matrices), the B operand the 32 bytes at j·32 of the tap's K slice
+    (box j // 4, offset (j % 4)·32); then one f32 dequantize."""
+    n, d, h, w, c = x8.shape
+    kd, kh, kw = kernel
+    out = ic.conv_output_shape((d, h, w), kernel, strides, pads)
+    f = scale.shape[0]
+    acc = torch.zeros(n, *out, wp.shape[0], dtype=torch.int64)
+    xl, wl = x8.long(), wp.long()
+    for to in range(out[0]):
+        t0 = to * strides[0] - pads[0][0]
+        for dt in range(max(0, -t0), min(kd, d - t0)):
+            for j in range(kh * kw // 2):
+                th, pp = divmod(j, kw // 2)
+                rows = xl[:, t0 + dt, th:th + out[1]]  # (n, Ho, W, C): input rows ho + th
+                a = torch.cat([rows[:, :, 2 * pp:2 * pp + out[2]], rows[:, :, 2 * pp + 1:2 * pp + 1 + out[2]]], -1)
+                k0 = dt * kh * kw * 16 + (j // 4) * 128 + (j % 4) * 32
+                acc[:, to] += a @ wl[:, k0:k0 + 32].t()
+    y = acc[..., :f].to(torch.int32).float() * scale
+    return y + bias if bias is not None else y
+
+
+# (x NTHWC, F, kernel, strides, pads) on the row-slab route: the stem's form
+# (a (7, 4, 4) kernel, strides (2, 1, 1), temporal pads (2, 3)) at odd H,
+# and a (3, 2, 4) kernel with odd Ho and pads (1, 1) in T.
+SLAB_CASES = [
+    ((1, 6, 9, 13, 16), 13, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
+    ((2, 4, 6, 9, 16), 20, (3, 2, 4), (1, 1, 1), ((1, 1), (0, 0), (0, 0))),
+]
+
+
+@pytest.mark.parametrize("case", SLAB_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-F{c[1]}")
+def test_row_slab_walk_equals_plain_int8_conv(torch, port, case):
+    """The row-slab route is chosen for these convs (and not for the stem's
+    unpadded 12 channels, nor with a spatial pad), and its emulated walk
+    (`_slab_walk`) equals the plain version bit for bit."""
+    ic = port["int8_conv"]
+    shape, f, kernel, strides, pads = case
+    gen = torch.Generator().manual_seed(sum(shape) + f)
+    x8 = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+    k8 = torch.randint(-127, 128, (f, 16, *kernel), generator=gen, dtype=torch.int8)
+    scale, bias = torch.rand(f, generator=gen) * 1e-3, torch.randn(f, generator=gen)
+    wp = ic.pack_int8_weights(k8)
+    assert ic.int8_conv_route(x8, wp, f, kernel, strides, pads)["slab"] == 1
+    assert ic.int8_conv_route(x8[..., :12].contiguous(), ic.pack_int8_weights(k8[:, :12]), f, kernel, strides,
+                              pads)["slab"] == 0
+    padded = (pads[0], (0, 1), pads[2])
+    assert ic.int8_conv_route(x8, wp, f, kernel, strides, padded)["slab"] == 0
+    want = ic.int8_conv3d_reference(x8, k8, scale, bias, strides, pads)
+    assert torch.equal(_slab_walk(torch, ic, x8, wp, scale, bias, kernel, strides, pads), want)

@@ -10,6 +10,8 @@ tests/test_serving.py checks the JAX export.  torch and the port are
 imported by fixtures, not at collection (tests/torch_port_memory.py).
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 
@@ -103,3 +105,104 @@ def test_serving_artifact_matches_jax_member_forward(torch, reference, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_serving_artifact(path)
+
+
+STATIC_CASES = ["C3D", "R3D_18", "I3D_prestaged_shared", "I3D_calibrate_members"]
+
+
+def _static_member(torch, case, gen, calib_batch):
+    """A small static-int8 member (f32, BN spread, seeded weights) of one
+    of STATIC_CASES, baked by hand or by `calibrate_members` on
+    `calib_batch`; with its clip geometry, staging form and the state-dict
+    keys it had once baked, before it was switched to 'static'."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ClipSpec
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import calibrate_members
+    from crowded_scenes_ensemble_classification_tpu_torch.models.c3d import C3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import s2d_stem_stage
+    from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.quantize import (
+        calibrate,
+        quantize_variables,
+        set_quant_mode,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.models.r3d import R3D
+
+    if case == "C3D":
+        module = C3D(CLASSES, 0.125, clip_thw=(FRAMES, HW, HW), generator=gen, quant="calib")
+    elif case == "R3D_18":
+        module = R3D(CLASSES, 18, 0.125, generator=gen, quant="calib")
+    else:
+        module = I3D(CLASSES, frames=FRAMES, stem_prestaged=True, generator=gen, quant="calib")
+    for m in module.modules():  # BN statistics away from (0, 1), so every layer matters
+        if isinstance(m, torch.nn.BatchNorm3d):
+            m.running_var.uniform_(0.3, 0.7, generator=gen)
+            m.running_mean.normal_(0.0, 0.1, generator=gen)
+            m.bias.data.normal_(0.0, 0.1, generator=gen)
+    module.eval()
+    share = case.startswith("I3D")
+    x = calib_batch["rgb"].float() * SCALE
+    if case == "I3D_calibrate_members":
+        real = quantize_variables
+        keys = []
+
+        def quantize_and_record(m):  # the keys once baked, before the switch to 'static'
+            real(m)
+            keys.append(set(m.state_dict()))
+            return m
+
+        with mock.patch(f"{calibrate_members.__module__}.quantize_variables", quantize_and_record):
+            (module,) = calibrate_members([module], [calib_batch], (HW, HW), num_batches=1, input_scale=SCALE)
+        keys = keys[0]
+    else:
+        calibrate(module, [s2d_stem_stage(x) if share else x])
+        keys = set(quantize_variables(module).state_dict())
+        set_quant_mode(module, "static")
+    return module, ClipSpec(FRAMES, HW, HW), share, keys
+
+
+@pytest.mark.parametrize("case", STATIC_CASES)
+def test_static_int8_member_exports_equal_to_eager(torch, tmp_path, case):
+    """A baked static-int8 member (C3D and R3D-18 at width 0.125, a
+    prestaged I3D on a shared staging, baked by hand or by
+    `calibrate_members`) exports: its program calls the int8 conv and
+    quantize ops, holds the packed weights as constants, and the loaded
+    artifact's probabilities equal the eager `make_member_forward`'s
+    exactly.  The held operands are non-persistent: the state dict keeps
+    the keys it had once baked, and loads strictly into a fresh
+    quant='static' model that computes the same probabilities."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import make_member_forward
+    from crowded_scenes_ensemble_classification_tpu_torch.models.quantize import quant_sites
+    from crowded_scenes_ensemble_classification_tpu_torch.models.registry import ModelBundle
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    gen = torch.Generator().manual_seed(60 + STATIC_CASES.index(case))
+    rng = np.random.default_rng(61)
+    calib = {"rgb": torch.from_numpy(rng.integers(0, 256, (BATCH, FRAMES, HW, HW, 3), dtype=np.uint8))}
+    batch = {"rgb": torch.from_numpy(rng.integers(0, 256, (BATCH, FRAMES, HW, HW, 3), dtype=np.uint8))}
+    module, clip, share, keys = _static_member(torch, case, gen, calib)
+    assert all(s.quant_mode == "static" for s in quant_sites(module).values())
+    state = module.state_dict()
+    assert set(state) == keys and not any("static_" in k for k in state)
+
+    eager = make_member_forward([module], (HW, HW), share_stem_staging=share, input_scale=SCALE)(batch)
+    bundle = ModelBundle(case.split("_")[0] if case.startswith("I3D") else case, module, clip, CLASSES, False)
+    program = export_ensemble([bundle], serving_batch_example(bundle, BATCH), input_scale=SCALE,
+                              share_stem_staging=share)
+    ops = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    assert {"csec.int8_conv3d.default", "csec.quantize_int8.default"} <= ops
+    assert any(k.endswith("static_wp") for k in program.constants)
+    path = save_serving_artifact(str(tmp_path / "static.zip"), program, {})
+    serve, _ = load_serving_artifact(path, device="cpu")
+    out = serve(batch)
+    assert torch.equal(out["probs"], eager)
+    assert torch.equal(out["preds"], eager[0].argmax(-1))
+
+    fresh, _, _, _ = _static_member(torch, case, torch.Generator().manual_seed(99), calib)
+    fresh.load_state_dict(state, strict=True)
+    again = make_member_forward([fresh], (HW, HW), share_stem_staging=share, input_scale=SCALE)(batch)
+    assert torch.equal(again, eager)
