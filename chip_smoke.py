@@ -135,9 +135,11 @@ Phases, each of which raises on failure (exit code 1):
    stem, a 3³/2 conv, a 1³/2 projection, ragged C, odd extents, odd F, the
    4-byte and byte-gather routes, a split K), the quantize kernel == its
    plain version, static and dynamic, at the member's 57 inputs; each conv
-   and quantize pass of the member timed at B=16 (warm and cold) beside
+   of the member at B=16 held `torch.equal` to its plain version, and each
+   conv and quantize pass timed there (warm and cold) beside
    its route and tile (`int8_conv_route`), its bound (int8 operations at
-   1,979 TOPS, or bytes), its plain version, cuDNN's bf16 conv of the same
+   1,979 TOPS, or bytes, on the conv's own channels: the stems' x8 carries
+   4 zero channels), its plain version, cuDNN's bf16 conv of the same
    shape (another function) and, for the 1³ convs, `torch._int_mm` + the
    dequantize (the same function, checked equal), a line each (the stem
    on the row-slab route, the rest tiled), then the sums by kind (stem,
@@ -1804,7 +1806,8 @@ def zero_int8_launches() -> None:
 
 def captured_int8_calls(fn) -> tuple:
     """Run fn() with the models' int8 conv and quantize calls recorded:
-    ([(x8, wp, scale, bias, kernel, strides, pads)], [(x, scalar, dynamic)])."""
+    ([(x8, wp, scale, bias, kernel, strides, pads)], [(x, scalar, dynamic,
+    channels)]), the i-th quantize pass making the i-th conv's x8."""
     import crowded_scenes_ensemble_classification_tpu_torch.models.common as common_mod
 
     convs, quants = [], []
@@ -1814,9 +1817,9 @@ def captured_int8_calls(fn) -> tuple:
         convs.append(a)
         return conv(*a)
 
-    def quant_rec(x, scalar, dynamic=False):
-        quants.append((x, scalar, dynamic))
-        return quant(x, scalar, dynamic)
+    def quant_rec(x, scalar, dynamic=False, channels=None):  # an older checkout's quantize takes no channels
+        quants.append((x, scalar, dynamic, channels))
+        return quant(x, scalar, dynamic) if channels is None else quant(x, scalar, dynamic, channels)
 
     with mock.patch.object(common_mod, "int8_conv3d", conv_rec), mock.patch.object(common_mod, "quantize_int8",
                                                                                      quant_rec):
@@ -1824,16 +1827,28 @@ def captured_int8_calls(fn) -> tuple:
     return convs, quants
 
 
-def int8_plain(call):
-    """The plain version of a recorded int8 conv call, on its own tensors."""
+def int8_plain(call, channels=None):
+    """The plain version of a recorded int8 conv call, on its own tensors:
+    the conv on x8's first `channels` (all by default; the quantize pass
+    pads the stems' 12 to 16 with zeros)."""
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
         int8_conv3d_reference,
         unpack_int8_weights,
     )
 
     x8, wp, scale, bias, kernel, strides, pads = call
-    k8 = unpack_int8_weights(wp, scale.shape[0], kernel, x8.shape[-1])
-    return int8_conv3d_reference(x8, k8, scale, bias, strides, pads)
+    c = x8.shape[-1] if channels is None else channels
+    k8 = unpack_int8_weights(wp, scale.shape[0], kernel, c)
+    return int8_conv3d_reference(x8[..., :c], k8, scale, bias, strides, pads)
+
+
+def conv_channels(call, quant) -> int:
+    """The channels of a recorded int8 conv's function: those of the
+    quantize pass's input, which x8 may widen with zero channels."""
+    x = quant[0]
+    check(tuple(x.shape[:-1]) == tuple(call[0].shape[:-1]) and x.shape[-1] <= call[0].shape[-1],
+          f"quantize pass {tuple(x.shape)} does not make the conv's x8 {tuple(call[0].shape)}")
+    return x.shape[-1]
 
 
 def int8_main_clips(torch, resident, seed: int, count: int) -> list:
@@ -1863,46 +1878,51 @@ def int8_conv_kind(kernel) -> str:
     return "stem" if tuple(kernel) == (7, 4, 4) else "x".join(map(str, kernel))
 
 
-def time_int8_convs(torch, convs) -> dict:
-    """Time each recorded int8 conv call (kernel warm and cold, plain
-    version, cuDNN's bf16 conv of the same shape, and for the 1³/1 convs
-    `torch._int_mm` + the dequantize, checked equal), a line each with its
-    route and tile; then the sums by kind (stem, 3x3x3, 1x1x1) beside the
-    earlier mma.sync design.  Returns the sums over all convs, with
-    `by_kind`."""
+def time_int8_convs(torch, convs, quants) -> dict:
+    """Hold each recorded int8 conv call equal to its plain version and time
+    it (kernel warm and cold, plain version, cuDNN's bf16 conv of the same
+    shape, and for the 1³/1 convs `torch._int_mm` + the dequantize, checked
+    equal), a line each with its route and tile; then the sums by kind
+    (stem, 3x3x3, 1x1x1) beside the earlier mma.sync design.  Operations,
+    bytes and the yardsticks are those of the conv's own channels
+    (`conv_channels`), not of x8's zero channels.  Returns the sums over
+    all convs, with `by_kind` and the largest difference `err`."""
     import torch.nn.functional as F
 
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels import int8_conv as ic
 
     keys = ("warm", "cold", "plain", "bf16", "bytes", "ops", "mm", "mm_kernel")
-    conv_tot, by_kind = dict.fromkeys(keys, 0.0), {}
+    conv_tot, by_kind = {**dict.fromkeys(keys, 0.0), "err": 0.0}, {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for i, call in enumerate(convs):
+    for i, (call, quant) in enumerate(zip(convs, quants, strict=True)):
         x8, wp, scale, bias, kernel, strides, pads = call
-        c, f = x8.shape[-1], scale.shape[0]
-        got = ic.int8_conv3d(*call)
+        c, f = conv_channels(call, quant), scale.shape[0]
+        got, ref = ic.int8_conv3d(*call), int8_plain(call, c)
+        conv_tot["err"] = max(conv_tot["err"], (got - ref).abs().max().item())
+        check(torch.equal(got, ref), f"int8 conv kernel != plain at the member's conv {i} at B={x8.shape[0]}: "
+                                     f"x {tuple(x8.shape)}, kernel {kernel}, strides {strides}, pads {pads}")
         m = got.numel() // f
         k8 = ic.unpack_int8_weights(wp, f, kernel, c)
         ops = 2 * m * f * math.prod(kernel) * c
-        nbytes = x8.numel() + k8.numel() + got.numel() * 4 + f * 4
+        nbytes = x8.numel() // x8.shape[-1] * c + k8.numel() + got.numel() * 4 + f * 4
         route = ic.int8_conv_route(x8, wp, f, kernel, strides, pads, sms)
         launches = 2 if route["splits"] > 1 else 1  # a split K adds the finish kernel
         warm = cuda_ms(lambda: ic.int8_conv3d(*call))
         cold = cuda_ms_cold(lambda x: ic.int8_conv3d(x, *call[1:]),
                             cold_inputs(x8)[:INT8_COLD_COPIES // launches])
-        plain = cuda_ms(lambda: int8_plain(call), iters=2, warmup=1, queue_ahead=False)
+        plain = cuda_ms(lambda: int8_plain(call, c), iters=2, warmup=1, queue_ahead=False)
         flat = [p for axis in reversed(pads) for p in axis]
-        xb = F.pad(x8.permute(0, 4, 1, 2, 3).to(torch.bfloat16), flat).contiguous(
+        xb = F.pad(x8[..., :c].permute(0, 4, 1, 2, 3).to(torch.bfloat16), flat).contiguous(
             memory_format=torch.channels_last_3d)
         wb = k8.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
         bf16 = cuda_ms(lambda: F.conv3d(xb, wb, stride=strides))
-        line = (f"int8 conv {i:2d} x {tuple(x8.shape)} F={f} k{tuple(kernel)} s{tuple(strides)} "
+        line = (f"int8 conv {i:2d} x {tuple(x8.shape)}{'' if c == x8.shape[-1] else f' (its function on C={c})'} F={f} k{tuple(kernel)} s{tuple(strides)} "
                 f"[{route['tile']} tile, split K {route['splits']}, A by {route['a_copy']}]: kernel warm {warm:.4f} ms, "
                 f"cold {cold:.4f} ms ({ops / cold / 1e9:.1f} TOPS, {bound(nbytes, ops, INT8_OPS)[0] / cold:.1%} "
                 f"of bound); plain {plain:.3f} ms; cuDNN bf16 conv (another function) {bf16:.4f} ms")
         kind = by_kind.setdefault(int8_conv_kind(kernel), dict.fromkeys(("n", *keys), 0.0))
         if tuple(kernel) == (1, 1, 1) and tuple(strides) == (1, 1, 1):
-            x2, w2 = x8.view(-1, c), k8.reshape(f, c).contiguous().t()  # (C, F) column-major
+            x2, w2 = x8[..., :c].reshape(-1, c), k8.reshape(f, c).contiguous().t()  # (C, F) column-major
             mm = lambda: torch._int_mm(x2, w2).float() * scale  # noqa: E731
             check(torch.equal(mm().view(got.shape), got), f"torch._int_mm + dequantize != the kernel at conv {i}")
             mm_ms = cuda_ms(mm)
@@ -1915,7 +1935,7 @@ def time_int8_convs(torch, convs) -> dict:
             for k, v in zip(("warm", "cold", "plain", "bf16", "bytes", "ops"), (warm, cold, plain, bf16, nbytes, ops)):
                 tot[k] += v
         kind["n"] += 1
-        del xb, wb, got
+        del xb, wb, got, ref
     for name, t in sorted(by_kind.items()) + [("all", conv_tot)]:
         n = len(convs) if name == "all" else int(t["n"])
         b, by = bound(t["bytes"], t["ops"], INT8_OPS)
@@ -1949,8 +1969,8 @@ def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
     check(len(convs) == I3D_CONVS and len(quants) == I3D_CONVS,
           f"one static I3D member made {len(convs)} int8 convs and {len(quants)} quantize passes, not {I3D_CONVS}")
     err = 0.0
-    for i, call in enumerate(convs):
-        got, ref = int8_conv3d(*call), int8_plain(call)
+    for i, (call, quant) in enumerate(zip(convs, quants, strict=True)):
+        got, ref = int8_conv3d(*call), int8_plain(call, conv_channels(call, quant))
         err = max(err, (got - ref).abs().max().item())
         check(torch.equal(got, ref), f"int8 conv kernel != plain at the member's conv {i}: x {tuple(call[0].shape)}, "
                                      f"kernel {call[4]}, strides {call[5]}, pads {call[6]}")
@@ -1965,11 +1985,12 @@ def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
         got = int8_conv3d(x8, pack_int8_weights(k8), scale, bias, kernel, strides, pads)
         check(torch.equal(got, int8_conv3d_reference(x8, k8, scale, bias, strides, pads)),
               f"int8 conv kernel != plain at {what}")
-    for i, (x, scalar, dynamic) in enumerate(quants):
-        check(not dynamic and torch.equal(quantize_int8(x, scalar), quantize_int8_reference(x, scalar, False)),
+    for i, (x, scalar, dynamic, channels) in enumerate(quants):
+        check(not dynamic and torch.equal(quantize_int8(x, scalar, False, channels),
+                                          quantize_int8_reference(x, scalar, False, channels)),
               f"static quantize kernel != plain at the member's pass {i}")
         sx = x.abs().amax().float().clamp_min(1e-30) / 127.0
-        check(torch.equal(quantize_int8(x, sx, True), quantize_int8_reference(x, sx, True)),
+        check(torch.equal(quantize_int8(x, sx, True, channels), quantize_int8_reference(x, sx, True, channels)),
               f"dynamic quantize kernel != plain at the member's pass {i}")
     torch.cuda.synchronize()
     print(f"int8: the kernel == its plain version at all {len(convs)} convs of one static I3D member on B=2 main-path "
@@ -1979,13 +2000,13 @@ def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
 
     with torch.inference_mode():
         convs, quants = captured_int8_calls(lambda: member(xs16))
-    conv_tot = time_int8_convs(torch, convs)
+    conv_tot = time_int8_convs(torch, convs, quants)
     q_tot = dict.fromkeys(("warm", "cold", "plain", "bytes"), 0.0)
-    for x, scalar, _ in quants:
-        q_tot["warm"] += cuda_ms(lambda: quantize_int8(x, scalar))
-        q_tot["cold"] += cuda_ms_cold(lambda v: quantize_int8(v, scalar), cold_inputs(x))
-        q_tot["plain"] += cuda_ms(lambda: quantize_int8_reference(x, scalar, False))
-        q_tot["bytes"] += x.numel() * (x.element_size() + 1)
+    for x, scalar, _, channels in quants:
+        q_tot["warm"] += cuda_ms(lambda: quantize_int8(x, scalar, False, channels))
+        q_tot["cold"] += cuda_ms_cold(lambda v: quantize_int8(v, scalar, False, channels), cold_inputs(x))
+        q_tot["plain"] += cuda_ms(lambda: quantize_int8_reference(x, scalar, False, channels))
+        q_tot["bytes"] += x.numel() * x.element_size() + x.numel() // x.shape[-1] * (channels or x.shape[-1])
     cb, cb_by = bound(conv_tot["bytes"], conv_tot["ops"], INT8_OPS)
     qb, qb_by = bound(q_tot["bytes"], 0.0, INT8_OPS)
     print(f"quantize, the member's {len(quants)} static passes at B={BATCH}: kernel cold {q_tot['cold']:.4f} ms "
@@ -1995,7 +2016,7 @@ def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
         {"name": "int8_conv3d", "route": "cuda", "source": f"{PORT}/csrc/int8_conv3d.cu",
          "replaces": "none (XLA's int8 conv_general_dilated in crowded_scenes_ensemble_classification_tpu/models/"
                      "common.py:111 and :176)",
-         "launches": 0, "max_abs_err": err, "ms": conv_tot["cold"], "warm_ms": conv_tot["warm"],
+         "launches": 0, "max_abs_err": max(err, conv_tot["err"]), "ms": conv_tot["cold"], "warm_ms": conv_tot["warm"],
          "plain_ms": conv_tot["plain"], "bound_ms": cb, "bound_by": cb_by, "library_ms": None,
          "int_mm_1x1_ms": conv_tot["mm"], "kernel_1x1_ms": conv_tot["mm_kernel"],
          "bf16_cudnn_ms": conv_tot["bf16"],

@@ -64,7 +64,7 @@ using namespace csec_int8;
 // splits > 1 splits K into that many parts of ceil(steps / splits) stages,
 // none empty, which then need acc, a (splits, M, F) int32 workspace.
 // slab = 1 takes the row-slab route (int8_conv3d_slab.cu; bn 64, no
-// split), for convs it fits.  Returns cudaError_t.
+// split), for convs with the layout it reads.  Returns cudaError_t.
 extern "C" int int8_conv3d(const void* x, const void* wp, const void* scale, const void* bias, void* y, void* acc,
                            int64_t N, int64_t D, int64_t H, int64_t W, int64_t C,
                            int64_t Do, int64_t Ho, int64_t Wo, int64_t F, int64_t Fpad, int64_t Kpad,
@@ -105,7 +105,7 @@ extern "C" int int8_conv3d(const void* x, const void* wp, const void* scale, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap b_map;
   if (slab) {  // the row-slab route: F tiles of 64, no split
-    if (!slab_route_fits(p) || bn != 64 || splits != 1) return (int)cudaErrorInvalidValue;
+    if (!slab_layout_fits(p) || bn != 64 || splits != 1) return (int)cudaErrorInvalidValue;
     const cudaError_t err = weight_tensor_map(&b_map, wp, Fpad, Kpad, 64);
     return (int)(err != cudaSuccess ? err : launch_slab(p, b_map, s));
   }

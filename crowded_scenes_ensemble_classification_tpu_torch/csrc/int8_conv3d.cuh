@@ -587,8 +587,10 @@ cudaError_t launch_n128(const Conv& p, const CUtensorMap& b_map, dim3 grid, cuda
 cudaError_t launch_n192(const Conv& p, const CUtensorMap& b_map, dim3 grid, cudaStream_t s);
 cudaError_t launch_n256(const Conv& p, const CUtensorMap& b_map, dim3 grid, cudaStream_t s);
 
-// The row-slab route (int8_conv3d_slab.cu): whether a conv fits it, and its launch.
-bool slab_route_fits(const Conv& p);
+// The row-slab route (int8_conv3d_slab.cu): whether a conv has the layout it
+// reads (the wrapper, ops/kernels/int8_conv.py `_fits_row_slab`, chooses
+// the route), and its launch.
+bool slab_layout_fits(const Conv& p);
 cudaError_t launch_slab(const Conv& p, const CUtensorMap& b_map, cudaStream_t s);
 
 }  // namespace csec_int8

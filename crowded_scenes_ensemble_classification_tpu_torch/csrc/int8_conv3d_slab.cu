@@ -1,6 +1,6 @@
 // The int8 conv's row-slab route, for convs on 16 channels with no spatial
 // padding and unit spatial strides whose rows fit two 64-row wgmma tiles:
-// the I3D stems on their s2d staging (4C = 12 padded to 16 by the models;
+// the I3D stems on their s2d staging (4C = 12 padded to 16 by the quantize pass;
 // a (7, 4, 4) kernel, strides (2, 1, 1), Wo = 112).  The function and its
 // plain version are int8_conv3d.cuh's.
 //
@@ -28,7 +28,7 @@ namespace csec_int8 {
 
 namespace {
 
-constexpr int SLAB_STAGES = 4;
+constexpr int SLAB_STAGES = 4;  // ops/kernels/int8_conv.py `_fits_row_slab` prices the ring with it and slab_geom
 
 struct SlabGeom {
   int a_row_bytes, a_rows, b_boxes, slot_bytes;
@@ -171,11 +171,10 @@ __global__ void __launch_bounds__(THREADS, 2) int8_conv3d_slab(const Conv p, con
 
 }  // namespace
 
-bool slab_route_fits(const Conv& p) {
+bool slab_layout_fits(const Conv& p) {
   return p.C == 16 && p.Cp == 16 && p.vec == 16 && p.sh == 1 && p.sw == 1 && p.ph == 0 && p.pw == 0 &&
          p.Ho == p.H - p.kh + 1 && p.Wo == p.W - p.kw + 1 &&  // no pad after either
-         p.kw % 2 == 0 && (p.kh * p.kw) % 8 == 0 && p.Wo <= 128 && p.Kpad == (int64_t)p.kd * p.kh * p.kw * 16 &&
-         slab_smem_bytes(p) <= 113 * 1024;
+         p.kw % 2 == 0 && (p.kh * p.kw) % 8 == 0 && p.Wo <= 128 && p.Kpad == (int64_t)p.kd * p.kh * p.kw * 16;
 }
 
 cudaError_t launch_slab(const Conv& p, const CUtensorMap& b_map, cudaStream_t s) {

@@ -18,6 +18,11 @@
 // (f32) loads and one 8-byte store where the length and the pointers allow.
 // The multiply and divide are __fmul_rn / __fdiv_rn, IEEE round to nearest,
 // so the output equals the plain version bit for bit.
+//
+// The pass may also widen each innermost row from c to cp values, zeros
+// past c: below 16 channels the int8 conv takes 16-byte pixels (the I3D
+// stems' 4C = 12 and 8), and writing them here costs no pass of its own.
+// A thread then takes one row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,38 +66,74 @@ __global__ void quantize_int8_kernel(const T* __restrict__ x, int8_t* __restrict
   }
 }
 
+// Rows of c values in, rows of cp int8 out (cp % 4 == 0), zeros past c; a
+// thread a row, stored in 4-byte words.
 template <typename T, bool DYNAMIC>
-void launch(const void* x, void* y, const void* scalar, int64_t n, cudaStream_t s) {
-  const int threads = 256;
-  const bool vector = n % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(y) % 8 == 0;
-  const int64_t work = vector ? n / 8 : n;
-  const int64_t blocks = (work + threads - 1) / threads;
-  const unsigned grid = (unsigned)(blocks < 132 * 64 ? blocks : 132 * 64);  // grid-stride beyond
+__global__ void quantize_int8_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ y,
+                                          const float* __restrict__ scalar, int64_t rows, int c, int cp) {
+  const float s = __ldg(scalar);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += stride) {
+    const T* src = x + r * c;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(y + r * cp);
+    for (int j0 = 0; j0 < cp; j0 += 4) {
+      uint32_t packed = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int8_t q = j0 + e < c ? quantize_one<DYNAMIC>(to_float(src[j0 + e]), s) : (int8_t)0;
+        packed |= (uint32_t)(uint8_t)q << (8 * e);
+      }
+      dst[j0 / 4] = packed;
+    }
+  }
+}
+
+constexpr int THREADS = 256;
+constexpr int64_t MAX_GRID = 132 * 64;  // grid-stride beyond
+
+inline unsigned grid_for(int64_t work) {
+  const int64_t blocks = (work + THREADS - 1) / THREADS;
+  return (unsigned)(blocks < MAX_GRID ? blocks : MAX_GRID);
+}
+
+template <typename T, bool DYNAMIC>
+void launch(const void* x, void* y, const void* scalar, int64_t rows, int c, int cp, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   int8_t* yt = static_cast<int8_t*>(y);
   const float* st = static_cast<const float*>(scalar);
+  if (cp != c) {
+    quantize_int8_rows_kernel<T, DYNAMIC><<<grid_for(rows), THREADS, 0, s>>>(xt, yt, st, rows, c, cp);
+    return;
+  }
+  const int64_t n = rows * c;
+  const bool vector = n % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(y) % 8 == 0;
+  const unsigned grid = grid_for(vector ? n / 8 : n);
   if (vector) {
-    quantize_int8_kernel<T, DYNAMIC, true><<<grid, threads, 0, s>>>(xt, yt, st, n);
+    quantize_int8_kernel<T, DYNAMIC, true><<<grid, THREADS, 0, s>>>(xt, yt, st, n);
   } else {
-    quantize_int8_kernel<T, DYNAMIC, false><<<grid, threads, 0, s>>>(xt, yt, st, n);
+    quantize_int8_kernel<T, DYNAMIC, false><<<grid, THREADS, 0, s>>>(xt, yt, st, n);
   }
 }
 
 }  // namespace
 
-// x: n contiguous elements, bf16 (is_bf16 = 1) or f32; y: n int8; scalar: one
-// f32 on the device, inv (dynamic = 0) or sx (dynamic = 1).  Returns cudaError_t.
-extern "C" int quantize_int8(const void* x, void* y, const void* scalar, int64_t n, int is_bf16,
-                             int dynamic, void* stream) {
-  if (n == 0) return (int)cudaSuccess;
+// x: rows x c contiguous elements, bf16 (is_bf16 = 1) or f32; y: rows x cp
+// int8, 4-byte aligned where cp != c (then cp % 4 == 0 and cp > c); scalar:
+// one f32 on the device, inv (dynamic = 0) or sx (dynamic = 1).  Returns
+// cudaError_t.
+extern "C" int quantize_int8(const void* x, void* y, const void* scalar, int64_t rows, int c, int cp,
+                             int is_bf16, int dynamic, void* stream) {
+  if (rows == 0) return (int)cudaSuccess;
+  if (c <= 0 || cp < c || (cp != c && (cp % 4 || reinterpret_cast<uintptr_t>(y) % 4)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (dynamic) launch<__nv_bfloat16, true>(x, y, scalar, n, s);
-    else launch<__nv_bfloat16, false>(x, y, scalar, n, s);
+    if (dynamic) launch<__nv_bfloat16, true>(x, y, scalar, rows, c, cp, s);
+    else launch<__nv_bfloat16, false>(x, y, scalar, rows, c, cp, s);
   } else {
-    if (dynamic) launch<float, true>(x, y, scalar, n, s);
-    else launch<float, false>(x, y, scalar, n, s);
+    if (dynamic) launch<float, true>(x, y, scalar, rows, c, cp, s);
+    else launch<float, false>(x, y, scalar, rows, c, cp, s);
   }
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.kernels.int8_conv import int8_conv3d, pack_int8_weights, padded_channels, quantize_int8
+from ..ops.kernels.int8_conv import int8_conv3d, int8_input_channels, pack_int8_weights, quantize_int8
 from ..ops.kernels.stem_conv import s2d_stem_kernel, s2d_stem_stage, stem_conv_7x7x7_s2
 
 # JAX models/common.py:24-25 (Keras 2.2.4 defaults); torch counts momentum
@@ -218,18 +218,10 @@ def weight_qparams(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(kf / sw.view(-1, *[1] * (kf.dim() - 1))).to(torch.int8), sw
 
 
-def _int8_conv(x: torch.Tensor, x8: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
-               bias: Optional[torch.Tensor], kernel, strides, padding: Padding) -> torch.Tensor:
-    """The int8 conv of NTHWC x8 (quantized from x) with packed weights.
-    Below 16 channels (the s2d stems' 4C = 12 and 8) x8's channels are
-    zero-padded to the packed weights' 16 a tap first: the packing is the
-    same and so is every sum, and the kernel then copies whole 16-byte
-    chunks where it would copy 4 or 8 bytes at a time."""
-    pads = conv_pads(x.shape[1:4], kernel, strides, padding)
-    c = x8.shape[-1]
-    if 8 <= c < 16:
-        x8 = F.pad(x8, (0, padded_channels(c) - c))
-    return int8_conv3d(x8, wp, scale, bias, kernel, strides, pads)
+def _quantize(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool) -> torch.Tensor:
+    """NTHWC x → the int8 conv's x8, its pixels widened with zeros to
+    `int8_input_channels` (16 for the s2d stems' 4C = 12 and 8)."""
+    return quantize_int8(x.contiguous(), scalar, dynamic, int8_input_channels(x.shape[-1]))
 
 
 def quant_conv_general(x: torch.Tensor, kernel: torch.Tensor, strides, padding: Padding,
@@ -240,8 +232,8 @@ def quant_conv_general(x: torch.Tensor, kernel: torch.Tensor, strides, padding: 
     accumulation, dequantized by sx·sw; `bias` added after, in f32."""
     k8, sw = weight_qparams(kernel)
     sx = x.abs().amax().float().clamp_min(1e-30) / 127.0
-    x8 = quantize_int8(x.contiguous(), sx, dynamic=True)
-    return _int8_conv(x, x8, pack_int8_weights(k8), sx * sw, bias, k8.shape[2:], strides, padding)
+    pads = conv_pads(x.shape[1:4], k8.shape[2:], strides, padding)
+    return int8_conv3d(_quantize(x, sx, True), pack_int8_weights(k8), sx * sw, bias, k8.shape[2:], strides, pads)
 
 
 def static_operands(k8: torch.Tensor, sw: torch.Tensor, act_scale: torch.Tensor) -> tuple:
@@ -254,8 +246,8 @@ def static_operands(k8: torch.Tensor, sw: torch.Tensor, act_scale: torch.Tensor)
 def _static_conv(x: torch.Tensor, operands: tuple, bias: Optional[torch.Tensor], kernel, strides,
                  padding: Padding) -> torch.Tensor:
     wp, inv, scale = operands
-    x8 = quantize_int8(x.contiguous(), inv, dynamic=False)
-    return _int8_conv(x, x8, wp, scale, bias, kernel, strides, padding)
+    pads = conv_pads(x.shape[1:4], kernel, strides, padding)
+    return int8_conv3d(_quantize(x, inv, False), wp, scale, bias, kernel, strides, pads)
 
 
 def static_quant_conv_general(x: torch.Tensor, k8: torch.Tensor, sw: torch.Tensor, act_scale: torch.Tensor,

@@ -48,7 +48,7 @@ SIGNATURES = {
         ctypes.c_int,
     ),
     "int8_conv3d": ([*[_P] * 6, *[_I64] * 11, *[ctypes.c_int] * 14, _P], ctypes.c_int),
-    "quantize_int8": ([_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    "quantize_int8": ([_P, _P, _P, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
 }
 
 

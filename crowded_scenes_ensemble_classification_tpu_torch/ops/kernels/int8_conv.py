@@ -9,10 +9,12 @@ and PyTorch has no int8 conv3d on CUDA.  The kernels are
 `csec::int8_conv3d` and `csec::quantize_int8`.  Neither has a gradient:
 quantized inference is inference only.
 
-- `quantize_int8(x, scalar, dynamic)`: bf16/f32 → int8 of the same shape,
-  `round(clip(x·inv, −127, 127))` (static, `scalar` = inv) or `round(x/sx)`
-  (dynamic, `scalar` = sx), half to even.  `scalar` is a one-element f32
-  tensor on x's device, so the host never reads it.
+- `quantize_int8(x, scalar, dynamic, channels)`: bf16/f32 → int8 of the
+  same shape, `round(clip(x·inv, −127, 127))` (static, `scalar` = inv) or
+  `round(x/sx)` (dynamic, `scalar` = sx), half to even, each innermost row
+  zero-padded to `channels` (`int8_input_channels`, the conv's pixel).
+  `scalar` is a one-element f32 tensor on x's device, so the host never
+  reads it.
 - `int8_conv3d(x8, wp, scale, bias, kernel, strides, pads)`: int8 NTHWC ×
   packed int8 weights (`pack_int8_weights`) → f32 NTHWC,
   `float(acc)·scale[f]` then `+ bias[f]`, two roundings as in JAX.
@@ -53,6 +55,17 @@ def padded_channels(c: int) -> int:
     kernel's 16-byte chunks of K never straddle two taps (4C = 12 → 16,
     Cin = 24 → 32)."""
     return c if c % 16 == 0 or c < 8 else -(-c // 16) * 16
+
+
+def int8_input_channels(c: int) -> int:
+    """The channels of a pixel of the int8 conv's input, as the quantize
+    pass writes it, for a conv on C channels: 16 from 8 to 15 (the s2d
+    stems' 4C = 12 and 8), so that the kernel copies whole 16-byte pixels
+    and the I3D stems fit its row slab; else C (below 8 the kernel reads
+    byte by byte, and above 16 the tap padding stays in the packed
+    weights).  The added channels are zeros, against the packed weights'
+    zero channels, so every sum is the same."""
+    return padded_channels(c) if c < 16 else c
 
 
 def int8_conv_tiling(m: int, f: int, kpad: int, sms: int = H100_SMS) -> Tuple[int, int]:
@@ -117,13 +130,15 @@ def int8_conv3d_reference(
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def quantize_int8_reference(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool) -> torch.Tensor:
+def quantize_int8_reference(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool,
+                            channels: Optional[int] = None) -> torch.Tensor:
     """Plain version of the quantize pass (JAX models/common.py:154-155,
     :196-199): dynamic `round(x / sx)`, static `round(clip(x·inv, −127,
-    127))`, in f32, half to even."""
+    127))`, in f32, half to even; then zeros past the last axis to
+    `channels`."""
     xf = x.float()
-    q = xf / scalar if dynamic else torch.clamp(xf * scalar, -127.0, 127.0)
-    return torch.round(q).to(torch.int8)
+    q = torch.round(xf / scalar if dynamic else torch.clamp(xf * scalar, -127.0, 127.0)).to(torch.int8)
+    return q if channels is None else F.pad(q, (0, channels - x.shape[-1]))
 
 
 def _pairs(pad: Sequence[int]) -> List[Tuple[int, int]]:
@@ -149,18 +164,24 @@ def _int8_conv_op(
     return int8_conv3d_reference(x8, k8, scale, bias, stride, _pairs(pad))
 
 
+SLAB_STAGES = 4  # the row slab's ring slots (csrc/int8_conv3d_slab.cu, SLAB_STAGES and slab_geom)
+SLAB_SMEM_LIMIT = 113 * 1024  # two blocks an SM
+
+
 def _fits_row_slab(c: int, vec: int, kpad: int, kernel, strides, pads, wo: int) -> bool:
     """Whether a conv takes the kernel's row-slab route
-    (csrc/int8_conv3d_slab.cu, `slab_route_fits`): 16 channels at 16-byte
-    alignment, unit spatial strides and no spatial pads, taps in pairs
-    along W and whole 128-byte stages a temporal tap, rows of at most two
-    64-row tiles.  The I3D stems on their staging (with x8 padded to 16
-    channels) fit."""
+    (csrc/int8_conv3d_slab.cu): 16 channels at 16-byte alignment, unit
+    spatial strides and no spatial pads, taps in pairs along W and whole
+    128-byte stages a temporal tap, rows of at most two 64-row tiles, and
+    a ring that leaves room for two blocks an SM.  The I3D stems on their
+    staging (16-channel pixels, `int8_input_channels`) fit.  The route is
+    chosen here only: the C entry checks the layout it needs and launches
+    with the shared memory its geometry takes."""
     kd, kh, kw = kernel
     slot = -(-(16 * kh * kw * 64 + (kh + 1) * -(-(2 * 64 + kw - 1) * 16 // 128) * 128) // 1024) * 1024
     return (c == 16 and vec == 16 and tuple(strides[1:]) == (1, 1) and not any(pads[1]) and not any(pads[2])
             and kw % 2 == 0 and kh * kw % 8 == 0 and wo <= 128 and kpad == kd * kh * kw * 16
-            and 4 * slot + 1056 <= 113 * 1024)
+            and SLAB_STAGES * slot + SLAB_STAGES * 8 + 1024 <= SLAB_SMEM_LIMIT)
 
 
 def int8_conv_route(x8: torch.Tensor, wp: torch.Tensor, f: int, kernel, strides, pads, sms: int = H100_SMS) -> dict:
@@ -276,42 +297,52 @@ int8_conv3d.launches = 0
 
 
 @torch.library.custom_op("csec::quantize_int8", mutates_args=(), device_types="cpu")
-def _quantize_op(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool) -> torch.Tensor:
-    return quantize_int8_reference(x, scalar, dynamic)
+def _quantize_op(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool, channels: Optional[int]) -> torch.Tensor:
+    return quantize_int8_reference(x, scalar, dynamic, channels)
 
 
 @_quantize_op.register_kernel("cuda")
-def _quantize_cuda(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool) -> torch.Tensor:
+def _quantize_cuda(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool, channels: Optional[int]) -> torch.Tensor:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quantize_int8: expected bf16 or f32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("quantize_int8: input must be contiguous")
     if scalar.dtype != torch.float32 or scalar.numel() != 1 or scalar.device != x.device:
         raise TypeError("quantize_int8: scalar must be one f32 on x's device")
-    y = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    c = x.shape[-1] if x.dim() else 1
+    cp = c if channels is None else channels
+    if cp != c and cp % 4:
+        raise ValueError(f"quantize_int8: the kernel pads rows to a multiple of 4 channels, not {cp}")
+    y = _quantize_fake(x, scalar, dynamic, channels)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = load_library().quantize_int8(x.data_ptr(), y.data_ptr(), scalar.data_ptr(), x.numel(),
-                                           int(x.dtype == torch.bfloat16), int(dynamic), stream)
+        err = load_library().quantize_int8(x.data_ptr(), y.data_ptr(), scalar.data_ptr(), x.numel() // c if c else 0,
+                                           c, cp, int(x.dtype == torch.bfloat16), int(dynamic), stream)
     check_launch("quantize_int8", err)
     quantize_int8.launches += 1
     return y
 
 
 @_quantize_op.register_fake
-def _quantize_fake(x, scalar, dynamic):
-    return torch.empty(x.shape, dtype=torch.int8, device=x.device)
+def _quantize_fake(x, scalar, dynamic, channels):
+    shape = x.shape if channels is None else (*x.shape[:-1], channels)
+    return torch.empty(shape, dtype=torch.int8, device=x.device)
 
 
-def quantize_int8(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool = False) -> torch.Tensor:
-    """bf16 or f32 x → int8 of its shape: `round(clip(x·scalar, −127, 127))`
-    (static: scalar = 1/max(act_scale, 1e-30)) or `round(x / scalar)`
-    (dynamic: scalar = max(max|x|, 1e-30)/127), half to even.  `scalar` is
-    a one-element f32 tensor on x's device.  CUDA tensors run the kernel;
-    CPU tensors the plain version.  `.launches` counts kernel launches."""
+def quantize_int8(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool = False,
+                  channels: Optional[int] = None) -> torch.Tensor:
+    """bf16 or f32 x → int8: `round(clip(x·scalar, −127, 127))` (static:
+    scalar = 1/max(act_scale, 1e-30)) or `round(x / scalar)` (dynamic:
+    scalar = max(max|x|, 1e-30)/127), half to even, of x's shape, or with
+    the last axis zero-padded to `channels` (`int8_input_channels`).
+    `scalar` is a one-element f32 tensor on x's device.  CUDA tensors run
+    the kernel; CPU tensors the plain version.  `.launches` counts kernel
+    launches."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"quantize_int8: unsupported device {x.device}")
-    return _quantize_op(x, scalar.reshape(()), dynamic)
+    if channels is not None and (x.dim() == 0 or channels < x.shape[-1]):
+        raise ValueError(f"quantize_int8: cannot pad the last axis of {tuple(x.shape)} to {channels} channels")
+    return _quantize_op(x, scalar.reshape(()), dynamic, None if channels is None else int(channels))
 
 
 quantize_int8.launches = 0

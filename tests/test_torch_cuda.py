@@ -840,6 +840,31 @@ def test_quantize_kernel_equals_plain(torch, dtype, dynamic, shape, offset):
     assert int(got.abs().max()) == 127
 
 
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,offset", [((2, 4, 9, 9, 12), 0), ((3, 5, 7, 9, 8), 1), ((2, 3, 5, 5, 3), 0)])
+def test_quantize_kernel_widens_pixels_equals_plain(torch, dtype, dynamic, shape, offset):
+    """The quantize pass widening each pixel to the int8 conv's
+    (`int8_input_channels`: 12 and 8 → 16, 3 stays) == its plain version
+    bit for bit, on an aligned and a misaligned input; one launch."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import (
+        int8_input_channels,
+        quantize_int8,
+        quantize_int8_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.empty(math.prod(shape) + offset, dtype=getattr(torch, dtype), device="cuda")[offset:].view(shape)
+    x.copy_(torch.randn(shape, device="cuda", generator=gen) * 3.0)
+    scalar = x.abs().amax().float().clamp_min(1e-30) / 127.0 if dynamic else 127.0 / torch.tensor(2.5, device="cuda")
+    cp = int8_input_channels(shape[-1])
+    before = quantize_int8.launches
+    got = quantize_int8(x, scalar, dynamic, cp)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches == before + 1 and got.shape == (*shape[:-1], cp)
+    assert torch.equal(got, quantize_int8_reference(x, scalar, dynamic, cp))
+
+
 def test_uncalibrated_static_conv_on_card_equals_cpu(torch):
     """A static conv with act_absmax = 0 (never calibrated): inv = 1e30, the
     codes saturate and the dequantize multiplies by 0, on the card as on the

@@ -624,6 +624,30 @@ def test_packed_int8_weights_unpack_exactly(torch, port, channels, features):
         assert not wp[features:].any() and not wp[:, k:].any() and not taps[..., channels:].any()
 
 
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("channels", [2, 3, 8, 12, 16, 24])
+def test_quantize_widens_pixels_with_zeros(torch, port, channels, dynamic):
+    """`quantize_int8(x, s, dynamic, int8_input_channels(C))` on bf16 x:
+    each pixel its C quantized values, then zeros to the int8 conv's pixel
+    (16 from 8 to 15 channels, else C); a narrower pixel raises; and the
+    int8 conv of the widened x8 equals the conv on its first C channels."""
+    ic = port["int8_conv"]
+    gen = torch.Generator().manual_seed(channels)
+    x = (torch.randn(2, 3, 5, 7, channels, generator=gen) * 3.0).to(torch.bfloat16)
+    scalar = x.abs().amax().float() / 127.0 if dynamic else torch.tensor(127.0 / 2.5)
+    cp = ic.int8_input_channels(channels)
+    assert cp == (16 if 8 <= channels < 16 else channels)
+    got, plain = ic.quantize_int8(x, scalar, dynamic, cp), ic.quantize_int8_reference(x, scalar, dynamic)
+    assert got.shape == (*x.shape[:-1], cp) and torch.equal(got[..., :channels], plain)
+    assert not got[..., channels:].any() and int(plain.abs().max()) == 127
+    with pytest.raises(ValueError):
+        ic.quantize_int8(x, scalar, dynamic, channels - 1)
+    k8 = torch.randint(-127, 128, (13, channels, 3, 3, 3), generator=gen, dtype=torch.int8)
+    scale, pads = torch.rand(13, generator=gen), [(1, 1)] * 3
+    wide = ic.int8_conv3d(got, ic.pack_int8_weights(k8), scale, None, (3, 3, 3), (1, 1, 1), pads)
+    assert torch.equal(wide, ic.int8_conv3d_reference(plain, k8, scale, None, (1, 1, 1), pads))
+
+
 @pytest.mark.parametrize(
     "m,f,kpad,want",
     [(2007040, 64, 1792, (64, 1)), (501760, 192, 1792, (192, 1)), (125440, 96, 256, (128, 1)),

@@ -72,8 +72,8 @@ TRAIN_ZOO = (("C3D", 32, "train_c3d"), ("TWOSTREAM_I3D", 16, "train_twostream"),
 FAMILY_LABELS = {"flow": "flow", "member": "I3D", "two_stream": "TWOSTREAM_I3D", "c3d": "C3D", "r3d": "R3D_18"}
 OWN_KERNELS = {"maxpool3x3x3_kernel": "max_pool_3x3x3_same", "salt_pepper_kernel": "salt_pepper",
                "stem_bf16_kernel": "stem", "maxpool3_bwd_": "max_pool_3x3x3_same_backward",
-               "int8_conv3d_wgmma": "int8_conv3d", "int8_dequant_kernel": "int8_conv3d",
-               "quantize_int8_kernel": "quantize_int8"}
+               "int8_conv3d_": "int8_conv3d", "int8_dequant_kernel": "int8_conv3d",
+               "quantize_int8_": "quantize_int8"}
 PATHS = ("main", "member", "train", "zoo", "hetero", "twostream", "flow", "int8")
 
 
