@@ -50,7 +50,8 @@ Phases, each of which raises on failure (exit code 1):
    f32 reaches the same inputs and agrees within 1e-6·max|dy|, bf16 within
    one bf16 rounding of the f32 plain result; timed cold beside the plain
    version and the library route (F.max_pool3d's forward with indices, then
-   its backward);
+   its backward), warm too, a line per shape with its tile, GB/s and share
+   of the bound;
 11. stem backward: the kernel stem's weight gradient in train mode against
    the canonical ConvBN's, B=2 bf16, relative error ≤ 2e-2;
 12. the resident training path (`ResidentClips` of 3·B uint8 20×256² clips,
@@ -346,6 +347,56 @@ def tie_heavy(shape, dtype, gen, dev, torch):
     return x.to(dtype)
 
 
+def time_maxpool_backward(torch, dev, gen, tile=None) -> dict:
+    """Cold and warm ms of the max-pool gradient kernel at the main path's
+    shapes in bf16 on normal inputs, beside the plain version and the library route
+    (F.max_pool3d's forward with indices, then its backward), a line per
+    shape with its tile (`tile(shape)`, by default the tiler's), GB/s and
+    share of the bound; returns the sums over the shapes."""
+    import torch.nn.functional as F
+
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_backward_reference,
+        max_pool_3x3x3_same_backward,
+    )
+
+    if tile is None:
+        from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_backward_tiling
+
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+        def tile(shape):
+            t = max_pool_backward_tiling(shape, 2, sms=sms)
+            return (f"ht {t.ht}, wt {t.wt}, cv {t.cv}, {t.groups} row groups, grid {t.grid} x {t.threads} "
+                    f"threads, {t.smem} B shared")
+
+    tot = dict.fromkeys(("cold", "warm", "plain", "lib_fwd", "lib_bwd", "bytes", "ops"), 0.0)
+    for shape in POOL_SHAPES:
+        x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        dy = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        pairs = list(zip(cold_inputs(x), cold_inputs(dy)))
+        cold = cuda_ms_cold(lambda p: max_pool_3x3x3_same_backward(*p), pairs)
+        warm = cuda_ms(lambda: max_pool_3x3x3_same_backward(x, dy))
+        plain = cuda_ms(lambda: max_pool_3x3x3_backward_reference(x, dy))
+        xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+        _, idx = F.max_pool3d(xc, 3, 1, padding=1, return_indices=True)
+        lib_fwd = cuda_ms_cold(lambda p: F.max_pool3d(p[0].permute(0, 4, 1, 2, 3), 3, 1, padding=1,
+                                                      return_indices=True), pairs)
+        lib_bwd = cuda_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+            dyc, xc, [3] * 3, [1] * 3, [1] * 3, [1] * 3, False, idx))
+        nbytes = 3 * x.numel() * x.element_size()  # read x and dy, write dx
+        shape_bound = nbytes / HBM_BYTES * 1e3
+        print(f"maxpool backward bf16 {shape} ({tile(shape)}): kernel cold {cold:.4f} ms "
+              f"({nbytes / cold / 1e6:.1f} GB/s, {shape_bound / cold:.1%} of bound), warm {warm:.4f} ms; "
+              f"plain {plain:.4f} ms; "
+              f"F.max_pool3d forward with indices {lib_fwd:.4f} ms + backward {lib_bwd:.4f} ms; "
+              f"bound {shape_bound:.4f} ms")
+        for k, v in zip(tot, (cold, warm, plain, lib_fwd, lib_bwd, nbytes, 54 * x.numel())):
+            tot[k] += v  # ops: 27 compares and 27 selected adds
+        del pairs
+    return tot
+
+
 def check_maxpool_backward(torch, dev) -> dict:
     """The max-pool gradient kernel against its plain version at the pool
     shapes, the ragged ones and a misaligned input, bf16 and f32, on
@@ -356,8 +407,6 @@ def check_maxpool_backward(torch, dev) -> dict:
     plain version on the same values.  Timed at the main path's shapes in
     bf16 on normal inputs, cold, beside the plain version and the library
     route (F.max_pool3d's forward with indices, then its backward)."""
-    import torch.nn.functional as F
-
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
         max_pool_3x3x3_backward_reference,
         max_pool_3x3x3_same_backward,
@@ -385,41 +434,21 @@ def check_maxpool_backward(torch, dev) -> dict:
                 check(d.max().item() <= 1e-6 * scale, f"max-pool gradient != plain at {what}: {d.max().item()}")
             else:  # one rounding to bf16 moves a value by at most 2^-8 of it
                 check(bool((d <= ref.abs() * 2.0**-8).all()), f"max-pool gradient != plain at {what}")
-    tot = dict.fromkeys(("cold", "plain", "lib_fwd", "lib_bwd", "bytes", "codes", "ops"), 0.0)
-    for shape in POOL_SHAPES:
-        x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
-        dy = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
-        pairs = list(zip(cold_inputs(x), cold_inputs(dy)))
-        cold = cuda_ms_cold(lambda p: max_pool_3x3x3_same_backward(*p), pairs)
-        plain = cuda_ms(lambda: max_pool_3x3x3_backward_reference(x, dy))
-        xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
-        _, idx = F.max_pool3d(xc, 3, 1, padding=1, return_indices=True)
-        lib_fwd = cuda_ms_cold(lambda p: F.max_pool3d(p[0].permute(0, 4, 1, 2, 3), 3, 1, padding=1,
-                                                      return_indices=True), pairs)
-        lib_bwd = cuda_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
-            dyc, xc, [3] * 3, [1] * 3, [1] * 3, [1] * 3, False, idx))
-        nbytes = 3 * x.numel() * x.element_size()  # read x and dy, write dx
-        print(f"maxpool backward bf16 {shape}: kernel cold {cold:.4f} ms ({nbytes / cold / 1e6:.1f} GB/s); "
-              f"plain {plain:.4f} ms; F.max_pool3d forward with indices {lib_fwd:.4f} ms + backward "
-              f"{lib_bwd:.4f} ms; bound {nbytes / HBM_BYTES * 1e3:.4f} ms")
-        for k, v in zip(tot, (cold, plain, lib_fwd, lib_bwd, nbytes, 2 * x.numel(), 54 * x.numel())):
-            tot[k] += v  # codes: one byte written and read; ops: 27 compares and 27 selected adds
-        del pairs
+    tot = time_maxpool_backward(torch, dev, gen)
     bound_ms, bound_by = bound(tot["bytes"], tot["ops"], F32_FLOPS)
     library_ms = tot["lib_fwd"] + tot["lib_bwd"]
     print(f"maxpool backward: all {len(cases)} shapes x 2 dtypes agree with the plain version on tie-heavy "
           f"inputs (max |d| {err:.3g}); {len(POOL_SHAPES)} Mixed-block pools of one member at B={BATCH}: kernel "
-          f"cold {tot['cold']:.4f} ms ({bound_ms / tot['cold']:.1%} of bound); plain {tot['plain']:.4f} ms; "
-          f"library route {library_ms:.4f} ms (forward with indices {tot['lib_fwd']:.4f} + backward "
-          f"{tot['lib_bwd']:.4f}); bound {bound_ms:.4f} ms ({bound_by}, {tot['bytes'] / 1e6:.1f} MB), "
-          f"{(tot['bytes'] + tot['codes']) / HBM_BYTES * 1e3:.4f} ms with the codes' bytes; "
-          f"kernel vs library route {library_ms / tot['cold']:.2f}x, vs its backward alone "
-          f"{tot['lib_bwd'] / tot['cold']:.2f}x")
+          f"cold {tot['cold']:.4f} ms ({tot['bytes'] / tot['cold'] / 1e6:.1f} GB/s, {bound_ms / tot['cold']:.1%} "
+          f"of bound), warm {tot['warm']:.4f} ms; plain {tot['plain']:.4f} ms; library route {library_ms:.4f} ms "
+          f"(forward with indices {tot['lib_fwd']:.4f} + backward {tot['lib_bwd']:.4f}); bound {bound_ms:.4f} ms "
+          f"({bound_by}, {tot['bytes'] / 1e6:.1f} MB); kernel vs library route {library_ms / tot['cold']:.2f}x, vs its "
+          f"backward alone {tot['lib_bwd'] / tot['cold']:.2f}x")
     return {"name": "max_pool_3x3x3_same_backward", "route": "cuda",
             "source": f"{PORT}/csrc/maxpool3x3x3_bwd.cu",
             "replaces": "crowded_scenes_ensemble_classification_tpu/models/common.py:28",
-            "max_abs_err": err, "ms": tot["cold"], "plain_ms": tot["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "library_backward_ms": tot["lib_bwd"],
+            "max_abs_err": err, "ms": tot["cold"], "warm_ms": tot["warm"], "plain_ms": tot["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, "library_backward_ms": tot["lib_bwd"],
             "library_forward_indices_ms": tot["lib_fwd"]}
 
 

@@ -36,7 +36,7 @@ _I64 = ctypes.c_int64
 # the launch's cudaError_t.
 SIGNATURES = {
     "maxpool3x3x3_same": ([_P, _P, *[_I64] * 5, *[ctypes.c_int] * 5, _P], ctypes.c_int),
-    "maxpool3x3x3_same_backward": ([_P, _P, _P, _P, *[_I64] * 5, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    "maxpool3x3x3_same_backward": ([_P, _P, _P, *[_I64] * 5, *[ctypes.c_int] * 6, _P], ctypes.c_int),
     "salt_pepper_f32": (
         [_P, _P, _P, _P, _I64, _I64, ctypes.c_uint64, ctypes.c_uint32, _P],
         ctypes.c_int,

@@ -4,10 +4,11 @@ Counterpart of `crowded_scenes_ensemble_classification_tpu/ops/pallas/maxpool.py
 (`max_pool_3x3x3_same`, line 51).  The kernel is `csrc/maxpool3x3x3.cu`,
 behind the custom op `csec::max_pool_3x3x3_same`; `max_pool_tiling` picks
 its tiles.  Its gradient is the custom op
-`csec::max_pool_3x3x3_same_backward`, the kernels of
+`csec::max_pool_3x3x3_same_backward`, the kernel of
 `csrc/maxpool3x3x3_bwd.cu` (the JAX package differentiates its pool on
-XLA, with no Pallas kernel); `register_autograd` joins the two, so
-`backward()` runs through both kernels.
+XLA, with no Pallas kernel), tiled by `max_pool_backward_tiling`;
+`register_autograd` joins the two, so `backward()` runs through both
+kernels.
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ HT_MAX, HT_MIN = 8, 4  # output rows of an H-tile: the kernel's register window,
 THREADS_MAX = 256  # threads of a block: wt × cv
 VECTOR_UNITS, SCALAR_UNITS = 8, 32  # units of a C-block: 128 bytes of 16-byte units, or 32 elements
 H100_SMS = 132
+# The gradient kernel's limits: threads (wt + 2) × cv × groups, code rows and
+# dx rows a thread walks, and the shared memory of a block.
+BWD_THREADS_MAX, BWD_CODE_ROWS, BWD_DX_ROWS, SMEM_MAX = 512, 3, 3, 232_448
+BWD_HT_MAX = 8  # rows of dx in an H-tile, at most
+BWD_VECTOR_UNITS, BWD_SCALAR_UNITS = 2, 8  # units of a C-block: 32 bytes of 16-byte units, or 8 elements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +99,85 @@ def max_pool_tiling(shape, itemsize: int, *, aligned: bool = True, sms: int = H1
             break
     smem = 2 * (ht + 2) * (wt + 2) * cv * unit_bytes
     return MaxPoolTiling(vector, lanes, cv, ht, wt, (b, tiles_h, tiles_w, c_blocks), smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class MaxPoolBackwardTiling(MaxPoolTiling):
+    """How the gradient kernel cuts (B, T, H, W, C): one block per (b,
+    H-tile, W-tile, C-block), each walking all of T, as the forward's.  Its
+    threads are `groups` row groups of (wt + 2) columns × cv units: group g
+    walks code rows [3g, 3g + 3) of the (ht + 2) × (wt + 2) outputs the
+    tile's gather reads and sums dx rows [g·dx_rows, g·dx_rows + 3)."""
+
+    groups: int = 1
+
+    @property
+    def threads(self) -> int:
+        return (self.wt + 2) * self.cv * self.groups
+
+    @property
+    def dx_rows(self) -> int:
+        return -(-self.ht // self.groups)
+
+
+def backward_slot_rows(ht: int, groups: int) -> tuple[int, int]:
+    """Rows of the gradient kernel's x slots and of its dy and code slots:
+    each of `groups` row groups walks 3 code rows and sums 3 dx rows
+    wherever the tile ends, so the slots reach as deep as the last group
+    reads (ht + 4 and ht + 2 rows hold the tile with its halos)."""
+    dx_rows = -(-ht // groups)
+    return groups * BWD_CODE_ROWS + 2, max(groups * BWD_CODE_ROWS, (groups - 1) * dx_rows + BWD_DX_ROWS + 2)
+
+
+def max_pool_backward_tile(shape, itemsize: int, vector: bool, cv: int, ht: int) -> MaxPoolBackwardTiling:
+    """The gradient kernel's tiling of a (B, T, H, W, C) tensor with `cv`
+    units a C-block and H-tiles of `ht` rows: the fewest row groups that
+    keep a thread to 3 code rows (and so to 3 dx rows), W-tiles as wide as
+    512 threads allow, and the shared memory of two x slots, four dy slots
+    and five code slots (one byte a channel; the fifth stands for the
+    planes outside T) of `backward_slot_rows` rows.  Raises ValueError where
+    the kernel does not take it."""
+    b, _, h, w, c = shape
+    lanes = 16 // itemsize if vector else 1
+    unit_bytes = 16 if vector else itemsize
+    units = -(-c // lanes)
+    groups = -(-(ht + 2) // BWD_CODE_ROWS)
+    wt_max = BWD_THREADS_MAX // (cv * groups) - 2
+    if not (1 <= cv <= units and 1 <= ht and wt_max >= 1):
+        raise ValueError(f"max_pool_3x3x3_same_backward: no tile of {ht} rows and {cv} units for {tuple(shape)}")
+    tiles_w = -(-w // wt_max)
+    wt = -(-w // tiles_w)
+    tiles = (b, -(-h // ht), -(-w // wt), -(-units // cv))
+    x_plane, q_plane = backward_slot_rows(ht, groups)
+    x_plane, q_plane = x_plane * (wt + 4) * cv, q_plane * (wt + 2) * cv
+    smem = (2 * x_plane + 4 * q_plane) * unit_bytes + 5 * q_plane * lanes
+    if smem > SMEM_MAX:
+        raise ValueError(f"max_pool_3x3x3_same_backward: a tile of {ht} rows and {cv} units needs {smem} B")
+    return MaxPoolBackwardTiling(vector, lanes, cv, ht, wt, tiles, smem, groups)
+
+
+def max_pool_backward_tiling(shape, itemsize: int, *, aligned: bool = True,
+                             sms: int = H100_SMS) -> MaxPoolBackwardTiling:
+    """The gradient kernel's tiling of a (B, T, H, W, C) tensor of
+    `itemsize`-byte elements: 16-byte units where C fills whole 16-byte
+    vectors and every pointer is `aligned`, else single elements; C-blocks of
+    32 bytes (8 elements in the scalar variant); the largest balanced H-tile
+    of at most 8 rows whose grid reaches `sms` blocks, or 4 rows (or H)
+    where none does.  Raises ValueError for a plane (H·W·C) of 2^31
+    elements or more."""
+    _, _, h, _, c = shape
+    if h * shape[3] * c >= 2**31:
+        raise ValueError(f"max_pool_3x3x3_same_backward: a plane of {h}x{shape[3]}x{c} does not fit 32-bit offsets")
+    vector = aligned and (c * itemsize) % 16 == 0
+    units = -(-c // (16 // itemsize if vector else 1))
+    cv = min(units, BWD_VECTOR_UNITS if vector else BWD_SCALAR_UNITS)
+    for ht in range(min(h, BWD_HT_MAX), 0, -1):
+        if ht != -(-h // -(-h // ht)):
+            continue  # an unbalanced split: the balanced one with as many tiles comes later
+        tiling = max_pool_backward_tile(shape, itemsize, vector, cv, ht)
+        if tiling.grid >= sms or ht <= HT_MIN:
+            return tiling
+    return tiling
 
 
 @functools.cache
@@ -174,20 +259,17 @@ def _max_pool_backward_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"max_pool_3x3x3_same_backward: unsupported dtypes {x.dtype}, {dy.dtype}")
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError("max_pool_3x3x3_same_backward: x and dy must be contiguous NTHWC")
-    b, t, h, w, c = x.shape
-    if h * w * c >= 2**31 or b * t > 65535:
-        raise ValueError(f"max_pool_3x3x3_same_backward: {tuple(x.shape)} needs a plane under 2^31 "
-                         "elements and B*T <= 65535")
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
-    codes = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-    pointers = (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), codes.data_ptr())
-    vector = (c * x.element_size()) % 16 == 0 and all(p % 16 == 0 for p in pointers)
+    pointers = (x.data_ptr(), dy.data_ptr(), dx.data_ptr())
+    tiling = max_pool_backward_tiling(x.shape, x.element_size(), aligned=all(p % 16 == 0 for p in pointers),
+                                      sms=_sm_count(x.device.index))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = load_library().maxpool3x3x3_same_backward(
-            *pointers, *x.shape, _DTYPE_CODES[x.dtype], int(vector), stream
+            *pointers, *x.shape, _DTYPE_CODES[x.dtype], int(tiling.vector), tiling.ht, tiling.wt, tiling.cv,
+            tiling.groups, stream,
         )
     check_launch("maxpool3x3x3_same_backward", err)
     max_pool_3x3x3_same_backward.launches += 1
@@ -226,10 +308,10 @@ def max_pool_3x3x3_same(x: torch.Tensor) -> torch.Tensor:
 def max_pool_3x3x3_same_backward(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """The pool's gradient: x, dy (B, T, H, W, C) contiguous → dx, dy of
     each output summed into the first maximum of its window in (t, h, w)
-    order.  bf16 or f32, summed in f32.  CUDA tensors run the two-pass
-    kernel (argmax codes, then a gather in a fixed order: deterministic);
-    CPU tensors run the plain version.  `.launches` counts kernel launches
-    (one a call, for the pair)."""
+    order.  bf16 or f32, summed in f32.  CUDA tensors run the kernel (one
+    pass: argmax codes in shared memory, then a gather in a fixed order, so
+    deterministic); CPU tensors run the plain version.  `.launches` counts
+    kernel launches (one a call)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"max_pool_3x3x3_same_backward: unsupported device {x.device}")
     return _max_pool_backward_op(x, dy)

@@ -253,24 +253,35 @@ def _tie_heavy(torch, shape, gen):
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "shape",
-    [(2, 10, 28, 28, 192), (2, 5, 14, 14, 528), (2, 3, 7, 7, 832), (1, 1, 3, 3, 3), (2, 3, 5, 7, 130),
-     (2, 4, 30, 28, 64), (2, 1, 5, 5, 64), (1, 2, 6, 6, 16)],
+    "shape,nans",
+    [((2, 10, 28, 28, 192), False), ((2, 5, 14, 14, 528), False), ((2, 3, 7, 7, 832), False),
+     ((1, 1, 3, 3, 3), False), ((2, 3, 5, 7, 130), False), ((2, 4, 30, 28, 64), False), ((2, 1, 5, 5, 64), False),
+     ((1, 2, 6, 6, 16), False), ((4100, 16, 2, 2, 8), False), ((2, 4, 30, 28, 64), True),
+     ((2, 5, 14, 14, 528), True)],
 )
-def test_maxpool_backward_kernel_equals_plain(torch, shape, dtype, offset):
+def test_maxpool_backward_kernel_equals_plain(torch, shape, nans, dtype, offset):
     """The gradient kernel against its plain version on tie-heavy inputs, at
-    Mixed-block shapes (B=2) and ragged ones: f32 reaches the same inputs
-    and agrees within 1e-6·max|dy|; bf16 (summed in f32, rounded once) within
-    one bf16 rounding of the f32 plain result.  One launch counted a call."""
+    Mixed-block shapes (B=2) and ragged ones, B·T above 65535 (4100 × 16),
+    and with NaNs on an H-tile's first row and on both sides of a C-block
+    edge: f32 reaches the same inputs and agrees within 1e-6·max|dy|; bf16
+    (summed in f32, rounded once) within one bf16 rounding of the f32 plain
+    result.  One launch counted a call."""
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
         max_pool_3x3x3_backward_reference,
         max_pool_3x3x3_same_backward,
+        max_pool_backward_tiling,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     x32, dy32 = _tie_heavy(torch, shape, gen)
-    ref = max_pool_3x3x3_backward_reference(x32, dy32)
     dt = getattr(torch, dtype)
+    if nans:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tiling = max_pool_backward_tiling(shape, dt.itemsize, sms=sms)
+        assert tiling.ht < shape[2] and tiling.cb < shape[4]
+        x32[0, 1, tiling.ht, 3, tiling.cb - 1] = x32[0, 1, tiling.ht - 1, 4, tiling.cb] = float("nan")
+        x32[-1, -1, -1, -1, -1] = x32[0, 0, 0, 0, 0] = float("nan")
+    ref = max_pool_3x3x3_backward_reference(x32, dy32)
     n = x32.numel()
     x = torch.empty(n + offset, dtype=dt, device="cuda")[offset:].view(shape).copy_(x32)
     dy = torch.empty(n + offset, dtype=dt, device="cuda")[offset:].view(shape).copy_(dy32)
@@ -283,6 +294,18 @@ def test_maxpool_backward_kernel_equals_plain(torch, shape, dtype, offset):
         assert (got - ref).abs().max().item() <= 1e-6 * dy32.abs().max().item()
     else:
         assert bool(((got - ref).abs() <= ref.abs() * 2.0**-8).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_maxpool_backward_kernel_is_deterministic(torch, dtype):
+    """Two calls on the same normal inputs give the same bits: a fixed
+    summation order, no atomics."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same_backward
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, dy = (torch.randn((2, 10, 28, 28, 192), device="cuda", generator=gen).to(getattr(torch, dtype))
+             for _ in range(2))
+    assert torch.equal(max_pool_3x3x3_same_backward(x, dy), max_pool_3x3x3_same_backward(x, dy))
 
 
 def test_maxpool_backward_kernel_through_autograd(torch):

@@ -216,6 +216,194 @@ def test_maxpool_kernel_emulation_propagates_nan(torch, maxpool):
     assert torch.equal(got.nan_to_num(), ref.nan_to_num())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", POOL_CASES)
+def test_maxpool_backward_tiling_covers_every_input_once(torch, maxpool, shape, dtype):
+    """The gradient kernel's tiles, decoded in its block order, cover every
+    (b, h, w, c) input exactly once; a block fits the kernel's limits (≤ 512
+    threads, ≤ 3 code rows and 3 dx rows a thread, ≤ 232,448 B of shared
+    memory: two x slots with a 2-halo, four dy and five code slots with a
+    1-halo, as deep as the last row group reads); every main-path shape gets
+    at least one block per SM of an H100 in 16-byte units, all of W in a
+    tile."""
+    tiling = maxpool.max_pool_backward_tiling(shape, getattr(torch, dtype).itemsize)
+    b, _, h, w, c = shape
+    count = np.zeros((b, h, w, c), np.int32)
+    for block in range(tiling.grid):
+        b0, h0, w0, c0 = tiling.tile_origin(block)
+        assert b0 < b and h0 < h and w0 < w and c0 < c
+        count[b0, h0 : h0 + tiling.ht, w0 : w0 + tiling.wt, c0 : c0 + tiling.cb] += 1
+    assert (count == 1).all()
+    unit_bytes = 16 if tiling.vector else getattr(torch, dtype).itemsize
+    x_rows, q_rows = maxpool.backward_slot_rows(tiling.ht, tiling.groups)
+    assert x_rows >= tiling.ht + 4 and q_rows >= tiling.ht + 2
+    assert q_rows >= (tiling.groups - 1) * tiling.dx_rows + 3 + 2  # the last group's gather stays in its slots
+    x_plane, q_plane = x_rows * (tiling.wt + 4) * tiling.cv, q_rows * (tiling.wt + 2) * tiling.cv
+    assert tiling.smem == (2 * x_plane + 4 * q_plane) * unit_bytes + 5 * q_plane * tiling.lanes <= 232_448
+    assert tiling.threads <= 512 and tiling.dx_rows <= 3 and tiling.wt <= w
+    assert tiling.groups * 3 >= tiling.ht + 2 and tiling.groups * tiling.dx_rows >= tiling.ht
+    if shape in MIXED_POOL_SHAPES.values():
+        assert tiling.grid >= 132 and tiling.vector and tiling.wt == w
+
+
+def test_maxpool_backward_tiling_units_and_limits(torch, maxpool):
+    """16-byte units only where C fills whole vectors and every pointer is
+    aligned; a plane of 2^31 elements raises; B·T has no limit of its own
+    (the grid is 1-D over tiles, which do not count T)."""
+    assert maxpool.max_pool_backward_tiling((1, 2, 4, 4, 64), 2).lanes == 8
+    assert maxpool.max_pool_backward_tiling((1, 2, 4, 4, 64), 4).lanes == 4
+    assert not maxpool.max_pool_backward_tiling((1, 2, 4, 4, 64), 2, aligned=False).vector
+    assert not maxpool.max_pool_backward_tiling((1, 2, 4, 4, 130), 4).vector
+    assert maxpool.max_pool_backward_tiling((4100, 16, 2, 2, 8), 2).grid == 4100
+    with pytest.raises(ValueError):
+        maxpool.max_pool_backward_tiling((1, 1, 2**16, 2**10, 32), 2)
+    with pytest.raises(ValueError):  # 32 units a C-block need more shared memory than a block has
+        maxpool.max_pool_backward_tile((1, 2, 28, 28, 256), 2, True, 32, 8)
+
+
+def _emulate_maxpool_backward_kernel(torch, x, dy, tiling):
+    """The gradient kernel's algorithm in torch, block by block in its block
+    order.  Shared memory starts as the kernel fills it: x slots −inf, dy
+    slots 0, code slots 255 (no neighbour asks for that code); copies write
+    only positions inside the tensor.  Step s: x plane s+1 into slot
+    (s+1) % 2 and dy plane s-1 into slot (s-1) % 4; the spatial argmax S[s]
+    of x slot s % 2 by scans over kw, then kh, each by "replace if greater
+    or NaN" in (t, h, w) order; code plane s-1 = P2 ⊕ S[s] (P2 alone at
+    s = T) into code slot (s-1) % 4 at the outputs inside the tensor, with
+    P2 = P1 ⊕ S[s], P1 = S[s]; dx plane s-3 summed in f32 over the 27
+    neighbours in k order from the code and dy slots of planes s-4 .. s-2
+    (a plane outside T reads the fifth code slot, never written).  dx
+    starts as NaN: an input no block writes shows."""
+    ninf = float("-inf")
+    _, t_len, h, w, c = x.shape
+    ht, wt = tiling.ht, tiling.wt
+    dx = torch.full_like(x, float("nan"))
+
+    def take(m, code, v, k):  # a chunk (v, k) replaces (m, code) where v > m or v is NaN
+        r = (v > m) | v.isnan()
+        return torch.where(r, v, m), torch.where(r, k, code)
+
+    def inside(lo, n, size):  # the part of rows (or columns) lo .. lo+n-1 inside the tensor
+        a, z = max(lo, 0), min(lo + n, size)
+        return slice(a - lo, z - lo), slice(a, z)
+
+    for block in range(tiling.grid):
+        b, h0, w0, c0 = tiling.tile_origin(block)
+        cs = slice(c0, min(c0 + tiling.cb, c))
+        n = cs.stop - c0
+        xs = torch.full((2, ht + 4, wt + 4, n), ninf)
+        gs = torch.zeros((4, ht + 2, wt + 2, n))
+        codes = torch.full((5, ht + 2, wt + 2, n), 255, dtype=torch.int64)
+        (xr, xh), (xc, xw) = inside(h0 - 2, ht + 4, h), inside(w0 - 2, wt + 4, w)
+        (qr, qh), (qc, qw) = inside(h0 - 1, ht + 2, h), inside(w0 - 1, wt + 2, w)
+        none = torch.full((ht + 2, wt + 2, n), ninf), torch.zeros((ht + 2, wt + 2, n), dtype=torch.int64)
+        (p1v, p1c), (p2v, p2c) = none, none
+
+        xs[0, xr, xc] = x[b, 0, xh, xw, cs]
+        for s in range(t_len + 3):
+            if s + 1 < t_len:
+                xs[(s + 1) % 2, xr, xc] = x[b, s + 1, xh, xw, cs]
+            if 1 <= s <= t_len:
+                gs[(s - 1) % 4, qr, qc] = dy[b, s - 1, qh, qw, cs].float()
+            if s <= t_len:
+                code_c = p2c
+                if s < t_len:
+                    xp = xs[s % 2]
+                    rv, rc = xp[:, : wt + 2], torch.zeros_like(xp[:, : wt + 2], dtype=torch.int64)
+                    rv, rc = take(rv, rc, xp[:, 1 : wt + 3], 1)
+                    rv, rc = take(rv, rc, xp[:, 2:], 2)
+                    sv, sc = take(*take(rv[: ht + 2], rc[: ht + 2], rv[1 : ht + 3], rc[1 : ht + 3] + 3),
+                                  rv[2:], rc[2:] + 6)
+                    _, code_c = take(p2v, p2c, sv, sc + 18)
+                    (p2v, p2c), (p1v, p1c) = take(p1v, p1c, sv, sc + 9), (sv, sc)
+                if s >= 1:
+                    codes[(s - 1) % 4, qr, qc] = code_c[qr, qc]
+            if s >= 3:
+                t = s - 3
+                acc = torch.zeros((ht, wt, n))
+                for dt in range(3):
+                    in_t = 0 <= t - 1 + dt < t_len
+                    cslot, gslot = ((t - 1 + dt) % 4,) * 2 if in_t else (4, 0)
+                    for dh in range(3):
+                        for dw in range(3):
+                            hit = codes[cslot, dh : dh + ht, dw : dw + wt] == 9 * (2 - dt) + 3 * (2 - dh) + (2 - dw)
+                            acc = acc + torch.where(hit, gs[gslot, dh : dh + ht, dw : dw + wt], 0.0)
+                nh, nw = min(ht, h - h0), min(wt, w - w0)
+                dx[b, t, h0 : h0 + nh, w0 : w0 + nw, cs] = acc[:nh, :nw].to(x.dtype)
+    return dx
+
+
+def _tie_heavy_x(rng, shape):
+    """Integer x in 0..3 with the first half of H zeroed: ties and the ReLU
+    plateau (chip_smoke.py's `tie_heavy`)."""
+    x = rng.integers(-3, 4, shape).clip(0).astype(np.float32)
+    x[:, :, : shape[2] // 2] = 0
+    return x
+
+
+def _neg_inf_region(rng, shape):
+    x = rng.normal(size=shape).astype(np.float32)
+    x[:, :2, :4, :5] = -np.inf  # a corner: windows of nothing but −inf and padding
+    x[:, -1, 2:, 1:4, : shape[-1] // 2] = -np.inf
+    return x
+
+
+def _nan_at_edges(rng, shape, tiling):
+    """Tie-heavy x with NaNs on the first row of the second H-tile, on the
+    first and last channel of a C-block boundary, and next to −inf."""
+    x = _tie_heavy_x(rng, shape)
+    b, t, h, w, c = shape
+    x[0, 1, tiling.ht, 3, tiling.cb - 1] = x[0, 1, tiling.ht - 1, 4, tiling.cb] = np.nan
+    x[b - 1, t - 1, h - 1, w - 1, c - 1] = x[0, 0, 0, 0, 0] = np.nan
+    x[0, 2, tiling.ht + 1, 5:8, tiling.cb] = [np.nan, 1.0, np.nan]  # two NaNs in one window: the last wins
+    x[b - 1, 0, 1:3, 1:3, :] = -np.inf
+    return x
+
+
+# (id, shape, x maker, sms, aligned): the Mixed_3* tile (sms=1 makes ht 7),
+# T = 1 and 2, C = 3 and 130 (single elements; 130 a partial C-block), 12 f32
+# (three 16-byte units: a partial C-block of units), 528, H = 30, W = 45 in
+# W-tiles of 23 (a ragged last one), a −inf region, NaNs across tile edges.
+BACKWARD_EMULATION_CASES = [
+    ("tie_mixed_3", (1, 10, 28, 28, 16), _tie_heavy_x, 1, True),
+    ("tie_T1", (2, 1, 5, 5, 64), _tie_heavy_x, 132, True),
+    ("tie_T2", (1, 2, 6, 6, 16), _tie_heavy_x, 132, True),
+    ("C3", (2, 3, 5, 7, 3), _tie_heavy_x, 132, True),
+    ("C130", (1, 3, 5, 7, 130), _tie_heavy_x, 132, True),
+    ("C12", (2, 3, 4, 6, 12), _tie_heavy_x, 132, True),
+    ("C528", (1, 5, 14, 14, 528), _tie_heavy_x, 132, True),
+    ("H30", (1, 4, 30, 28, 32), _tie_heavy_x, 132, True),
+    ("W45_ragged", (1, 3, 9, 45, 8), _tie_heavy_x, 132, False),
+    ("neg_inf", (2, 4, 9, 10, 16), _neg_inf_region, 132, True),
+    ("neg_inf_scalar", (1, 3, 7, 9, 5), _neg_inf_region, 132, True),
+    ("nan_edges", (2, 4, 30, 28, 32), "nan", 132, True),
+    ("nan_edges_scalar", (1, 4, 16, 12, 20), "nan", 132, False),
+]
+
+
+@pytest.mark.parametrize("case", BACKWARD_EMULATION_CASES, ids=[c[0] for c in BACKWARD_EMULATION_CASES])
+def test_maxpool_backward_kernel_emulation_equals_plain(torch, maxpool, case):
+    """The gradient kernel's algorithm, emulated over its tiling (halo,
+    rings, separable argmax, fixed-order sum), is `torch.equal` to the plain
+    version in f32 with dy in multiples of 1/8 (sums exact in any order):
+    tie-heavy x, −inf regions, NaNs across H-tile and C-block edges, and
+    the ragged shapes."""
+    _, shape, make_x, sms, aligned = case
+    rng = np.random.default_rng(12)
+    tiling = maxpool.max_pool_backward_tiling(shape, 4, aligned=aligned, sms=sms)
+    x = _nan_at_edges(rng, shape, tiling) if make_x == "nan" else make_x(rng, shape)
+    dy = torch.from_numpy(rng.integers(-8, 8, shape).astype(np.float32) / 8)
+    x = torch.from_numpy(x)
+    if case[0] == "W45_ragged":
+        assert tiling.tiles[2] > 1 and tiling.wt * tiling.tiles[2] > shape[3] and not tiling.vector
+    if case[0] in ("C130", "C12"):
+        assert tiling.tiles[3] * tiling.cb > shape[4]
+    if case[0].startswith("nan"):
+        assert tiling.ht < shape[2] and tiling.cb < shape[4] and x.isnan().any()
+    got = _emulate_maxpool_backward_kernel(torch, x, dy, tiling)
+    assert torch.equal(got, maxpool.max_pool_3x3x3_backward_reference(x, dy))
+
+
 @pytest.mark.parametrize(
     "window,strides,shape",
     [
