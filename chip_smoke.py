@@ -5,7 +5,9 @@
 
 Phases, each of which raises on failure (exit code 1):
 
-1. require a CUDA card; print its `nvidia-smi` name and power limit;
+1. print whether cv2 and h5py import on this machine, with their versions
+   (the data ingest needs them; neither is required here); require a CUDA
+   card; print its `nvidia-smi` name and power limit;
 2. build the hand-written kernels from `csrc/` (timed);
 3. max-pool kernel == its plain version and F.max_pool3d (`torch.equal`) at
    every shape the main path gives it, bf16 and f32, plus the tiler's
@@ -42,7 +44,17 @@ Phases, each of which raises on failure (exit code 1):
    outputs within 1e-2 and member 0's logits within 5e-2 relative error;
 9. the serving export of those members: export, save, load, serve the same
    batches: probabilities within 1e-2 of the eager forward, equal
-   predictions, the kernels' launches counted from the loaded program;
+   predictions, the kernels' launches counted from the loaded program; the
+   same members as a lean artifact (`bake_params=False`) served with their
+   stacked state dicts: smaller, equal to the baked artifact within 1e-2
+   with equal predictions (and `torch.equal` printed), its launches
+   counted; then the other forms at full width, B=4, each exported, saved,
+   loaded and served against its eager forward over 3 batches (within 1e-2,
+   equal predictions; export seconds, artifact MB, clips/s served and
+   eager): 2 TwoStream members (bf16) taking gray pairs of panned textures,
+   their flow computed in the program by turbo Farnebäck, 18 max-pool
+   launches a member a batch; and a dynamic-int8 I3D (what the JAX CLI's
+   `export --quant` bakes), 57 int8-conv and 57 quantize launches a batch;
 10. max-pool gradient kernel against its plain version (run right after
    phase 7): the 9 Mixed-block shapes at B=16, the ragged ones
    and a misaligned input, bf16 and f32, on tie-heavy integer x with
@@ -124,9 +136,18 @@ Phases, each of which raises on failure (exit code 1):
    full-width C3D members through `make_multi_member_train_step` for 3
    steps (B=8, dropout on), each within 1e-6 relative error of itself
    trained alone by `make_train_step` (cuDNN deterministic);
-20. static int8 inference (the JAX bench's `_int8_breakout`, bench.py:1424-1500):
-   4 full-width I3D members (bf16 compute, f32 weights drawn on the card,
-   BN spread) built with quant='calib' are calibrated by
+20. int8 inference.  First the JAX accuracy gate (tests/test_quant.py:
+   97-125, :222-258): the I3D of `tests/oracle_i3d.random_i3d_h5_layers(
+   seed=3)` through `weights_io` and `load_pretrained`, on two raw 0-255
+   batches (2, 16, 32, 32, 3) from default_rng(11): the dynamic I3D and the
+   static one calibrated on the first within 0.05 of the f32 forward (TF32
+   off) in softmax, top-1 unchanged, the static one's held-out batch finite
+   with top-1 stable.  Then static int8 on the main path (the JAX bench's
+   `_int8_breakout`, bench.py:1424-1500): 4 full-width I3D members (bf16
+   compute, f32 weights; the trunks from reference-layout layer dicts,
+   `random_i3d_h5_layers(seed=3..6)` without their heads, through
+   `weights_io` and `load_pretrained`, the heads drawn on the card)
+   built with quant='calib' are calibrated by
    `calibrate_members` on 2 batches of the main path's clips and baked;
    member 0 exported alone (shared staging, B=2), saved and loaded: its
    probabilities `torch.equal` to the eager forward's, 57 int8 conv and
@@ -149,8 +170,8 @@ Phases, each of which raises on failure (exit code 1):
    32), 3 repeats of 5 steps, 228 int8-conv, 228 quantize, 36 max-pool, 1
    noise and 0 stem launches a step, probabilities finite and summing to
    1; against the bf16 main path on the same weights, rows and decisions:
-   max |dprob| printed, fused argmax equal where the top-2 gap exceeds
-   twice the largest fused difference; a small static I3D (f32) on the
+   max |dprob| printed (not gated), fused argmax equal where the top-2 gap
+   exceeds twice the largest fused difference; a small static I3D (f32) on the
    card against the CPU within 1e-3; and the static forward of C3D,
    R3D-18, TwoStream-I3D (precomputed flow) and I3D at full width, each
    calibrated on one batch of B=16: finite probabilities, timed.
@@ -805,21 +826,12 @@ def check_member_path(torch, np, dev, kernels) -> tuple:
 def check_serving(torch, bundles, batches, eager, eager_cps) -> None:
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import stem_conv_7x7x7_s2
-    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
-        export_ensemble,
-        load_serving_artifact,
-        save_serving_artifact,
-        serving_batch_example,
-    )
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import export_ensemble, serving_batch_example
 
     t0 = time.perf_counter()
     program = export_ensemble(bundles, serving_batch_example(bundles[0], BATCH), input_scale=INPUT_SCALE)
     export_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = save_serving_artifact(os.path.join(tmp, "ensemble.zip"), program,
-                                     {"model_type": "I3D", "members": [f"m{i}" for i in range(MEMBERS)]})
-        size_mb = os.path.getsize(path) / 1e6
-        serve, meta = load_serving_artifact(path)
+    serve, meta, size_mb = artifact(program, {"model_type": "I3D", "members": [f"m{i}" for i in range(MEMBERS)]})
     convs = [p for p in serve.module.parameters() if p.dim() == 5]
     cl = sum(p.is_contiguous(memory_format=torch.channels_last_3d) for p in convs)
     serve(batches[0])  # warm-up
@@ -835,6 +847,148 @@ def check_serving(torch, bundles, batches, eager, eager_cps) -> None:
     check(launches["max_pool_3x3x3_same"] == 9 * MEMBERS * STEPS, "max-pool launches from the loaded program")
     check(dprob <= 1e-2, f"served probabilities differ from eager by {dprob}")
     check(same, "served predictions differ from eager")
+    check_lean_serving(torch, bundles, batches, outs, size_mb)
+
+
+def artifact(program, meta: dict):
+    """Save `program` and load it back on the card → (serve, metadata, MB)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import load_serving_artifact, save_serving_artifact
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_serving_artifact(os.path.join(tmp, "artifact.zip"), program, meta)
+        size_mb = os.path.getsize(path) / 1e6
+        serve, meta = load_serving_artifact(path)
+    return serve, meta, size_mb
+
+
+def check_lean_serving(torch, bundles, batches, baked_outs, baked_mb) -> None:
+    """The same members as a lean artifact (bake_params=False), served with
+    their stacked state dicts: equal to the baked artifact's outputs."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import stack_variables
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import stem_conv_7x7x7_s2
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import export_ensemble, serving_batch_example
+
+    t0 = time.perf_counter()
+    program = export_ensemble(bundles, serving_batch_example(bundles[0], BATCH), input_scale=INPUT_SCALE,
+                              bake_params=False)
+    export_s = time.perf_counter() - t0
+    serve, _, size_mb = artifact(program, {"model_type": "I3D"})
+    params = stack_variables([b.module.state_dict() for b in bundles])
+    serve(params, batches[0])  # warm-up
+    max_pool_3x3x3_same.launches = stem_conv_7x7x7_s2.launches = 0
+    outs, cps = timed_steps(lambda i: serve(params, batches[i]), torch)
+    launches = {"stem_conv_7x7x7_s2": stem_conv_7x7x7_s2.launches, "max_pool_3x3x3_same": max_pool_3x3x3_same.launches}
+    dprob = max((o["probs"] - b["probs"]).abs().max().item() for o, b in zip(outs, baked_outs))
+    equal = all(torch.equal(o["probs"], b["probs"]) for o, b in zip(outs, baked_outs))
+    same = all(torch.equal(o["preds"], b["preds"]) for o, b in zip(outs, baked_outs))
+    print(f"lean serving (bake_params=False), the same {MEMBERS} members with their stacked state: export "
+          f"{export_s:.1f} s, artifact {size_mb:.1f} MB (baked {baked_mb:.1f} MB); {cps:.2f} clips/s; vs the baked "
+          f"artifact max |dprob| {dprob:.3g}, torch.equal {equal}, preds equal {same}; launches {launches}")
+    check(size_mb < baked_mb, "the lean artifact is not smaller than the baked one")
+    check(launches["max_pool_3x3x3_same"] == 9 * MEMBERS * STEPS, "max-pool launches from the lean program")
+    check(launches["stem_conv_7x7x7_s2"] == MEMBERS * STEPS, "stem launches from the lean program")
+    check(dprob <= 1e-2 and same, f"the lean artifact differs from the baked one by {dprob}")
+
+
+def gray_pair_batch(torch, np, rng, dev, size: int):
+    """`size` uint8 TwoStream clips: rgb noise and gray pairs of a periodic
+    texture panned by a seeded step (±3 px a frame), each frame paired
+    with the next."""
+    frames = np.empty((size, FRAMES + 1, SIZE, SIZE), np.uint8)
+    for i in range(size):
+        texture = periodic_texture(np, rng, SIZE)
+        dy, dx = rng.integers(-3, 4, 2)
+        for t in range(FRAMES + 1):
+            frames[i, t] = np.roll(texture, (t * dy, t * dx), (0, 1))
+    rgb = rng.integers(0, 256, (size, FRAMES, SIZE, SIZE, 3), dtype=np.uint8)
+    return {"rgb": torch.from_numpy(rgb).to(dev), "gray": torch.from_numpy(frames[:, :-1, ..., None]).to(dev),
+            "gray_next": torch.from_numpy(frames[:, 1:, ..., None]).to(dev)}
+
+
+def served_against_eager(torch, what: str, eager_fn, serve, batches, size: int, launch_fn) -> dict:
+    """Time the eager forward and the served artifact over `batches` (after
+    a warm-up each), count the served calls' kernel launches (`launch_fn()`
+    reads the counters, `launch_fn(reset=True)` zeroes them), and check the
+    served probabilities within 1e-2 of eager with equal predictions."""
+    eager_fn(batches[0]), serve(batches[0])  # warm-up: cuDNN plans, allocator
+    eager, served = [], []
+    eager_ms = host_ms(lambda: eager.extend(eager_fn(b) for b in batches), torch, 1, 1)[0]
+    launch_fn(reset=True)
+    served_ms = host_ms(lambda: served.extend(serve(b) for b in batches), torch, 1, 1)[0]
+    launches = launch_fn()
+    dprob = max((o["probs"] - e).abs().max().item() for o, e in zip(served, eager))
+    same = all(torch.equal(o["preds"], e.sum(0).argmax(-1)) for o, e in zip(served, eager))
+    n = len(batches) * size
+    print(f"{what}: {n * 1e3 / served_ms:.2f} clips/s served vs {n * 1e3 / eager_ms:.2f} eager "
+          f"({len(batches)} batches of B={size}); max |dprob| vs eager {dprob:.3g}; preds equal: {same}; "
+          f"launches {launches}")
+    check(dprob <= 1e-2, f"{what}: served probabilities differ from eager by {dprob}")
+    check(same, f"{what}: served predictions differ from eager")
+    return launches
+
+
+SERVE_FORMS_BATCH = 4
+
+
+def check_serving_forms(torch, np, dev) -> None:
+    """The serving export of the other families and forms at full width:
+    2 TwoStream members (bf16) exported with gray-pair inputs, their flow
+    computed in the program by turbo Farnebäck, and a dynamic-int8 I3D,
+    each saved, loaded and served against its eager forward at B=4."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import make_member_forward
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import TURBO_PARAMS
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import export_ensemble, serving_batch_example
+
+    size, members = SERVE_FORMS_BATCH, 2
+    rng = np.random.default_rng(31)
+    bundles = seeded_members(torch, "TWOSTREAM_I3D", members, 2100)
+    batches = [gray_pair_batch(torch, np, rng, dev, size) for _ in range(STEPS)]
+    flow_params = dict(TURBO_PARAMS)
+    t0 = time.perf_counter()
+    program = export_ensemble(bundles, serving_batch_example(bundles[0], size, flow_precomputed=False),
+                              input_scale=INPUT_SCALE, flow_params=flow_params)
+    export_s = time.perf_counter() - t0
+    serve, _, size_mb = artifact(program, {"model_type": "TWOSTREAM_I3D"})
+    print(f"TwoStream serving, {members} full-width members (bf16), gray pairs in, turbo Farnebäck in the program: "
+          f"export {export_s:.1f} s, artifact {size_mb:.1f} MB")
+
+    def pool_launches(reset=False):
+        if reset:
+            max_pool_3x3x3_same.launches = 0
+        return {"max_pool_3x3x3_same": max_pool_3x3x3_same.launches}
+
+    eager = make_member_forward([b.module for b in bundles], (SIZE, SIZE), input_scale=INPUT_SCALE,
+                                flow_params=flow_params)
+    launches = served_against_eager(torch, "TwoStream served (gray pairs)", eager, serve, batches, size,
+                                    pool_launches)
+    check(launches["max_pool_3x3x3_same"] == 18 * members * STEPS,
+          "TwoStream: not 18 max-pool launches a member a batch from the loaded program")
+    del bundles, program, serve, eager, batches
+    torch.cuda.empty_cache()
+
+    (bundle,) = seeded_members(torch, "I3D", 1, 2200, quant=True)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    batches = [{"rgb": torch.randint(0, 256, (size, FRAMES, SIZE, SIZE, 3), generator=gen, device=dev,
+                                     dtype=torch.uint8)} for _ in range(STEPS)]
+    t0 = time.perf_counter()
+    program = export_ensemble([bundle], serving_batch_example(bundle, size), input_scale=INPUT_SCALE)
+    export_s = time.perf_counter() - t0
+    serve, _, size_mb = artifact(program, {"model_type": "I3D", "quant": "dynamic"})
+    print(f"dynamic-int8 serving, one full-width I3D (bf16 compute, f32 weights): export {export_s:.1f} s, "
+          f"artifact {size_mb:.1f} MB")
+
+    def int8_counts(reset=False):
+        if reset:
+            zero_int8_launches()
+        counts = int8_launches()
+        return {k: counts[k] for k in ("int8_conv3d", "quantize_int8")}
+
+    eager = make_member_forward([bundle.module], (SIZE, SIZE), input_scale=INPUT_SCALE)
+    launches = served_against_eager(torch, "dynamic-int8 I3D served", eager, serve, batches, size, int8_counts)
+    check(launches == {"int8_conv3d": I3D_CONVS * STEPS, "quantize_int8": I3D_CONVS * STEPS},
+          f"the loaded dynamic-int8 program launched {launches}")
 
 
 def relative_errors(a: dict, b: dict) -> dict:
@@ -2093,6 +2247,64 @@ def check_int8_export(torch, dev, bundle) -> None:
     check(same, "the loaded static-int8 artifact differs from the eager forward")
 
 
+def oracle_i3d():
+    """tests/oracle_i3d.py (numpy only) loaded by its path: the source of the
+    reference-layout I3D layer dicts."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "oracle_i3d", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "oracle_i3d.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+INT8_GATE = 0.05  # softmax drift of int8 from f32, JAX tests/test_quant.py:124, :257
+
+
+def check_int8_gate(torch, np, dev) -> None:
+    """The JAX int8 accuracy gate on the card (tests/test_quant.py:97-125,
+    :222-258): the I3D of `random_i3d_h5_layers(seed=3)` (16 frames, 11
+    classes) through weights_io and load_pretrained, on two raw 0-255
+    batches (2, 16, 32, 32, 3) from default_rng(11); the dynamic I3D and the
+    static one calibrated on the first batch within 0.05 of the f32 forward
+    (TF32 off) in softmax, top-1 unchanged; the static one on the held-out
+    batch finite, top-1 stable."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.pretrained import load_pretrained
+    from crowded_scenes_ensemble_classification_tpu_torch.models.quantize import (
+        calibrate,
+        quantize_variables,
+        set_quant_mode,
+    )
+
+    layers = oracle_i3d().random_i3d_h5_layers(seed=3, num_classes=CLASSES)
+    rng = np.random.default_rng(11)
+    x, held = (torch.from_numpy(rng.uniform(0, 255, (2, 16, 32, 32, 3)).astype(np.float32)).to(dev)
+               for _ in range(2))
+    models = {}
+    for name, quant in (("f32", False), ("dynamic", True), ("static", "calib")):
+        with torch.device(dev):
+            models[name] = load_pretrained("I3D", I3D(CLASSES, frames=16, quant=quant).eval(), CLASSES, rgb_h5=layers)
+    set_quant_mode(quantize_variables(calibrate(models["static"], [x])), "static")
+    zero_int8_launches()
+    with torch.inference_mode():
+        probs = {name: [torch.softmax(m(b), -1) for b in (x, held)] for name, m in models.items()}
+    launched = int8_launches()["int8_conv3d"]
+    drift = {name: (probs[name][0] - probs["f32"][0]).abs().max().item() for name in ("dynamic", "static")}
+    top1 = {name: torch.equal(probs[name][0].argmax(-1), probs["f32"][0].argmax(-1)) for name in drift}
+    held_ok = bool(torch.isfinite(probs["static"][1]).all()) and torch.equal(
+        probs["static"][1].argmax(-1), probs["f32"][1].argmax(-1))
+    print(f"int8 accuracy gate (JAX tests/test_quant.py geometry, reference-layout I3D seed 3, raw 0-255 "
+          f"(2,16,32,32,3), f32 TF32 off): max |dprob| from f32 dynamic {drift['dynamic']:.4g}, static "
+          f"{drift['static']:.4g} (gate {INT8_GATE}); top-1 unchanged {top1}; static held-out batch finite and top-1 "
+          f"stable: {held_ok}; {launched} int8 conv launches")
+    check(launched == 4 * I3D_CONVS, f"the gate's int8 models launched {launched} int8 convs, not 4 x {I3D_CONVS}")
+    for name, d in drift.items():
+        check(d < INT8_GATE and top1[name], f"{name} int8 I3D drifts {d} from f32 (top-1 unchanged: {top1[name]})")
+    check(held_ok, "the static int8 I3D's held-out batch is not finite or its top-1 moved")
+
+
 def check_int8(torch, np, dev, kernels) -> None:
     """Static int8 inference on the card: calibrate 4 full-width I3D members
     on the main path's clips, hold the kernels to their plain versions and
@@ -2113,6 +2325,7 @@ def check_int8(torch, np, dev, kernels) -> None:
     from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
     from crowded_scenes_ensemble_classification_tpu_torch.models.common import s2d_stem_stage
     from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.pretrained import load_pretrained
     from crowded_scenes_ensemble_classification_tpu_torch.models.quantize import (
         calibrate,
         calibration_summary,
@@ -2121,11 +2334,19 @@ def check_int8(torch, np, dev, kernels) -> None:
     )
     from crowded_scenes_ensemble_classification_tpu_torch.ops.augment import draw_decisions
 
+    check_int8_gate(torch, np, dev)
     ibytes = FRAMES * STAGING * STAGING * 3 // 2
     rows = np.random.default_rng(23).integers(0, 256, (2 * INT8_BATCHES[1], ibytes), dtype=np.uint8)
     resident = torch.from_numpy(rows).to(dev)
     bundles = seeded_members(torch, "I3D", MEMBERS, 1700, quant="calib", stem_prestaged=True)
     members = [b.module for b in bundles]
+    oracle = oracle_i3d()
+    for i, m in enumerate(members):  # reference-layout checkpoints, converted on the card's host without h5py
+        layers = oracle.random_i3d_h5_layers(seed=3 + i, num_classes=CLASSES)
+        layers.pop("predictions")  # the no-top form the Crowd-11 fine-tune loads: the 20-frame head stays seeded
+        load_pretrained("I3D", m, CLASSES, rgb_h5=layers)
+    print(f"int8 members: {MEMBERS} full-width I3Ds from reference-layout layer dicts (random_i3d_h5_layers seeds "
+          f"3-{2 + MEMBERS}) through weights_io and load_pretrained, seeded heads")
     calib_clips = int8_main_clips(torch, resident, 24, 2)
     t0 = time.perf_counter()
     calibrate_members(members, calib_clips, (SIZE, SIZE), num_batches=2)
@@ -2198,8 +2419,9 @@ def check_int8(torch, np, dev, kernels) -> None:
         dprob = max(dprob, (p8 - pb).abs().max().item())
         ok, df = fused_argmax_agrees(pb, p8, torch)
         agrees, dfused = agrees and ok, max(dfused, df)
-    print(f"int8 against bf16 main path, 2 batches of B={BATCH}, same weights, rows and decisions: max |dprob| "
-          f"{dprob:.3g}, max |dfused| {dfused:.3g}; fused argmax agrees where the top-2 gap exceeds twice that: {agrees}")
+    print(f"int8 against bf16 main path, 2 batches of B={BATCH}, same reference-layout weights, rows and decisions "
+          f"(printed, not gated; 0.982 on random-init members, PR 10): max |dprob| {dprob:.3g}, max |dfused| "
+          f"{dfused:.3g}; fused argmax agrees where the top-2 gap exceeds twice that: {agrees}")
     check(agrees, "the int8 main path's fused argmax differs from the bf16 path's beyond the fused difference")
     del plain, members, bundles, resident
     torch.cuda.empty_cache()
@@ -2245,6 +2467,20 @@ def check_int8(torch, np, dev, kernels) -> None:
         torch.cuda.empty_cache()
 
 
+def ingest_dependencies() -> str:
+    """Whether the modules the data ingest needs (cv2 for video decode, h5py
+    for Keras checkpoints) import on this machine, and their versions."""
+    import importlib
+
+    found = []
+    for name in ("cv2", "h5py"):
+        try:
+            found.append(f"{name} {importlib.import_module(name).__version__}")
+        except ImportError as e:
+            found.append(f"{name} absent ({e})")
+    return "ingest dependencies: " + ", ".join(found)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2255,6 +2491,7 @@ def main() -> int:
     )
     from crowded_scenes_ensemble_classification_tpu_torch.utils.device import require_cuda
 
+    print(ingest_dependencies())
     smi = require_cuda()  # raises without a CUDA card
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -2281,6 +2518,8 @@ def main() -> int:
     bundles, batches, eager, eager_cps = phase("member_path", check_member_path, torch, np, dev, kernels)
     phase("serving", check_serving, torch, bundles, batches, eager, eager_cps)
     del bundles, batches, eager
+    torch.cuda.empty_cache()
+    phase("serving_forms", check_serving_forms, torch, np, dev)
     torch.cuda.empty_cache()
     phase("stem_backward", check_stem_backward, torch, dev)
     phase("training", check_training, torch, np, dev, kernels)

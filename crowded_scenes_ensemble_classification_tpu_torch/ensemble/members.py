@@ -19,12 +19,14 @@ as in the reference's TVL1_precomputed mode, so `input_scale` applies to
 it) or gray pairs (`batch['gray']`, `batch['gray_next']`), from which
 Farnebäck computes the flow on the members' device (displacement, so
 `input_scale` does not apply).
-`stack_variables` and `get_member_forward` have no counterpart: they stack
-flax pytrees for `vmap` and cache `jit`ted forwards, and here each member
-is an `nn.Module` run eagerly.  `calibrate_members` (JAX members.py:94-162)
-makes static-int8 members.  The member-sharded mesh form and the serving
-export of gray-pair inputs are not ported yet (ROADMAP Queue 1 items 7
-and 2).
+`stack_variables` (JAX members.py:30-32) stacks the members' state dicts
+along a leading member axis, and `stacked_member_softmax` runs one template
+module over such a stack: the form of a serving artifact that takes its
+parameters at call time (`serving.export_ensemble(bake_params=False)`).
+`get_member_forward` has no counterpart: it caches `jit`ted forwards, and
+here each member is an `nn.Module` run eagerly.  `calibrate_members` (JAX
+members.py:94-162) makes static-int8 members.  The member-sharded mesh form
+is not ported yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -46,6 +48,30 @@ from ..ops.augment import identity_resize_batch
 
 def _softmax_stack(members: Sequence[nn.Module], *inputs: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.softmax(m(*inputs), dim=-1) for m in members])
+
+
+def stack_variables(states: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """M same-architecture state dicts → one dict of (M, ...) tensors (JAX
+    members.py:30-32).  Each member's slice keeps the strides its tensor had
+    (channels_last_3d conv weights stay so), so a module run on a slice
+    computes as it does on its own weights."""
+    keys = list(states[0])
+    if any(list(s) != keys for s in states[1:]):
+        raise ValueError("stack_variables: the state dicts hold different keys")
+    out = {}
+    for k in keys:
+        first = states[0][k]
+        channels_last = first.dim() == 5 and first.is_contiguous(memory_format=torch.channels_last_3d)
+        if not (first.is_contiguous() or channels_last):
+            first = first.contiguous()
+        stacked = torch.empty_strided((len(states),) + tuple(first.shape), (first.numel(),) + first.stride(),
+                                      dtype=first.dtype, device=first.device)
+        for i, s in enumerate(states):
+            if s[k].shape != first.shape:
+                raise ValueError(f"stack_variables: {k} has shapes {tuple(first.shape)} and {tuple(s[k].shape)}")
+            stacked[i].copy_(s[k])
+        out[k] = stacked
+    return out
 
 
 def shared_stem_probabilities(members: Sequence[I3D], x: torch.Tensor) -> torch.Tensor:
@@ -162,6 +188,33 @@ def member_softmax(
     run it eagerly wrap it in `inference_mode`."""
     xs = _member_inputs(members, batch, out_hw, share_stem_staging, input_scale, flow_fast_warp, flow_params)
     return _softmax_stack(members, *xs)
+
+
+def stacked_member_softmax(
+    template: nn.Module,
+    stacked: Dict[str, torch.Tensor],
+    batch: Dict,
+    out_hw: Tuple[int, int],
+    share_stem_staging: bool = False,
+    input_scale: float = 1.0,
+    flow_fast_warp: bool = False,
+    flow_params: Optional[dict] = None,
+) -> torch.Tensor:
+    """`member_softmax` of the members whose state dicts `stack_variables`
+    stacked, each run as `template` (a module of their architecture and
+    form) on its slice of `stacked` by `torch.func.functional_call`: the
+    template's own parameters and buffers are never read, so the members
+    are whatever `stacked` holds (JAX members.py:165-257 with stacked
+    variables).  A static-int8 template computes its packed operands from
+    each slice; hold none on it (`refresh_static_operands` on the meta
+    device), or they are what it runs."""
+    xs = tuple(_member_inputs([template], batch, out_hw, share_stem_staging, input_scale, flow_fast_warp,
+                              flow_params))
+    count = next(iter(stacked.values())).shape[0]
+    return torch.stack([
+        torch.softmax(torch.func.functional_call(template, {k: v[i] for k, v in stacked.items()}, xs), dim=-1)
+        for i in range(count)
+    ])
 
 
 def make_member_forward(

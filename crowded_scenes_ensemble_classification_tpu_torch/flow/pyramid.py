@@ -39,17 +39,44 @@ import torch
 
 PYR_DOWN_KERNEL = np.asarray([1, 4, 6, 4, 1], np.float32) / 16.0  # JAX pyramid.py:82
 
-_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+def _real(value) -> bool:
+    """Whether a tensor, or every tensor of nested lists and tuples, is a
+    plain tensor with storage (no fake or functional stand-in)."""
+    if isinstance(value, torch.Tensor):
+        return type(value) is torch.Tensor
+    return all(_real(v) for v in value)
+
+
+def _device_cache(make):
+    """`functools.cache` for a function of hashable arguments that makes
+    tensors on a device (a fresh host-to-device copy each call would stall
+    the card's queue), except that it keeps only real tensors.  While a
+    program is traced (`torch.export`, `torch.compile`) a miss makes fake
+    stand-ins: the trace takes them as its constants, and kept, they would
+    reach the eager calls after it."""
+    cache: Dict[tuple, object] = {}
+
+    @functools.wraps(make)
+    def cached(*args):
+        hit = cache.get(args)
+        if hit is None:
+            hit = make(*args)
+            if _real(hit):
+                cache[args] = hit
+        return hit
+
+    return cached
+
+
+@_device_cache
+def _const_from_bytes(dtype: str, shape: tuple, data: bytes, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(data, dtype).reshape(shape).copy()).to(device)
 
 
 def _const(values: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A small float32 or int64 constant on `device`, made once per device
-    (a fresh host-to-device copy each call would stall the card's queue)."""
+    """A small float32 or int64 constant on `device`, made once per device."""
     values = np.ascontiguousarray(values)
-    key = (values.dtype.str, values.shape, values.tobytes(), str(device))
-    if key not in _CONSTANTS:
-        _CONSTANTS[key] = torch.from_numpy(values.copy()).to(device)
-    return _CONSTANTS[key]
+    return _const_from_bytes(values.dtype.str, values.shape, values.tobytes(), device)
 
 
 def _edge_pad(x: torch.Tensor, r: int, dim: int) -> torch.Tensor:
@@ -59,7 +86,7 @@ def _edge_pad(x: torch.Tensor, r: int, dim: int) -> torch.Tensor:
     return x.index_select(dim, _edge_index(x.shape[dim], r, x.device))
 
 
-@functools.lru_cache(maxsize=None)
+@_device_cache
 def _edge_index(n: int, r: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.clip(np.arange(-r, n + r), 0, n - 1)).to(device)
 
@@ -160,7 +187,7 @@ def _resize_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     return index, taps
 
 
-@functools.lru_cache(maxsize=None)
+@_device_cache
 def _resize_weights(in_size: int, out_size: int, ndim: int, dim: int, device: torch.device) -> list:
     """`_resize_taps` on `device`, each weight shaped to broadcast along `dim`."""
     shape = [1] * ndim

@@ -87,6 +87,16 @@ def i3d_state_dict_from_flax(variables: Dict, dtype: torch.dtype = torch.float32
     return _convert(variables, "I3D", bn_scale=False, conv_bias=False, dtype=dtype)
 
 
+def i3d_kinetics_state_dict_from_flax(variables: Dict, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """flax I3DKinetics variables → the port's `I3DKinetics` state dict: the
+    I3D trunk's rules, and the `Conv3d_6a_1x1` conv head with its bias."""
+    out = _convert(variables, "I3D_KINETICS", bn_scale=False, conv_bias=True, dtype=dtype)
+    for key in out:
+        if key.endswith(".bias") and not key.startswith("Conv3d_6a_1x1.") and ".bn." not in key:
+            raise KeyError(f"unexpected flax param for I3D_KINETICS: {key}")
+    return out
+
+
 def two_stream_state_dict_from_flax(variables: Dict, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """flax TwoStreamI3D variables → the port's `state_dict`: the I3D rules
     under the `rgb_trunk/` and `flow_trunk/` prefixes, and `predictions`."""
@@ -113,10 +123,13 @@ def r3d_state_dict_from_flax(variables: Dict, dtype: torch.dtype = torch.float32
 
 def state_dict_from_flax(model_type: str, variables: Dict,
                          dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
-    """The converter of `model_type`'s family; floating values in `dtype`
-    (float32, what every module holds its master weights in, unless asked)."""
+    """The converter of `model_type`'s family (or 'I3D_KINETICS', the
+    with-top Kinetics I3D); floating values in `dtype` (float32, what every
+    module holds its master weights in, unless asked)."""
     if model_type == "I3D":
         return i3d_state_dict_from_flax(variables, dtype)
+    if model_type == "I3D_KINETICS":
+        return i3d_kinetics_state_dict_from_flax(variables, dtype)
     if model_type == "TWOSTREAM_I3D":
         return two_stream_state_dict_from_flax(variables, dtype)
     if model_type == "C3D":

@@ -16,6 +16,9 @@ the hand-written int8 kernel (`models/common.QuantConv`), inference only;
 branch stays on the max-pool kernel, unquantized, and the kernel stem
 (`stem_impl='pallas'`) and the s2d stem take no quant, as in JAX
 (i3d.py:255-267).
+
+`I3DKinetics` is the with-top Kinetics classifier that Keras-layout
+Kinetics checkpoints load into (`models/weights_io.py`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.kernels.maxpool import max_pool_3x3x3_same
+from .c3d import dropout
 from .common import (
     ConvBN,
     PallasStemConvBN,
@@ -223,3 +227,37 @@ class I3D(nn.Module):
         x = self.trunk(x.to(dt))
         x = flatten(i3d_feature_head(x)).to(dt)
         return F.linear(x, self.predictions.weight.to(dt), self.predictions.bias.to(dt)).float()
+
+
+class I3DKinetics(nn.Module):
+    """The include_top Kinetics I3D (JAX models/i3d.py:334-360, reference
+    train.py:1196-1213), for converting and checking Kinetics checkpoints:
+    the trunk (canonical stem; its pool branches on the max-pool kernel) →
+    AvgPool3D (2, 7, 7) VALID → dropout (train mode, masks from
+    `generator`) → `Conv3d_6a_1x1`, a 1×1×1 conv with a bias and no BN or
+    ReLU → the mean over the frames (and over H×W, which is 1×1 at the
+    224² input the pool is built for) → float32 logits.  The smallest clip
+    the pool admits is 9 × 193²."""
+
+    def __init__(self, num_classes: int = 400, dropout_rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.trunk = I3DTrunk(generator=generator)
+        self.Conv3d_6a_1x1 = nn.ModuleDict({"conv": nn.Conv3d(TRUNK_FEATURES, num_classes, 1)})
+        lecun_normal_(self.Conv3d_6a_1x1["conv"].weight, TRUNK_FEATURES, generator)
+        nn.init.zeros_(self.Conv3d_6a_1x1["conv"].bias)
+        self.dropout_rate = dropout_rate
+        self.compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.trunk.Conv3d_1a_7x7.conv.weight.dtype
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.dtype
+        x = avg_pool_3d(self.trunk(x.to(dt)).float(), (2, 7, 7))
+        if self.training and self.dropout_rate:
+            x = dropout(x, self.dropout_rate, generator)
+        conv = self.Conv3d_6a_1x1["conv"]
+        x = F.conv3d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt))
+        return x.float().mean(dim=(2, 3, 4))

@@ -86,8 +86,9 @@ def test_resident_step_on_cpu(torch):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without JAX, flax, the JAX package
-    or pandas (the card's machine has none of them)."""
+    """Every module of the port imports without JAX, flax, the JAX package,
+    pandas or h5py (the card's machine has none of them; the Keras h5
+    reader and writer import h5py when called)."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / PORT).rglob("*.py")
@@ -96,7 +97,7 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'pandas', 'crowded_scenes_ensemble_classification_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'pandas', 'h5py', 'crowded_scenes_ensemble_classification_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(" + repr(modules) + "))\n"
     )

@@ -6,10 +6,16 @@ converted with `models/convert.py`) are exported by the port, saved,
 loaded and served; the reference is the JAX package's jitted
 `make_member_forward` (unshared, as its export's default) plus SUM or
 weighted fusion on the same variables and the same uint8 batch, as
-tests/test_serving.py checks the JAX export.  torch and the port are
-imported by fixtures, not at collection (tests/torch_port_memory.py).
+tests/test_serving.py checks the JAX export.  Then static-int8 members
+exported equal to eager, and every other form: a TwoStream member with
+precomputed flow and with gray pairs, and dynamic-int8 C3D members, against
+the JAX member forward; a lean (`bake_params=False`) artifact against the
+baked one and against eager members it was not exported from.  torch and
+the port are imported by fixtures, not at collection
+(tests/torch_port_memory.py).
 """
 
+import os
 from unittest import mock
 
 import numpy as np
@@ -206,3 +212,181 @@ def test_static_int8_member_exports_equal_to_eager(torch, tmp_path, case):
     fresh.load_state_dict(state, strict=True)
     again = make_member_forward([fresh], (HW, HW), share_stem_staging=share, input_scale=SCALE)(batch)
     assert torch.equal(again, eager)
+
+
+# ----------------------------------------------------------------------
+# Every family and input form: TwoStream with precomputed flow and with
+# gray pairs, dynamic int8, and the lean (bake_params=False) form
+# ----------------------------------------------------------------------
+
+TS_FRAMES, TS_HW = 16, 32
+
+
+@pytest.fixture(scope="module")
+def twostream(torch):
+    """One TwoStream member from reference-layout checkpoints (its trunks
+    from `random_i3d_h5_layers`, a numpy-drawn fusion head): the flax
+    variables, the port's member on them, and uint8 batches of both flow
+    forms: rgb, precomputed flow, and gray pairs of a texture moving 1 px a
+    frame (Farnebäck is well posed on it)."""
+    from oracle_i3d import random_i3d_h5_layers
+    from test_torch_zoo import textured_frames
+
+    from crowded_scenes_ensemble_classification_tpu.models import weights_io as jwio
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ClipSpec
+    from crowded_scenes_ensemble_classification_tpu_torch.models.convert import state_dict_from_flax
+    from crowded_scenes_ensemble_classification_tpu_torch.models.registry import ModelBundle
+    from crowded_scenes_ensemble_classification_tpu_torch.models.two_stream_i3d import TwoStreamI3D
+
+    rgb_layers, flow_layers = random_i3d_h5_layers(seed=50), random_i3d_h5_layers(seed=51, stream="flow")
+    v = jwio.twostream_variables_from_keras(rgb_layers, flow_layers)
+    rng = np.random.default_rng(52)
+    v["params"]["predictions"] = {"kernel": rng.normal(0, 2048 ** -0.5, (2048, CLASSES)).astype(np.float32),
+                                  "bias": rng.normal(0, 0.1, CLASSES).astype(np.float32)}
+    with torch.device("meta"):  # the weights all come from `v`: skip the random init
+        module = TwoStreamI3D(CLASSES, frames=TS_FRAMES).eval()
+    module.load_state_dict(state_dict_from_flax("TWOSTREAM_I3D", v), strict=True, assign=True)
+    bundle = ModelBundle("TWOSTREAM_I3D", module, ClipSpec(TS_FRAMES, TS_HW, TS_HW, flow_channels=2), CLASSES, True)
+    shape = (BATCH, TS_FRAMES, TS_HW, TS_HW)
+    frames = np.stack([textured_frames(rng, TS_FRAMES + 1, TS_HW, 1, 16) for _ in range(BATCH)]).astype(np.uint8)
+    batch = {"rgb": rng.integers(0, 256, shape + (3,), dtype=np.uint8),
+             "flow": rng.integers(0, 256, shape + (2,), dtype=np.uint8),
+             "gray": frames[:, :-1, ..., None], "gray_next": frames[:, 1:, ..., None]}
+    return v, bundle, batch
+
+
+@pytest.mark.parametrize("precomputed", [True, False], ids=["precomputed_flow", "gray_pairs"])
+def test_twostream_artifact_matches_jax_member_forward(torch, twostream, precomputed):
+    """A TwoStream member exported with precomputed flow, or with gray pairs
+    from which the program computes turbo Farnebäck flow (`flow_params`;
+    max_disp=4 clamps nothing of a 1 px motion), and run (saving and loading
+    a TwoStream program takes 8-18 s here; the tests above save and load
+    the other forms, and `chip_smoke.py` the gray-pair form on the card):
+    probabilities within 2e-5 of the JAX member forward on the same
+    variables and uint8 batch with precomputed flow (test 1's bar), within
+    1e-4 with computed flow (the flows agree within 1e-3 px,
+    tests/test_torch_flow.py), predictions equal.  The program computes
+    the flow in its graph and runs both trunks' pool branches on the
+    max-pool kernel's op."""
+    from test_torch_zoo import FLOW_PARAMS
+
+    from crowded_scenes_ensemble_classification_tpu.models.two_stream_i3d import TwoStreamI3D as JTwoStream
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import export_ensemble, serving_batch_example
+
+    v, bundle, batch = twostream
+    keys = ("rgb", "flow") if precomputed else ("rgb", "gray", "gray_next")
+    batch = {k: batch[k] for k in keys}
+    flow_params = None if precomputed else dict(FLOW_PARAMS)
+    jbundle = JModelBundle("TWOSTREAM_I3D", JTwoStream(num_classes=CLASSES),
+                           JClipSpec(TS_FRAMES, TS_HW, TS_HW, flow_channels=2), CLASSES, True)
+    ref = np.asarray(j_make_member_forward(jbundle, (TS_HW, TS_HW), input_scale=SCALE, flow_params=flow_params)(
+        stack_variables([v]), batch))
+
+    example = serving_batch_example(bundle, BATCH, flow_precomputed=precomputed)
+    assert sorted(example) == sorted(keys)
+    assert all(example[k].shape == batch[k].shape and example[k].dtype == torch.uint8 for k in keys)
+    program = export_ensemble([bundle], example, input_scale=SCALE, flow_params=flow_params)
+    ops = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert ops.count("csec.max_pool_3x3x3_same.default") == 18
+    with torch.no_grad():
+        out = program.module()({k: torch.from_numpy(a) for k, a in batch.items()})
+    np.testing.assert_allclose(out["probs"].numpy(), ref, atol=2e-5 if precomputed else 1e-4)
+    np.testing.assert_array_equal(out["preds"].numpy(), ref.sum(0).argmax(-1))
+
+
+def _c3d_members(torch, count, quant, seed=70):
+    """`count` small C3D members (width 0.125, 16 × 32²) with seeded weights
+    and their flax variables."""
+    from test_torch_models import random_flax_variables
+
+    from crowded_scenes_ensemble_classification_tpu.models import c3d as jc3d
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ClipSpec
+    from crowded_scenes_ensemble_classification_tpu_torch.models.c3d import C3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.convert import state_dict_from_flax
+    from crowded_scenes_ensemble_classification_tpu_torch.models.registry import ModelBundle
+
+    flax_mod = jc3d.C3D(num_classes=CLASSES, width=0.125)
+    vs = [random_flax_variables(flax_mod, (1, FRAMES, HW, HW, 3), seed=seed + i) for i in range(count)]
+    bundles = []
+    for v in vs:
+        module = C3D(CLASSES, 0.125, clip_thw=(FRAMES, HW, HW), quant=quant).eval()
+        module.load_state_dict(state_dict_from_flax("C3D", v), strict=True)
+        bundles.append(ModelBundle("C3D", module, ClipSpec(FRAMES, HW, HW), CLASSES, False))
+    return vs, bundles
+
+
+def test_dynamic_int8_c3d_artifact_matches_jax_member_forward(torch, tmp_path):
+    """Two dynamic-int8 C3D members (what the JAX CLI's `export --quant`
+    bakes): the program calls the int8 conv and quantize ops, and the
+    served probabilities are within 1e-3 of the JAX quant=True member
+    forward on the same variables (the whole-model int8 bar of
+    tests/test_torch_quant.py: an activation code can flip where the two
+    packages round a float apart), predictions equal."""
+    from crowded_scenes_ensemble_classification_tpu.models import c3d as jc3d
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    vs, bundles = _c3d_members(torch, MEMBERS, quant=True)
+    jbundle = JModelBundle("C3D", jc3d.C3D(num_classes=CLASSES, width=0.125, quant=True),
+                           JClipSpec(FRAMES, HW, HW), CLASSES, False)
+    rgb = np.random.default_rng(71).integers(0, 256, (BATCH, FRAMES, HW, HW, 3), dtype=np.uint8)
+    ref = np.asarray(j_make_member_forward(jbundle, (HW, HW), input_scale=SCALE)(stack_variables(vs), {"rgb": rgb}))
+    program = export_ensemble(bundles, serving_batch_example(bundles[0], BATCH), input_scale=SCALE)
+    ops = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert ops.count("csec.int8_conv3d.default") == ops.count("csec.quantize_int8.default") == 8 * MEMBERS
+    serve, _ = load_serving_artifact(save_serving_artifact(str(tmp_path / "dyn.zip"), program, {}), device="cpu")
+    out = serve({"rgb": torch.from_numpy(rgb)})
+    np.testing.assert_allclose(out["probs"].numpy(), ref, atol=1e-3)
+    np.testing.assert_array_equal(out["preds"].numpy(), ref.sum(0).argmax(-1))
+
+
+def test_lean_artifact_serves_the_state_it_is_given(torch, tmp_path):
+    """bake_params=False: the program takes (params, batch), `params` the
+    members' state dicts stacked by `stack_variables`.  Its artifact is
+    smaller than the baked one and serves what the baked one serves, to the
+    bit.  Exported from static-int8 member A and served with member B's
+    stacked state, it equals B's eager forward, not A's: a program that
+    baked A's packed operands (its non-persistent buffers) would serve A's
+    int8 weights with B's float ones."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import (
+        make_member_forward,
+        stack_variables as stack_state,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.models.registry import ModelBundle
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    rng = np.random.default_rng(81)
+    calib = {"rgb": torch.from_numpy(rng.integers(0, 256, (BATCH, FRAMES, HW, HW, 3), dtype=np.uint8))}
+    batch = {"rgb": torch.from_numpy(rng.integers(0, 256, (BATCH, FRAMES, HW, HW, 3), dtype=np.uint8))}
+    members = []
+    for i in range(3):  # static-int8 C3Ds at width 0.125
+        module, clip, _, _ = _static_member(torch, "C3D", torch.Generator().manual_seed(80 + i), calib)
+        members.append(ModelBundle("C3D", module, clip, CLASSES, False))
+    a, b = members[:2], members[2:] + members[:1]  # B = (member 2, member 0)
+    example = serving_batch_example(a[0], BATCH)
+
+    baked = export_ensemble(a, example, input_scale=SCALE)
+    lean = export_ensemble(a, example, input_scale=SCALE, bake_params=False)
+    assert not lean.state_dict.keys() - {"weights"} and not any("static_" in k for k in lean.constants)
+    paths = {form: save_serving_artifact(str(tmp_path / f"{form}.zip"), p, {}) for form, p in
+             (("baked", baked), ("lean", lean))}
+    assert os.path.getsize(paths["lean"]) < os.path.getsize(paths["baked"])
+    serve_baked, _ = load_serving_artifact(paths["baked"], device="cpu")
+    serve_lean, _ = load_serving_artifact(paths["lean"], device="cpu")
+    out = serve_lean(stack_state([m.module.state_dict() for m in a]), batch)
+    assert torch.equal(out["probs"], serve_baked(batch)["probs"])
+
+    eager = {name: make_member_forward([m.module for m in ms], (HW, HW), input_scale=SCALE)(batch)
+             for name, ms in (("a", a), ("b", b))}
+    out_b = serve_lean(stack_state([m.module.state_dict() for m in b]), batch)
+    assert torch.equal(out_b["probs"], eager["b"])
+    assert not torch.equal(out_b["probs"][0], eager["a"][0])
