@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (exit code 1):
 
 1. print whether cv2 and h5py import on this machine, with their versions
-   (the data ingest needs them; neither is required here); require a CUDA
-   card; print its `nvidia-smi` name and power limit;
+   (phase 21 needs cv2; h5py, which only the Keras h5 reader needs, is not
+   required); require a CUDA card; print its `nvidia-smi` name and power
+   limit;
 2. build the hand-written kernels from `csrc/` (timed);
 3. max-pool kernel == its plain version and F.max_pool3d (`torch.equal`) at
    every shape the main path gives it, bf16 and f32, plus the tiler's
@@ -174,7 +175,37 @@ Phases, each of which raises on failure (exit code 1):
    exceeds twice the largest fused difference; a small static I3D (f32) on the
    card against the CPU within 1e-3; and the static forward of C3D,
    R3D-18, TwoStream-I3D (precomputed flow) and I3D at full width, each
-   calibrated on one batch of B=16: finite probabilities, timed.
+   calibrated on one batch of B=16: finite probabilities, timed;
+21. data ingest (needs cv2: it raises without it).  Print `os.cpu_count()`
+   and cv2's version; `generate_synthetic_dataset(as_videos=True,
+   write_flow=False)` writes a Crowd-11-shaped dataset into a temporary
+   directory: 55 scenes × 3 clips, 11 classes, 48 frames at 240×320 (not
+   the staging size, not square: stride selection and resize both run),
+   all `.mp4` with the frame count `video_frame_count` reads; then
+   `build_clip_table` → `generate_folds(k=5)` (disjoint scenes) →
+   `write_split_matrix` (20 splits) → the (test 0, val 1) split's CSVs,
+   the test split's last batch of 16 padded.  Host decode ms a clip on one
+   thread.  `member_probabilities` of 4 full-width I3D members (bf16) over
+   the test split's `BatchPipeline(SampleSpec(20, (256, 256)), 16,
+   num_workers=8)` with prefetch: 9 max-pool launches a member a batch,
+   finite probabilities summing to 1 ± 1e-2, `np.array_equal` to
+   `member_probabilities` over the same batches held in host memory;
+   clips/s decode-inclusive, from memory and of the host decode alone, and
+   the card's busy share of a profiled decode-inclusive pass (union of
+   device intervals over the wall).  A second pipeline with `cache_file`:
+   the populate seconds, epochs 0 and 1 from the native `read_batch`
+   bit-equal to the decoded batches, and its `member_probabilities` equal
+   to the decode route's (clips/s).  `fit` of one full-width trainable I3D
+   for 1 epoch over the train split's pipeline (augment, balanced classes,
+   B=16), validated on the val split's: a finite history, per train step 9
+   max-pool, 9 gradient and 1 noise launches and 9 max-pool launches a val
+   batch; clips/s decode-inclusive.  `ResidentClips.from_pipeline` of the
+   train split on the card: rows bit-equal to the pipeline's decoded
+   batches.  2 full-width TwoStream members over `SampleSpec(20, (256,
+   256), two_stream=True, flow_precomputed=False)` (rgb and gray pairs from
+   one decode pass, turbo Farnebäck on the card), B=8: 18 max-pool
+   launches a member a batch, equal to the same batches from memory.  The
+   phase adds about 70-90 s, most of it writing the dataset.
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 1,979 TOPS
 dense int8, 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s.  The line
@@ -182,10 +213,11 @@ before last is the kernels' JSON record (6 kernels; the max pool's
 `launches` counts the main path's 3 steps, the heterogeneous phase's 5
 steps at B=16 with precomputed flow and 15 with the flow on the card, and
 the TwoStream pipeline's 15 steps at B=16, the first 5 timed train steps
-of each family of phase 19 and the int8 main path's 15 steps at B=16; the
-noise kernel's the main path's, the TwoStream pipeline's, phase 19's and
-the int8 main path's; the gradient kernel's the I3D training path's and
-phase 19's; the int8 conv's and the quantize pass's the int8 main path's
+of each family of phase 19 and the int8 main path's 15 steps at B=16, and phase 21's
+probabilities, fit and TwoStream passes; the noise kernel's the main
+path's, the TwoStream pipeline's, phase 19's, the int8 main path's and
+phase 21's fit; the gradient kernel's the I3D training path's, phase 19's
+and phase 21's fit; the int8 conv's and the quantize pass's the int8 main path's
 15 steps at B=16, their times the sums over one member's 57 convs at
 B=16); the last line is `{"ok": true, "device": {...}}`.
 Needs one card and no network.
@@ -2467,9 +2499,203 @@ def check_int8(torch, np, dev, kernels) -> None:
         torch.cuda.empty_cache()
 
 
+INGEST_SCENES, INGEST_CLIPS, INGEST_FRAMES, INGEST_HW, INGEST_FOLDS = 55, 3, 48, (240, 320), 5
+TWOSTREAM_INGEST_BATCH = 8
+
+
+def device_busy_ms(prof) -> float:
+    """Milliseconds of the union of the card's kernel, memcpy and memset
+    intervals in a profile."""
+    from torch.autograd import DeviceType
+
+    total, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+def batches_equal(a: list, b: list, np) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.asarray(x[k]).dtype == np.asarray(y[k]).dtype
+                                     and np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def check_ingest(torch, np, dev, kernels) -> None:
+    """Data ingest on the card's host: a Crowd-11-shaped synthetic dataset
+    written as mp4, the clip table, 5 scene-stratified folds and the split
+    matrix, cv2 decode through `BatchPipeline` with prefetch into
+    `member_probabilities` and `fit`, the native clip cache,
+    `ResidentClips.from_pipeline`, and TwoStream members on gray pairs."""
+    import cv2
+
+    from crowded_scenes_ensemble_classification_tpu_torch import data
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import member_probabilities
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import TURBO_PARAMS
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper
+    from crowded_scenes_ensemble_classification_tpu_torch.train import fit
+
+    print(f"ingest host: os.cpu_count() {os.cpu_count()}, cv2 {cv2.__version__} ({cv2.getNumThreads()} threads)")
+    spec = data.SampleSpec(FRAMES, (STAGING, STAGING))
+    probs_of = lambda members, batches, **kw: member_probabilities(  # noqa: E731
+        members, batches, (SIZE, SIZE), input_scale=INPUT_SCALE, **kw)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        table = data.generate_synthetic_dataset(
+            os.path.join(tmp, "crowd"), num_scenes=INGEST_SCENES, clips_per_scene=INGEST_CLIPS, num_classes=CLASSES,
+            num_frames=INGEST_FRAMES, hw=INGEST_HW, seed=0, write_flow=False, as_videos=True)
+        write_s = time.perf_counter() - t0
+        paths = list(table["rgbclips_path"])
+        check(len(paths) == INGEST_SCENES * INGEST_CLIPS and all(p.endswith(".mp4") for p in paths),
+              "the synthetic dataset is not mp4 videos")
+        check(all(data.video_frame_count(p) == INGEST_FRAMES for p in paths[::16]), "video_frame_count")
+
+        clips = data.build_clip_table(os.path.join(tmp, "crowd"))
+        folder, scenes = data.generate_folds(clips, os.path.join(tmp, "folds"), INGEST_FOLDS)
+        pairs = data.write_split_matrix(data.load_fold_csvs(folder, INGEST_FOLDS), os.path.join(tmp, "splits"))
+        split = {name: data.ClipTable.read_csv(os.path.join(pairs[0][2], f"{name}.csv"))
+                 for name in ("train", "val", "test")}
+        sizes = {k: len(v) for k, v in split.items()}
+        check(len(clips) == len(table) and data.verify_folds_disjoint(scenes) and len(pairs) == 20
+              and pairs[0][:2] == (0, 1) and sum(sizes.values()) == len(clips), f"folds and splits {sizes}")
+        check(sizes["test"] % BATCH != 0, "the test split fills its last batch")
+        print(f"dataset: {len(table)} mp4 clips ({INGEST_SCENES} scenes × {INGEST_CLIPS}, {CLASSES} classes, "
+              f"{INGEST_FRAMES} frames at {INGEST_HW[0]}×{INGEST_HW[1]}) written in {write_s:.1f} s; "
+              f"{INGEST_FOLDS} folds of scenes {[len(f) for f in scenes]}, split (test 0, val 1) sizes {sizes}")
+
+        source = data.ClipSource(spec)
+        t0 = time.perf_counter()
+        for i in range(8):
+            source(split["test"].row(i))
+        print(f"host decode, one thread: {(time.perf_counter() - t0) / 8 * 1e3:.1f} ms a clip "
+              f"({INGEST_FRAMES} frames → {FRAMES} at {STAGING}²)")
+
+        # 1. Probabilities of 4 I3D members over the test split.
+        members = [b.module for b in seeded_members(torch, "I3D", MEMBERS, 40, stem_prestaged=True)]
+        test_pipe = data.BatchPipeline(split["test"], spec, BATCH, shuffle=False, num_workers=8)
+        held, held_s = synced(lambda: list(test_pipe.batches(0)))
+        probs_of(members, held[:1])  # warm-up: cuDNN plans, allocator
+        max_pool_3x3x3_same.launches = 0
+        probs, decode_s = synced(lambda: probs_of(members, test_pipe))
+        launches = max_pool_3x3x3_same.launches
+        n, nb = sizes["test"], len(test_pipe)
+        check(launches == 9 * MEMBERS * nb, f"max-pool launches {launches}, not {9 * MEMBERS * nb}")
+        check_probs(torch, torch.from_numpy(probs), (MEMBERS, n, CLASSES), "decode-inclusive probabilities")
+        held_probs, memory_s = synced(lambda: probs_of(members, held))
+        check(np.array_equal(probs, held_probs), "decode-inclusive probabilities differ from the in-memory ones")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, profiled_s = synced(lambda: probs_of(members, test_pipe))
+        busy_ms = device_busy_ms(prof)
+        check(0 < busy_ms <= profiled_s * 1e3, f"device busy {busy_ms} ms of a {profiled_s * 1e3} ms pass")
+        print(f"member_probabilities, {MEMBERS} I3D members, bf16, {nb} batches of B={BATCH} ({n} clips, the last "
+              f"batch {n - (nb - 1) * BATCH} valid): decode-inclusive (prefetch, 8 decode threads) {n / decode_s:.2f} "
+              f"clips/s; from memory {n / memory_s:.2f} clips/s (torch.equal); host decode alone {n / held_s:.2f} "
+              f"clips/s ({nb * BATCH / held_s:.2f} decodes/s, the padded rows decoded too); card busy {busy_ms:.1f} ms of a profiled decode-inclusive pass of {profiled_s * 1e3:.1f} ms "
+              f"({busy_ms / (profiled_s * 1e3):.3f}), of the unprofiled {decode_s * 1e3:.1f} ms "
+              f"({busy_ms / (decode_s * 1e3):.3f}); max-pool launches {launches} (9 a member a batch)")
+
+        # 2. The native clip cache: populate, then batches and probabilities from it.
+        cache_pipe = data.BatchPipeline(split["test"], spec, BATCH, shuffle=False, num_workers=8,
+                                        cache_file=os.path.join(tmp, "cache", "test.ccache"))
+        t0 = time.perf_counter()
+        cache_pipe.populate()
+        populate_s = time.perf_counter() - t0
+        check(cache_pipe.cached and all(batches_equal(list(cache_pipe.batches(e)), held, np) for e in (0, 1)),
+              "clip-cache batches differ from the decoded ones")
+        cached_probs, cache_s = synced(lambda: probs_of(members, cache_pipe))
+        check(np.array_equal(cached_probs, probs), "probabilities from the clip cache differ from the decoded ones")
+        shard_mb = os.path.getsize(cache_pipe.source.cache_file) / 1e6
+        print(f"clip cache: populated with {n} clips in {populate_s:.2f} s ({shard_mb:.1f} MB); "
+              f"epochs 0 and 1 by native read_batch bit-equal to decode; member_probabilities from the cache "
+              f"{n / cache_s:.2f} clips/s, equal to the decode route's")
+        maxpool_k = next(k for k in kernels if k["name"] == "max_pool_3x3x3_same")
+        maxpool_k["launches_ingest_probs"] = launches
+        maxpool_k["launches"] += launches
+        del members, held, cache_pipe
+        torch.cuda.empty_cache()
+
+        # 3. fit of one trainable I3D over the train split, validated on the val split.
+        gen = torch.Generator(device=dev).manual_seed(45)
+        bundle = build_model("I3D", dtype=torch.bfloat16, device=dev, generator=gen, trainable=True)
+        train_pipe = data.BatchPipeline(split["train"], spec, BATCH, seed=0, num_workers=8)
+        val_pipe = data.BatchPipeline(split["val"], spec, BATCH, shuffle=False, num_workers=8)
+        max_pool_3x3x3_same.launches = max_pool_3x3x3_same_backward.launches = salt_pepper.launches = 0
+        out, fit_s = synced(lambda: fit(bundle, train_pipe, val_pipe, epochs=1, augment=True, balanced_classes=True,
+                                        input_scale=INPUT_SCALE))
+        steps, vb = len(train_pipe), len(val_pipe)
+        launches = {"max_pool_3x3x3_same": max_pool_3x3x3_same.launches,
+                    "max_pool_3x3x3_same_backward": max_pool_3x3x3_same_backward.launches,
+                    "salt_pepper": salt_pepper.launches}
+        hist = out["history"]
+        print(f"fit over BatchPipelines: 1 epoch, {steps} train steps of B={BATCH} ({sizes['train']} clips, "
+              f"augment, balanced classes) and {vb} val batches ({sizes['val']} clips) in {fit_s:.2f} s: "
+              f"{(sizes['train'] + sizes['val']) / fit_s:.2f} clips/s decode-inclusive; history {hist}; "
+              f"launches {launches}")
+        check(all(math.isfinite(x) for v in hist.values() for x in v) and len(hist["val_loss"]) == 1,
+              "fit over the pipeline: short or non-finite history")
+        check(launches == {"max_pool_3x3x3_same": 9 * (steps + vb), "max_pool_3x3x3_same_backward": 9 * steps,
+                           "salt_pepper": steps}, f"fit launch counts {launches}")
+        for k in kernels:
+            if k["name"] in launches:
+                k["launches_ingest_fit"] = launches[k["name"]]
+                k["launches"] += launches[k["name"]]
+        del bundle, out
+        torch.cuda.empty_cache()
+
+        res = data.ResidentClips.from_pipeline(train_pipe, device=dev)
+        rows = res.resident["rgb"].cpu().numpy()
+        same = all(np.array_equal(rows[b["index"][b["valid"]]], b["rgb"][b["valid"]])
+                   for b in data.BatchPipeline(split["train"], spec, BATCH, shuffle=False, num_workers=8).batches(0))
+        check(same and res.n == sizes["train"] and res.resident["rgb"].device.type == dev.type,
+              "ResidentClips.from_pipeline rows differ from the pipeline's decoded samples")
+        print(f"ResidentClips.from_pipeline: {res.n} train clips on the card ({res.nbytes / 1e9:.2f} GB), rows "
+              "bit-equal to the pipeline's decoded batches")
+        del res, rows
+        torch.cuda.empty_cache()
+
+        # 4. TwoStream members on gray pairs staged in the same decode pass.
+        ts_members = [b.module for b in seeded_members(torch, "TWOSTREAM_I3D", 2, 50, stem_prestaged=True)]
+        ts_spec = data.SampleSpec(FRAMES, (STAGING, STAGING), two_stream=True, flow_precomputed=False)
+        ts_pipe = data.BatchPipeline(split["test"], ts_spec, TWOSTREAM_INGEST_BATCH, shuffle=False, num_workers=8)
+        ts_held = list(ts_pipe.batches(0))
+        check(sorted(ts_held[0]) == ["gray", "gray_next", "index", "label", "rgb", "valid"], "TwoStream batch keys")
+        flow_params = dict(TURBO_PARAMS)
+        probs_of(ts_members, ts_held[:1], flow_params=flow_params)  # warm-up
+        max_pool_3x3x3_same.launches = 0
+        ts_probs, ts_s = synced(lambda: probs_of(ts_members, ts_pipe, flow_params=flow_params))
+        launches, nb = max_pool_3x3x3_same.launches, len(ts_pipe)
+        check(launches == 18 * 2 * nb, f"TwoStream max-pool launches {launches}, not {18 * 2 * nb}")
+        check_probs(torch, torch.from_numpy(ts_probs), (2, n, CLASSES), "TwoStream decode-inclusive probabilities")
+        check(np.array_equal(ts_probs, probs_of(ts_members, ts_held, flow_params=flow_params)),
+              "TwoStream decode-inclusive probabilities differ from the in-memory ones")
+        print(f"TwoStream: 2 members, gray pairs staged by one decode pass, turbo Farnebäck on the card, {nb} batches "
+              f"of B={TWOSTREAM_INGEST_BATCH}: {n / ts_s:.2f} clips/s decode-inclusive, equal to the in-memory "
+              f"batches; max-pool launches {launches} (18 a member a batch)")
+        maxpool_k["launches_ingest_twostream"] = launches
+        maxpool_k["launches"] += launches
+        del ts_members, ts_held
+        torch.cuda.empty_cache()
+
+
 def ingest_dependencies() -> str:
-    """Whether the modules the data ingest needs (cv2 for video decode, h5py
-    for Keras checkpoints) import on this machine, and their versions."""
+    """Whether cv2 (video decode, phase 21) and h5py (the Keras h5 reader)
+    import on this machine, and their versions."""
     import importlib
 
     found = []
@@ -2536,6 +2762,8 @@ def main() -> int:
     phase("train_zoo", check_train_zoo, torch, np, dev, kernels)
     torch.cuda.empty_cache()
     phase("int8", check_int8, torch, np, dev, kernels)
+    torch.cuda.empty_cache()
+    phase("ingest", check_ingest, torch, np, dev, kernels)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase {phase_s}")
     print(json.dumps({"kernels": kernels}))

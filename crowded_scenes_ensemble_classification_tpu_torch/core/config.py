@@ -1,8 +1,9 @@
 """Model types, weighting schemes and the clip geometry of every model family.
 
 Restated from `crowded_scenes_ensemble_classification_tpu/core/config.py:18-83`
-(reference define_input, train.py:1566-1616).  The experiment config and
-its legacy artifact names are not ported yet (ROADMAP Queue 1 item 6).
+(reference define_input, train.py:1566-1616), and `split_pairs` (lines
+237-245).  The experiment config and its legacy artifact names are not
+ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -72,3 +73,9 @@ def clip_spec(model_type: str) -> ClipSpec:
         return CLIP_SPECS[model_type]
     except KeyError:
         raise ValueError(f"Unknown model_type {model_type!r}; valid: {MODEL_TYPES}") from None
+
+
+def split_pairs(folds_number: int):
+    """All (test_index, val_index) pairs of the k×(k−1) split matrix (JAX
+    core/config.py:237-245, reference launch_train_ensemble.py:117-127)."""
+    return [(t, v) for t in range(folds_number) for v in range(folds_number) if v != t]

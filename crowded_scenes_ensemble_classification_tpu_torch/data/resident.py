@@ -12,7 +12,8 @@ Left out, with their reasons: `FlatRows`, which works around the TPU's
 nothing here), and the mesh, which waits for the port's multi-card work
 (ROADMAP Queue 1 items 7 and 8).  Per-epoch batching keeps the JAX class's
 rules exactly, as one shard: the same pools, shuffles, padding and ids for
-the same (seed, epoch, preshuffle, pad_to).
+the same (seed, epoch, preshuffle, pad_to).  `from_pipeline` fills it from
+a `BatchPipeline` (decode or clip cache) once.
 """
 
 from __future__ import annotations
@@ -88,6 +89,46 @@ class ResidentClips:
         self.resident = {k: put(v) for k, v in arrays.items()}
         self.resident["label"] = put(labels)
         self.df = {"class": labels}  # balanced-class hook: fit reads df["class"]
+
+    @classmethod
+    def from_pipeline(
+        cls,
+        pipeline,
+        batch_size: Optional[int] = None,
+        preshuffle: Optional[int] = None,
+        pad_to: Optional[int] = None,
+        device=None,
+    ) -> "ResidentClips":
+        """Materialise a `data.pipeline.BatchPipeline`'s staged samples once
+        and pin them on `device` (the card when None): decoded by the
+        pipeline's thread pool, or read from its clip cache by the native
+        threaded pread once populated (JAX resident.py:226-272).  Shuffle,
+        seed, `augmentation_frequency` tiling and `drop_last` carry over."""
+        import concurrent.futures as cf
+
+        df = pipeline.df
+        pipeline.populate()
+        if pipeline.cached:
+            rgb, labels = pipeline.source.read_batch(np.arange(len(df)))
+            arrays = {"rgb": rgb}
+        else:
+            src = pipeline.source
+            with cf.ThreadPoolExecutor(max_workers=pipeline.num_workers) as pool:
+                samples = list(pool.map(lambda i: src(df.row(i)), range(len(df))))
+            arrays = {k: np.stack([s[k] for s in samples]) for k in samples[0] if k != "label"}
+            labels = [s["label"] for s in samples]
+        return cls(
+            arrays,
+            np.asarray(labels, np.int32),
+            batch_size or pipeline.batch_size,
+            shuffle=pipeline.shuffle,
+            seed=pipeline.seed,
+            augmentation_frequency=pipeline.tile,
+            drop_last=pipeline.drop_last,
+            preshuffle=preshuffle,
+            pad_to=pad_to,
+            device=device,
+        )
 
     @property
     def nbytes(self) -> int:

@@ -23,6 +23,11 @@ Farnebäck computes the flow on the members' device (displacement, so
 along a leading member axis, and `stacked_member_softmax` runs one template
 module over such a stack: the form of a serving artifact that takes its
 parameters at call time (`serving.export_ensemble(bake_params=False)`).
+`member_probabilities` and `calibrate_members` read their batches from a
+`data.pipeline.BatchPipeline` (decoded by its thread pool or read from its
+clip cache, and prefetched by `prefetch_batches` while the card runs the
+batch before, as JAX members.py:113-146, :322-325) or from any iterable of
+batch dicts; host uint8 batches move to the members' device here.
 `get_member_forward` has no counterpart: it caches `jit`ted forwards, and
 here each member is an `nn.Module` run eagerly.  `calibrate_members` (JAX
 members.py:94-162) makes static-int8 members.  The member-sharded mesh form
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..data.pipeline import iterate_batches
 from ..flow.farneback import gray_pair_flow
 from ..models.common import s2d_stem_stage
 from ..models.i3d import I3D
@@ -152,8 +158,10 @@ def calibrate_members(
     `members` are of one family, built with quant='calib' (I3D and
     TwoStream with `stem_prestaged`: they calibrate through the shared s2d
     staging that `member_probabilities` feeds them, so the prestaged stem
-    records its own scale).  The first `num_batches` of `batches` (dicts
-    as `member_probabilities` takes) are preprocessed once, exactly as
+    records its own scale).  The first `num_batches` of `batches` (a
+    `BatchPipeline`, whose epoch 0 is prefetched and whose producer is
+    stopped once they are taken, or an iterable of dicts as
+    `member_probabilities` takes) are preprocessed once, exactly as
     for inference, and run through each member; then its weights are baked
     (`models.quantize.quantize_variables`) and it is switched to 'static'.
     Returns the members, ready for `member_probabilities` and
@@ -161,10 +169,10 @@ def calibrate_members(
     share = isinstance(members[0], (I3D, TwoStreamI3D))
     check_member_form(members, share)
     device = next(members[0].parameters()).device
-    with torch.inference_mode():
+    with torch.inference_mode(), iterate_batches(batches) as stream:
         arg_sets = [tuple(_member_inputs(members, _on_device(b, device), out_hw, share, input_scale,
                                          flow_fast_warp, flow_params))
-                    for b in itertools.islice(batches, num_batches)]
+                    for b in itertools.islice(stream, num_batches)]
     if not arg_sets:
         raise ValueError("calibrate_members: no batches")
     for m in members:
@@ -249,20 +257,25 @@ def member_probabilities(
     input_scale: float = 1.0,
     flow_params: Optional[dict] = None,
 ) -> np.ndarray:
-    """Run every member over an iterable of batches → (M, N, C) float32 in
-    batch order, keeping the rows a batch marks `valid` (all rows when it
-    has no 'valid').  I3D and TwoStream members share the stem staging, as
-    in JAX members.py:305-320, so they are `stem_prestaged` members; C3D
-    and R3D members run unshared.  TwoStream batches carry `flow` or the
-    gray pairs; flow_params must be the Farnebäck schedule the members
-    trained with (`flow.farneback.flow_schedule_params`)."""
+    """Run every member over the batches → (M, N, C) float32 in batch
+    order, keeping the rows a batch marks `valid` (all rows when it has no
+    'valid').  `batches` is a `BatchPipeline` (its epoch 0, prefetched: the
+    host decodes the next batch while the card runs this one; its rows in
+    the pipeline's order, dataset order when it does not shuffle) or an
+    iterable of batch dicts, on the host or the members' device.  I3D and
+    TwoStream members share the stem staging, as in JAX members.py:305-320,
+    so they are `stem_prestaged` members; C3D and R3D members run
+    unshared.  TwoStream batches carry `flow` or the gray pairs;
+    flow_params must be the Farnebäck schedule the members trained with
+    (`flow.farneback.flow_schedule_params`)."""
     share = isinstance(members[0], (I3D, TwoStreamI3D))
     forward = make_member_forward(members, out_hw, share_stem_staging=share, input_scale=input_scale,
                                   flow_params=flow_params)
     device = next(members[0].parameters()).device
     chunks = []
-    for batch in batches:
-        probs = forward(_on_device(batch, device)).cpu().numpy()
-        valid = np.asarray(batch.get("valid", np.ones(probs.shape[1], bool)), bool)
-        chunks.append(probs[:, valid])
+    with iterate_batches(batches) as stream:
+        for batch in stream:
+            probs = forward(_on_device(batch, device)).cpu().numpy()
+            valid = np.asarray(batch.get("valid", np.ones(probs.shape[1], bool)), bool)
+            chunks.append(probs[:, valid])
     return np.concatenate(chunks, axis=1)

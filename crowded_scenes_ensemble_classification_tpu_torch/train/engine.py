@@ -22,10 +22,12 @@ Epoch-level control (LR policy, early stopping, best-val checkpoint, NaN
 stop) runs on the host in `fit`, with the reference's callback semantics
 (callbacks.py).
 
-Not ported: the wire-fed step (a TPU transfer workaround, left out: ROADMAP
-Queue 1 item 8), the mesh (item 7), and `prefetch_batches` over a
-`BatchPipeline` (item 4):
-`fit` and `evaluate_model` iterate `pipeline.batches(epoch)`.
+`fit` and `evaluate_model` read a `data.pipeline.BatchPipeline` through
+`prefetch_batches` (host decode of the next batch overlaps the step, JAX
+engine.py:542-544, :682-685), a `ResidentClips` through its `batches(epoch)`
+and the resident steps, or any other object with `batches(epoch)`.  Not
+ported: the wire-fed step (a TPU transfer workaround, left out: ROADMAP
+Queue 1 item 8) and the mesh (item 7).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.pipeline import class_weights_balanced
+from ..data.pipeline import class_weights_balanced, iterate_batches
 from ..data.resident import ResidentClips
 from ..flow.farneback import gray_pair_flow
 from ..models.common import l2_param_penalty
@@ -303,7 +305,7 @@ def evaluate_model(
     flow_fast_warp: bool = False,
     flow_params: Optional[dict] = None,
 ) -> Dict[str, Any]:
-    """Masked eval over `pipeline.batches(0)` (reference evaluate(),
+    """Masked eval over epoch 0 of `pipeline` (reference evaluate(),
     train.py:1925-1971, batched): {"loss", "accuracy", "count"} and, with
     `collect_probs`, the valid rows' probabilities in clip-id order.  The
     module holds the weights, so no variables are passed.  The step is the
@@ -313,14 +315,15 @@ def evaluate_model(
     eval_step = make(bundle, out_hw, input_scale=input_scale, flow_fast_warp=flow_fast_warp, flow_params=flow_params)
     sums = torch.zeros(3, dtype=torch.float64, device=bundle.device)  # loss_sum, correct, count
     probs_all, ids_all = [], []
-    for batch in pipeline.batches(0):
-        out = eval_step(batch)
-        sums += torch.stack([out["loss_sum"], out["correct"], out["count"]]).double()
-        if collect_probs:
-            valid = np.asarray(batch["valid"], bool)
-            probs_all.append(out["probs"].float().cpu().numpy()[valid])
-            if "index" in batch:
-                ids_all.append(np.asarray(batch["index"])[valid])
+    with iterate_batches(pipeline, 0) as batches:
+        for batch in batches:
+            out = eval_step(batch)
+            sums += torch.stack([out["loss_sum"], out["correct"], out["count"]]).double()
+            if collect_probs:
+                valid = np.asarray(batch["valid"], bool)
+                probs_all.append(out["probs"].float().cpu().numpy()[valid])
+                if "index" in batch:
+                    ids_all.append(np.asarray(batch["index"])[valid])
     loss_sum, correct, count = sums.tolist()
     res = {"loss": loss_sum / max(count, 1.0), "accuracy": correct / max(count, 1.0), "count": int(count)}
     if collect_probs:
@@ -406,10 +409,11 @@ def fit(
         lr = policy.epoch_begin_lr(epoch, lr)
         set_learning_rate(state.optimizer, lr)
         losses, accs = [], []
-        for batch in train_pipeline.batches(epoch):
-            state, metrics = train_step(state, batch, cw)
-            losses.append(metrics["loss"])
-            accs.append(metrics["accuracy"])
+        with iterate_batches(train_pipeline, epoch) as batches:
+            for batch in batches:
+                state, metrics = train_step(state, batch, cw)
+                losses.append(metrics["loss"])
+                accs.append(metrics["accuracy"])
         epoch_loss = float(torch.stack(losses).mean())
         epoch_acc = float(torch.stack(accs).mean())
 
