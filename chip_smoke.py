@@ -205,7 +205,28 @@ Phases, each of which raises on failure (exit code 1):
    256), two_stream=True, flow_precomputed=False)` (rgb and gray pairs from
    one decode pass, turbo Farnebäck on the card), B=8: 18 max-pool
    launches a member a batch, equal to the same batches from memory.  The
-   phase adds about 70-90 s, most of it writing the dataset.
+   phase adds about 70-90 s, most of it writing the dataset;
+22. the experiment pipeline (`orchestration`) on phase 21's dataset: an
+   I3D `ExperimentConfig` of 3 folds, `augmented_precomputed` ×1, 1
+   epoch, B=8, bf16.  `prepare_ensemble` augments every clip on the card
+   (one noise launch a clip; the fold CSVs gain
+   `rgbclips_augmented_0_path`; a second `augment_folds` encodes nothing;
+   the first fold-0 copy with both noise gates on equals the plain
+   route's frames: the same decisions, then `salt_pepper`'s plain version
+   on the card, and differs from those frames with the gates cleared); `launch_ensemble_training`
+   trains members (0, 1) and (0, 2) (9 max-pool launches a step and an
+   eval batch, 9 gradient launches a step, finite losses);
+   `pending_members` lists the 4 others and `runner='commands',
+   recover=True` gives their 4 commands; `cache_probabilities` of test
+   fold 0 in bf16 and with `quant='static'` (calibrated on 2 batches; 57
+   int8-conv and 57 quantize launches a member a batch): finite rows
+   summing to 1 ± 1e-2, two paths, a second call returning the cache with
+   no launch; `evaluate_ensembles` with SUM and VALIDATION_ERROR_INVERSE
+   through `make_prob_provider` and `min_val_losses_provider`; the
+   confusion and agreement matrices, their PDFs only where matplotlib
+   imports (a line says whether it does).  Prints seconds by stage,
+   offline augmentation clips/s, train and probabilities clips/s with the
+   card's busy share (profiler), and the phase's launches by kernel.
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 1,979 TOPS
 dense int8, 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s.  The line
@@ -214,13 +235,15 @@ before last is the kernels' JSON record (6 kernels; the max pool's
 steps at B=16 with precomputed flow and 15 with the flow on the card, and
 the TwoStream pipeline's 15 steps at B=16, the first 5 timed train steps
 of each family of phase 19 and the int8 main path's 15 steps at B=16, and phase 21's
-probabilities, fit and TwoStream passes; the noise kernel's the main
-path's, the TwoStream pipeline's, phase 19's, the int8 main path's and
-phase 21's fit; the gradient kernel's the I3D training path's, phase 19's
-and phase 21's fit; the int8 conv's and the quantize pass's the int8 main path's
-15 steps at B=16, their times the sums over one member's 57 convs at
-B=16); the last line is `{"ok": true, "device": {...}}`.
-Needs one card and no network.
+probabilities, fit and TwoStream passes and phase 22's; the noise kernel's
+the main path's, the TwoStream pipeline's, phase 19's, the int8 main
+path's, phase 21's fit and phase 22's offline augmentation; the gradient
+kernel's the I3D training path's, phase 19's, phase 21's fit and phase
+22's training; the int8 conv's and the quantize pass's the int8 main
+path's 15 steps at B=16 and phase 22's static cache, their times the sums
+over one member's 57 convs at B=16; each record keeps a phase's own count
+under `launches_<phase>`); the last line is `{"ok": true, "device":
+{...}}`.  Needs one card and no network.
 """
 
 from __future__ import annotations
@@ -2524,12 +2547,27 @@ def batches_equal(a: list, b: list, np) -> bool:
         for x, y in zip(a, b))
 
 
-def check_ingest(torch, np, dev, kernels) -> None:
+def ingest_dataset(data, root: str):
+    """The Crowd-11-shaped synthetic dataset under root/crowd (55 scenes × 3
+    mp4 clips, 11 classes, 48 frames at 240×320), written unless it is
+    there: (its table, the seconds writing took, 0.0 if none)."""
+    crowd = os.path.join(root, "crowd")
+    if os.path.isdir(os.path.join(crowd, "rgb")):
+        return data.build_clip_table(crowd), 0.0
+    t0 = time.perf_counter()
+    table = data.generate_synthetic_dataset(
+        crowd, num_scenes=INGEST_SCENES, clips_per_scene=INGEST_CLIPS, num_classes=CLASSES,
+        num_frames=INGEST_FRAMES, hw=INGEST_HW, seed=0, write_flow=False, as_videos=True)
+    return table, time.perf_counter() - t0
+
+
+def check_ingest(torch, np, dev, kernels, tmp: str) -> None:
     """Data ingest on the card's host: a Crowd-11-shaped synthetic dataset
-    written as mp4, the clip table, 5 scene-stratified folds and the split
-    matrix, cv2 decode through `BatchPipeline` with prefetch into
-    `member_probabilities` and `fit`, the native clip cache,
-    `ResidentClips.from_pipeline`, and TwoStream members on gray pairs."""
+    written as mp4 under `tmp` (phase 22 reads it too), the clip table, 5
+    scene-stratified folds and the split matrix, cv2 decode through
+    `BatchPipeline` with prefetch into `member_probabilities` and `fit`, the
+    native clip cache, `ResidentClips.from_pipeline`, and TwoStream members
+    on gray pairs."""
     import cv2
 
     from crowded_scenes_ensemble_classification_tpu_torch import data
@@ -2555,142 +2593,368 @@ def check_ingest(torch, np, dev, kernels) -> None:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        table = data.generate_synthetic_dataset(
-            os.path.join(tmp, "crowd"), num_scenes=INGEST_SCENES, clips_per_scene=INGEST_CLIPS, num_classes=CLASSES,
-            num_frames=INGEST_FRAMES, hw=INGEST_HW, seed=0, write_flow=False, as_videos=True)
-        write_s = time.perf_counter() - t0
-        paths = list(table["rgbclips_path"])
-        check(len(paths) == INGEST_SCENES * INGEST_CLIPS and all(p.endswith(".mp4") for p in paths),
-              "the synthetic dataset is not mp4 videos")
-        check(all(data.video_frame_count(p) == INGEST_FRAMES for p in paths[::16]), "video_frame_count")
+    table, write_s = ingest_dataset(data, tmp)
+    paths = list(table["rgbclips_path"])
+    check(len(paths) == INGEST_SCENES * INGEST_CLIPS and all(p.endswith(".mp4") for p in paths),
+          "the synthetic dataset is not mp4 videos")
+    check(all(data.video_frame_count(p) == INGEST_FRAMES for p in paths[::16]), "video_frame_count")
 
-        clips = data.build_clip_table(os.path.join(tmp, "crowd"))
-        folder, scenes = data.generate_folds(clips, os.path.join(tmp, "folds"), INGEST_FOLDS)
-        pairs = data.write_split_matrix(data.load_fold_csvs(folder, INGEST_FOLDS), os.path.join(tmp, "splits"))
-        split = {name: data.ClipTable.read_csv(os.path.join(pairs[0][2], f"{name}.csv"))
-                 for name in ("train", "val", "test")}
-        sizes = {k: len(v) for k, v in split.items()}
-        check(len(clips) == len(table) and data.verify_folds_disjoint(scenes) and len(pairs) == 20
-              and pairs[0][:2] == (0, 1) and sum(sizes.values()) == len(clips), f"folds and splits {sizes}")
-        check(sizes["test"] % BATCH != 0, "the test split fills its last batch")
-        print(f"dataset: {len(table)} mp4 clips ({INGEST_SCENES} scenes × {INGEST_CLIPS}, {CLASSES} classes, "
-              f"{INGEST_FRAMES} frames at {INGEST_HW[0]}×{INGEST_HW[1]}) written in {write_s:.1f} s; "
-              f"{INGEST_FOLDS} folds of scenes {[len(f) for f in scenes]}, split (test 0, val 1) sizes {sizes}")
+    clips = data.build_clip_table(os.path.join(tmp, "crowd"))
+    folder, scenes = data.generate_folds(clips, os.path.join(tmp, "folds"), INGEST_FOLDS)
+    pairs = data.write_split_matrix(data.load_fold_csvs(folder, INGEST_FOLDS), os.path.join(tmp, "splits"))
+    split = {name: data.ClipTable.read_csv(os.path.join(pairs[0][2], f"{name}.csv"))
+             for name in ("train", "val", "test")}
+    sizes = {k: len(v) for k, v in split.items()}
+    check(len(clips) == len(table) and data.verify_folds_disjoint(scenes) and len(pairs) == 20
+          and pairs[0][:2] == (0, 1) and sum(sizes.values()) == len(clips), f"folds and splits {sizes}")
+    check(sizes["test"] % BATCH != 0, "the test split fills its last batch")
+    print(f"dataset: {len(table)} mp4 clips ({INGEST_SCENES} scenes × {INGEST_CLIPS}, {CLASSES} classes, "
+          f"{INGEST_FRAMES} frames at {INGEST_HW[0]}×{INGEST_HW[1]}) written in {write_s:.1f} s; "
+          f"{INGEST_FOLDS} folds of scenes {[len(f) for f in scenes]}, split (test 0, val 1) sizes {sizes}")
 
-        source = data.ClipSource(spec)
-        t0 = time.perf_counter()
-        for i in range(8):
-            source(split["test"].row(i))
-        print(f"host decode, one thread: {(time.perf_counter() - t0) / 8 * 1e3:.1f} ms a clip "
-              f"({INGEST_FRAMES} frames → {FRAMES} at {STAGING}²)")
+    source = data.ClipSource(spec)
+    t0 = time.perf_counter()
+    for i in range(8):
+        source(split["test"].row(i))
+    print(f"host decode, one thread: {(time.perf_counter() - t0) / 8 * 1e3:.1f} ms a clip "
+          f"({INGEST_FRAMES} frames → {FRAMES} at {STAGING}²)")
 
-        # 1. Probabilities of 4 I3D members over the test split.
-        members = [b.module for b in seeded_members(torch, "I3D", MEMBERS, 40, stem_prestaged=True)]
-        test_pipe = data.BatchPipeline(split["test"], spec, BATCH, shuffle=False, num_workers=8)
-        held, held_s = synced(lambda: list(test_pipe.batches(0)))
-        probs_of(members, held[:1])  # warm-up: cuDNN plans, allocator
-        max_pool_3x3x3_same.launches = 0
-        probs, decode_s = synced(lambda: probs_of(members, test_pipe))
-        launches = max_pool_3x3x3_same.launches
-        n, nb = sizes["test"], len(test_pipe)
-        check(launches == 9 * MEMBERS * nb, f"max-pool launches {launches}, not {9 * MEMBERS * nb}")
-        check_probs(torch, torch.from_numpy(probs), (MEMBERS, n, CLASSES), "decode-inclusive probabilities")
-        held_probs, memory_s = synced(lambda: probs_of(members, held))
-        check(np.array_equal(probs, held_probs), "decode-inclusive probabilities differ from the in-memory ones")
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            _, profiled_s = synced(lambda: probs_of(members, test_pipe))
-        busy_ms = device_busy_ms(prof)
-        check(0 < busy_ms <= profiled_s * 1e3, f"device busy {busy_ms} ms of a {profiled_s * 1e3} ms pass")
-        print(f"member_probabilities, {MEMBERS} I3D members, bf16, {nb} batches of B={BATCH} ({n} clips, the last "
-              f"batch {n - (nb - 1) * BATCH} valid): decode-inclusive (prefetch, 8 decode threads) {n / decode_s:.2f} "
-              f"clips/s; from memory {n / memory_s:.2f} clips/s (torch.equal); host decode alone {n / held_s:.2f} "
-              f"clips/s ({nb * BATCH / held_s:.2f} decodes/s, the padded rows decoded too); card busy {busy_ms:.1f} ms of a profiled decode-inclusive pass of {profiled_s * 1e3:.1f} ms "
-              f"({busy_ms / (profiled_s * 1e3):.3f}), of the unprofiled {decode_s * 1e3:.1f} ms "
-              f"({busy_ms / (decode_s * 1e3):.3f}); max-pool launches {launches} (9 a member a batch)")
+    # 1. Probabilities of 4 I3D members over the test split.
+    members = [b.module for b in seeded_members(torch, "I3D", MEMBERS, 40, stem_prestaged=True)]
+    test_pipe = data.BatchPipeline(split["test"], spec, BATCH, shuffle=False, num_workers=8)
+    held, held_s = synced(lambda: list(test_pipe.batches(0)))
+    probs_of(members, held[:1])  # warm-up: cuDNN plans, allocator
+    max_pool_3x3x3_same.launches = 0
+    probs, decode_s = synced(lambda: probs_of(members, test_pipe))
+    launches = max_pool_3x3x3_same.launches
+    n, nb = sizes["test"], len(test_pipe)
+    check(launches == 9 * MEMBERS * nb, f"max-pool launches {launches}, not {9 * MEMBERS * nb}")
+    check_probs(torch, torch.from_numpy(probs), (MEMBERS, n, CLASSES), "decode-inclusive probabilities")
+    held_probs, memory_s = synced(lambda: probs_of(members, held))
+    check(np.array_equal(probs, held_probs), "decode-inclusive probabilities differ from the in-memory ones")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, profiled_s = synced(lambda: probs_of(members, test_pipe))
+    busy_ms = device_busy_ms(prof)
+    check(0 < busy_ms <= profiled_s * 1e3, f"device busy {busy_ms} ms of a {profiled_s * 1e3} ms pass")
+    print(f"member_probabilities, {MEMBERS} I3D members, bf16, {nb} batches of B={BATCH} ({n} clips, the last "
+          f"batch {n - (nb - 1) * BATCH} valid): decode-inclusive (prefetch, 8 decode threads) {n / decode_s:.2f} "
+          f"clips/s; from memory {n / memory_s:.2f} clips/s (torch.equal); host decode alone {n / held_s:.2f} "
+          f"clips/s ({nb * BATCH / held_s:.2f} decodes/s, the padded rows decoded too); card busy {busy_ms:.1f} ms of a profiled decode-inclusive pass of {profiled_s * 1e3:.1f} ms "
+          f"({busy_ms / (profiled_s * 1e3):.3f}), of the unprofiled {decode_s * 1e3:.1f} ms "
+          f"({busy_ms / (decode_s * 1e3):.3f}); max-pool launches {launches} (9 a member a batch)")
 
-        # 2. The native clip cache: populate, then batches and probabilities from it.
-        cache_pipe = data.BatchPipeline(split["test"], spec, BATCH, shuffle=False, num_workers=8,
-                                        cache_file=os.path.join(tmp, "cache", "test.ccache"))
-        t0 = time.perf_counter()
-        cache_pipe.populate()
-        populate_s = time.perf_counter() - t0
-        check(cache_pipe.cached and all(batches_equal(list(cache_pipe.batches(e)), held, np) for e in (0, 1)),
-              "clip-cache batches differ from the decoded ones")
-        cached_probs, cache_s = synced(lambda: probs_of(members, cache_pipe))
-        check(np.array_equal(cached_probs, probs), "probabilities from the clip cache differ from the decoded ones")
-        shard_mb = os.path.getsize(cache_pipe.source.cache_file) / 1e6
-        print(f"clip cache: populated with {n} clips in {populate_s:.2f} s ({shard_mb:.1f} MB); "
-              f"epochs 0 and 1 by native read_batch bit-equal to decode; member_probabilities from the cache "
-              f"{n / cache_s:.2f} clips/s, equal to the decode route's")
-        maxpool_k = next(k for k in kernels if k["name"] == "max_pool_3x3x3_same")
-        maxpool_k["launches_ingest_probs"] = launches
-        maxpool_k["launches"] += launches
-        del members, held, cache_pipe
-        torch.cuda.empty_cache()
+    # 2. The native clip cache: populate, then batches and probabilities from it.
+    cache_pipe = data.BatchPipeline(split["test"], spec, BATCH, shuffle=False, num_workers=8,
+                                    cache_file=os.path.join(tmp, "cache", "test.ccache"))
+    t0 = time.perf_counter()
+    cache_pipe.populate()
+    populate_s = time.perf_counter() - t0
+    check(cache_pipe.cached and all(batches_equal(list(cache_pipe.batches(e)), held, np) for e in (0, 1)),
+          "clip-cache batches differ from the decoded ones")
+    cached_probs, cache_s = synced(lambda: probs_of(members, cache_pipe))
+    check(np.array_equal(cached_probs, probs), "probabilities from the clip cache differ from the decoded ones")
+    shard_mb = os.path.getsize(cache_pipe.source.cache_file) / 1e6
+    print(f"clip cache: populated with {n} clips in {populate_s:.2f} s ({shard_mb:.1f} MB); "
+          f"epochs 0 and 1 by native read_batch bit-equal to decode; member_probabilities from the cache "
+          f"{n / cache_s:.2f} clips/s, equal to the decode route's")
+    maxpool_k = next(k for k in kernels if k["name"] == "max_pool_3x3x3_same")
+    maxpool_k["launches_ingest_probs"] = launches
+    maxpool_k["launches"] += launches
+    del members, held, cache_pipe
+    torch.cuda.empty_cache()
 
-        # 3. fit of one trainable I3D over the train split, validated on the val split.
-        gen = torch.Generator(device=dev).manual_seed(45)
-        bundle = build_model("I3D", dtype=torch.bfloat16, device=dev, generator=gen, trainable=True)
-        train_pipe = data.BatchPipeline(split["train"], spec, BATCH, seed=0, num_workers=8)
-        val_pipe = data.BatchPipeline(split["val"], spec, BATCH, shuffle=False, num_workers=8)
-        max_pool_3x3x3_same.launches = max_pool_3x3x3_same_backward.launches = salt_pepper.launches = 0
-        out, fit_s = synced(lambda: fit(bundle, train_pipe, val_pipe, epochs=1, augment=True, balanced_classes=True,
-                                        input_scale=INPUT_SCALE))
-        steps, vb = len(train_pipe), len(val_pipe)
-        launches = {"max_pool_3x3x3_same": max_pool_3x3x3_same.launches,
-                    "max_pool_3x3x3_same_backward": max_pool_3x3x3_same_backward.launches,
-                    "salt_pepper": salt_pepper.launches}
-        hist = out["history"]
-        print(f"fit over BatchPipelines: 1 epoch, {steps} train steps of B={BATCH} ({sizes['train']} clips, "
-              f"augment, balanced classes) and {vb} val batches ({sizes['val']} clips) in {fit_s:.2f} s: "
-              f"{(sizes['train'] + sizes['val']) / fit_s:.2f} clips/s decode-inclusive; history {hist}; "
-              f"launches {launches}")
-        check(all(math.isfinite(x) for v in hist.values() for x in v) and len(hist["val_loss"]) == 1,
-              "fit over the pipeline: short or non-finite history")
-        check(launches == {"max_pool_3x3x3_same": 9 * (steps + vb), "max_pool_3x3x3_same_backward": 9 * steps,
-                           "salt_pepper": steps}, f"fit launch counts {launches}")
-        for k in kernels:
-            if k["name"] in launches:
-                k["launches_ingest_fit"] = launches[k["name"]]
-                k["launches"] += launches[k["name"]]
-        del bundle, out
-        torch.cuda.empty_cache()
+    # 3. fit of one trainable I3D over the train split, validated on the val split.
+    gen = torch.Generator(device=dev).manual_seed(45)
+    bundle = build_model("I3D", dtype=torch.bfloat16, device=dev, generator=gen, trainable=True)
+    train_pipe = data.BatchPipeline(split["train"], spec, BATCH, seed=0, num_workers=8)
+    val_pipe = data.BatchPipeline(split["val"], spec, BATCH, shuffle=False, num_workers=8)
+    max_pool_3x3x3_same.launches = max_pool_3x3x3_same_backward.launches = salt_pepper.launches = 0
+    out, fit_s = synced(lambda: fit(bundle, train_pipe, val_pipe, epochs=1, augment=True, balanced_classes=True,
+                                    input_scale=INPUT_SCALE))
+    steps, vb = len(train_pipe), len(val_pipe)
+    launches = {"max_pool_3x3x3_same": max_pool_3x3x3_same.launches,
+                "max_pool_3x3x3_same_backward": max_pool_3x3x3_same_backward.launches,
+                "salt_pepper": salt_pepper.launches}
+    hist = out["history"]
+    print(f"fit over BatchPipelines: 1 epoch, {steps} train steps of B={BATCH} ({sizes['train']} clips, "
+          f"augment, balanced classes) and {vb} val batches ({sizes['val']} clips) in {fit_s:.2f} s: "
+          f"{(sizes['train'] + sizes['val']) / fit_s:.2f} clips/s decode-inclusive; history {hist}; "
+          f"launches {launches}")
+    check(all(math.isfinite(x) for v in hist.values() for x in v) and len(hist["val_loss"]) == 1,
+          "fit over the pipeline: short or non-finite history")
+    check(launches == {"max_pool_3x3x3_same": 9 * (steps + vb), "max_pool_3x3x3_same_backward": 9 * steps,
+                       "salt_pepper": steps}, f"fit launch counts {launches}")
+    for k in kernels:
+        if k["name"] in launches:
+            k["launches_ingest_fit"] = launches[k["name"]]
+            k["launches"] += launches[k["name"]]
+    del bundle, out
+    torch.cuda.empty_cache()
 
-        res = data.ResidentClips.from_pipeline(train_pipe, device=dev)
-        rows = res.resident["rgb"].cpu().numpy()
-        same = all(np.array_equal(rows[b["index"][b["valid"]]], b["rgb"][b["valid"]])
-                   for b in data.BatchPipeline(split["train"], spec, BATCH, shuffle=False, num_workers=8).batches(0))
-        check(same and res.n == sizes["train"] and res.resident["rgb"].device.type == dev.type,
-              "ResidentClips.from_pipeline rows differ from the pipeline's decoded samples")
-        print(f"ResidentClips.from_pipeline: {res.n} train clips on the card ({res.nbytes / 1e9:.2f} GB), rows "
-              "bit-equal to the pipeline's decoded batches")
-        del res, rows
-        torch.cuda.empty_cache()
+    res = data.ResidentClips.from_pipeline(train_pipe, device=dev)
+    rows = res.resident["rgb"].cpu().numpy()
+    same = all(np.array_equal(rows[b["index"][b["valid"]]], b["rgb"][b["valid"]])
+               for b in data.BatchPipeline(split["train"], spec, BATCH, shuffle=False, num_workers=8).batches(0))
+    check(same and res.n == sizes["train"] and res.resident["rgb"].device.type == dev.type,
+          "ResidentClips.from_pipeline rows differ from the pipeline's decoded samples")
+    print(f"ResidentClips.from_pipeline: {res.n} train clips on the card ({res.nbytes / 1e9:.2f} GB), rows "
+          "bit-equal to the pipeline's decoded batches")
+    del res, rows
+    torch.cuda.empty_cache()
 
-        # 4. TwoStream members on gray pairs staged in the same decode pass.
-        ts_members = [b.module for b in seeded_members(torch, "TWOSTREAM_I3D", 2, 50, stem_prestaged=True)]
-        ts_spec = data.SampleSpec(FRAMES, (STAGING, STAGING), two_stream=True, flow_precomputed=False)
-        ts_pipe = data.BatchPipeline(split["test"], ts_spec, TWOSTREAM_INGEST_BATCH, shuffle=False, num_workers=8)
-        ts_held = list(ts_pipe.batches(0))
-        check(sorted(ts_held[0]) == ["gray", "gray_next", "index", "label", "rgb", "valid"], "TwoStream batch keys")
-        flow_params = dict(TURBO_PARAMS)
-        probs_of(ts_members, ts_held[:1], flow_params=flow_params)  # warm-up
-        max_pool_3x3x3_same.launches = 0
-        ts_probs, ts_s = synced(lambda: probs_of(ts_members, ts_pipe, flow_params=flow_params))
-        launches, nb = max_pool_3x3x3_same.launches, len(ts_pipe)
-        check(launches == 18 * 2 * nb, f"TwoStream max-pool launches {launches}, not {18 * 2 * nb}")
-        check_probs(torch, torch.from_numpy(ts_probs), (2, n, CLASSES), "TwoStream decode-inclusive probabilities")
-        check(np.array_equal(ts_probs, probs_of(ts_members, ts_held, flow_params=flow_params)),
-              "TwoStream decode-inclusive probabilities differ from the in-memory ones")
-        print(f"TwoStream: 2 members, gray pairs staged by one decode pass, turbo Farnebäck on the card, {nb} batches "
-              f"of B={TWOSTREAM_INGEST_BATCH}: {n / ts_s:.2f} clips/s decode-inclusive, equal to the in-memory "
-              f"batches; max-pool launches {launches} (18 a member a batch)")
-        maxpool_k["launches_ingest_twostream"] = launches
-        maxpool_k["launches"] += launches
-        del ts_members, ts_held
-        torch.cuda.empty_cache()
+    # 4. TwoStream members on gray pairs staged in the same decode pass.
+    ts_members = [b.module for b in seeded_members(torch, "TWOSTREAM_I3D", 2, 50, stem_prestaged=True)]
+    ts_spec = data.SampleSpec(FRAMES, (STAGING, STAGING), two_stream=True, flow_precomputed=False)
+    ts_pipe = data.BatchPipeline(split["test"], ts_spec, TWOSTREAM_INGEST_BATCH, shuffle=False, num_workers=8)
+    ts_held = list(ts_pipe.batches(0))
+    check(sorted(ts_held[0]) == ["gray", "gray_next", "index", "label", "rgb", "valid"], "TwoStream batch keys")
+    flow_params = dict(TURBO_PARAMS)
+    probs_of(ts_members, ts_held[:1], flow_params=flow_params)  # warm-up
+    max_pool_3x3x3_same.launches = 0
+    ts_probs, ts_s = synced(lambda: probs_of(ts_members, ts_pipe, flow_params=flow_params))
+    launches, nb = max_pool_3x3x3_same.launches, len(ts_pipe)
+    check(launches == 18 * 2 * nb, f"TwoStream max-pool launches {launches}, not {18 * 2 * nb}")
+    check_probs(torch, torch.from_numpy(ts_probs), (2, n, CLASSES), "TwoStream decode-inclusive probabilities")
+    check(np.array_equal(ts_probs, probs_of(ts_members, ts_held, flow_params=flow_params)),
+          "TwoStream decode-inclusive probabilities differ from the in-memory ones")
+    print(f"TwoStream: 2 members, gray pairs staged by one decode pass, turbo Farnebäck on the card, {nb} batches "
+          f"of B={TWOSTREAM_INGEST_BATCH}: {n / ts_s:.2f} clips/s decode-inclusive, equal to the in-memory "
+          f"batches; max-pool launches {launches} (18 a member a batch)")
+    maxpool_k["launches_ingest_twostream"] = launches
+    maxpool_k["launches"] += launches
+    del ts_members, ts_held
+    torch.cuda.empty_cache()
+
+
+EXPERIMENT_BATCH, EXPERIMENT_FOLDS = 8, 3
+
+
+def offline_decisions(torch, clip, seed: int):
+    """The offline policy's decisions of one decoded clip, as
+    `augment_offline.augment_clip` draws them (a CPU generator seeded by
+    `seed`)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.data.augment_offline import OFFLINE_AUGMENT_P
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.augment import draw_decisions
+
+    return draw_decisions(torch.Generator().manual_seed(seed), 1, clip.shape[1:3], OFFLINE_AUGMENT_P)
+
+
+def offline_plain_frames(torch, clip, seed: int, dev, gates: bool = True):
+    """The offline policy's uint8 frames of one decoded clip by the plain
+    route: the same decisions, crop, flip and resize on the card, then
+    `salt_pepper`'s plain version on the card; with gates=False the salt
+    and pepper gates are cleared first (the frames without noise)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.data.augment_offline import OFFLINE_OUT_HW
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.augment import NOISE_RATIO, crop_flip_resize
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper_plain
+
+    d = offline_decisions(torch, clip, seed).to(dev)
+    if not gates:
+        off = torch.zeros_like(d.salt)
+        d = dataclasses.replace(d, salt=off, pepper=off)
+    out = crop_flip_resize(torch.from_numpy(clip).to(dev)[None], OFFLINE_OUT_HW, d)
+    out = salt_pepper_plain(out, d.seed, d.salt, d.pepper, NOISE_RATIO)
+    return out[0].to(torch.uint8).cpu().numpy()
+
+
+def check_experiment(torch, np, dev, kernels, tmp: str) -> None:
+    """The experiment pipeline through `orchestration`: an I3D experiment of 3
+    folds on phase 21's dataset (written here when absent), offline
+    augmentation of every fold clip on the card (noise kernel), 2 members
+    trained, the recovery list and commands, bf16 and static-int8
+    probability caches, SUM and VALIDATION_ERROR_INVERSE evaluation through
+    the providers, and the report matrices."""
+    from crowded_scenes_ensemble_classification_tpu_torch import data, orchestration as orch, reports
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ExperimentConfig
+    from crowded_scenes_ensemble_classification_tpu_torch.data import augment_offline
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.evaluate import evaluate_ensembles
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.probability_store import load_probabilities
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import int8_conv3d, quantize_int8
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper
+    from crowded_scenes_ensemble_classification_tpu_torch.utils.metrics import StageTimer
+
+    counters = {"max_pool_3x3x3_same": max_pool_3x3x3_same, "max_pool_3x3x3_same_backward":
+                max_pool_3x3x3_same_backward, "salt_pepper": salt_pepper, "int8_conv3d": int8_conv3d,
+                "quantize_int8": quantize_int8}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launched():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    totals = dict.fromkeys(counters, 0)
+    timer = StageTimer()
+
+    def stage(name, items, fn, profiled=False):
+        """Run fn() as a timed stage with the counts zeroed first; returns
+        (its value, its launches, the card's busy ms or None)."""
+        zero()
+        if profiled:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                with timer.stage(name, items, dev):
+                    out = fn()
+        else:
+            with timer.stage(name, items, dev):
+                out = fn()
+        counts = launched()
+        for k, v in counts.items():
+            totals[k] += v
+        return out, counts, device_busy_ms(prof) if profiled else None
+
+    table, write_s = ingest_dataset(data, tmp)
+    n_clips = len(table)
+    config = ExperimentConfig("I3D", "_SCRATCH", folds_number=EXPERIMENT_FOLDS,
+                              augmentation_status="augmented_precomputed", augmentation_frequency=1, epochs=1,
+                              batch_size=EXPERIMENT_BATCH)
+    work = os.path.join(tmp, "experiment")
+    print(f"experiment: {config.subfolder_name()}, {n_clips} clips"
+          + (f" (dataset written here in {write_s:.1f} s)" if write_s else " (phase 21's dataset)"))
+
+    # 1. prepare_ensemble: folds, offline augmentation of every clip on the card, splits, manifest.
+    layout, counts, _ = stage("prepare", n_clips, lambda: orch.prepare_ensemble(config, table, work))
+    check(counts == {**dict.fromkeys(counters, 0), "salt_pepper": n_clips},
+          f"prepare launches {counts}: one noise launch a clip expected")
+    folds_dir = os.path.join(layout.folds_dir, f"{EXPERIMENT_FOLDS}_folds")
+    folds = [data.ClipTable.read_csv(os.path.join(folds_dir, f"fold{i}.csv")) for i in range(EXPERIMENT_FOLDS)]
+    check(all(f.columns[-1] == "rgbclips_augmented_0_path" for f in folds)
+          and sum(len(f) for f in folds) == n_clips, "the fold CSVs lack rgbclips_augmented_0_path")
+    copies = sorted(os.listdir(layout.augmented_dir))
+    mtimes = [os.path.getmtime(os.path.join(layout.augmented_dir, f)) for f in copies]
+    check(len(copies) == n_clips, f"{len(copies)} augmented copies for {n_clips} clips")
+    before = salt_pepper.launches
+    augment_offline.augment_folds(folds_dir, layout.augmented_dir, EXPERIMENT_FOLDS, 1)
+    check(salt_pepper.launches == before
+          and [os.path.getmtime(os.path.join(layout.augmented_dir, f)) for f in copies] == mtimes,
+          "a second augment_folds re-encoded copies")
+    # The first clip of fold 0 whose copy has its salt and pepper gates on, so that the kernel writes pixels.
+    for index, src in enumerate(folds[0]["rgbclips_path"]):
+        clip = augment_offline._load_full_clip(src)
+        seed = augment_offline.offline_seed(0, 0, index, 0)
+        d = offline_decisions(torch, clip, seed)
+        if bool(d.salt[0] and d.pepper[0]):
+            break
+    else:
+        raise AssertionError("no copy of fold 0 has both noise gates on")
+    kernel_frames = augment_offline.augment_clip(clip, seed, dev)
+    check(np.array_equal(kernel_frames, offline_plain_frames(torch, clip, seed, dev)),
+          "offline frames differ from the plain route's")
+    quiet = offline_plain_frames(torch, clip, seed, dev, gates=False)
+    noise_px = int((kernel_frames != quiet).any(-1).sum())
+    check(noise_px > 0, "the offline noise kernel changed no pixel with both gates on")
+    decoded = data.decode_clip(folds[0]["rgbclips_augmented_0_path"][index], INGEST_FRAMES, None)
+    check(decoded.shape == (INGEST_FRAMES, 224, 224, 3), f"augmented copy decodes to {decoded.shape}")
+    print(f"prepare_ensemble: {EXPERIMENT_FOLDS} folds {[len(f) for f in folds]}, {n_clips} augmented copies "
+          f"({INGEST_FRAMES} frames at {INGEST_HW[0]}×{INGEST_HW[1]} → 224²) in {timer.seconds('prepare'):.2f} s: "
+          f"{timer.rate('prepare'):.2f} clips/s offline augmentation (cv2 decode, the policy on the card, mp4 "
+          f"encode); {counts['salt_pepper']} noise launches; a second augment_folds encoded nothing; fold 0 clip "
+          f"{index}'s frames (salt and pepper gates on, {noise_px} noisy pixels) equal the plain route's")
+
+    # 2. Two members trained (max-pool and its gradient kernels), then the recovery list.
+    members = [(0, 1), (0, 2)]
+    sizes = {}
+    for t, v in members:
+        train = data.expand_precomputed_augmentation(
+            data.ClipTable.read_csv(layout.split_csv(t, v, "train")), 1)
+        sizes[(t, v)] = {k: -(-n // EXPERIMENT_BATCH) for k, n in (
+            ("train", len(train)), ("val", len(data.ClipTable.read_csv(layout.split_csv(t, v, "val")))),
+            ("test", len(data.ClipTable.read_csv(layout.split_csv(t, v, "test")))))}
+        sizes[(t, v)]["clips"] = len(train) + sum(
+            len(data.ClipTable.read_csv(layout.split_csv(t, v, k))) for k in ("val", "test"))
+    trained_clips = sum(z["clips"] for z in sizes.values())
+    results, counts, busy = stage("train", trained_clips, lambda: orch.launch_ensemble_training(
+        config, table, work, members=members), profiled=True)
+    steps = sum(z["train"] for z in sizes.values())
+    evals = sum(z["val"] + z["test"] for z in sizes.values())
+    check(counts == {**dict.fromkeys(counters, 0), "max_pool_3x3x3_same": 9 * (steps + evals),
+                     "max_pool_3x3x3_same_backward": 9 * steps},
+          f"training launches {counts}: {steps} steps and {evals} eval batches")
+    losses = [x for r in results.values() for x in r["history"]["loss"] + r["history"]["val_loss"] + [r["test_loss"]]]
+    check(sorted(results) == members and all(math.isfinite(x) for x in losses), f"member losses {losses}")
+    train_s = timer.seconds("train")
+    print(f"launch_ensemble_training: members {members}, 1 epoch each, B={EXPERIMENT_BATCH}, bf16 on f32 master "
+          f"weights, {steps} train steps ({trained_clips} clips stepped or evaluated) in {train_s:.2f} s: "
+          f"{timer.rate('train'):.2f} clips/s decode-inclusive; card busy {busy:.1f} ms ({busy / (train_s * 1e3):.3f} "
+          f"of the profiled stage); losses {[round(x, 4) for x in losses]}; launches {counts}")
+    pending = orch.pending_members(config, layout)
+    check(pending == [(1, 0), (1, 2), (2, 0), (2, 1)], f"pending members {pending}")
+    commands = orch.launch_ensemble_training(config, table, work, runner="commands", recover=True)
+    check(len(commands) == 4 and commands == orch.member_cli_commands(config, work, pairs=pending)
+          and all(c.startswith(f"python -m {PORT} train") for c in commands), "recovery commands")
+    print(f"recovery: pending {pending}, {len(commands)} commands, e.g. {commands[0]!r}")
+
+    # 3. Probability caches of test fold 0: bf16, then static int8 (calibrated on 2 batches).
+    n_test = len(data.ClipTable.read_csv(layout.split_csv(0, 1, "test")))
+    nb = -(-n_test // EXPERIMENT_BATCH)
+    paths = {}
+    for name, kw in (("bf16", {}), ("int8static", {"quant": "static"})):
+        path, counts, busy = stage(f"probs_{name}", n_test, lambda: orch.cache_probabilities(config, layout, 0, **kw),
+                                   profiled=True)
+        d = load_probabilities(path)
+        probs = torch.from_numpy(d["probs"])
+        check_probs(torch, probs, (2, n_test, CLASSES), f"{name} probabilities")
+        want = {**dict.fromkeys(counters, 0), "max_pool_3x3x3_same": 9 * 2 * (nb + (2 if kw else 0))}
+        if kw:
+            want.update(int8_conv3d=57 * 2 * nb, quantize_int8=57 * 2 * nb)
+        check(counts == want, f"{name} probability launches {counts}, expected {want}")
+        mtime = os.path.getmtime(path)
+        zero()
+        again = orch.cache_probabilities(config, layout, 0, **kw)
+        check(again == path and os.path.getmtime(path) == mtime and launched() == dict.fromkeys(counters, 0),
+              f"a second {name} cache_probabilities recomputed")
+        paths[name] = path
+        secs = timer.seconds(f"probs_{name}")
+        print(f"cache_probabilities {name}: {os.path.basename(path)}, (2, {n_test}, {CLASSES}) in {secs:.2f} s: "
+              f"{timer.rate(f'probs_{name}'):.2f} clips/s decode-inclusive (members built and loaded"
+              f"{', calibrated' if kw else ''}); card busy {busy:.1f} ms ({busy / (secs * 1e3):.3f}); launches "
+              f"{counts}; the second call returned the cache")
+    check(paths["bf16"] != paths["int8static"], "the bf16 and int8 caches share a path")
+    drift = float((torch.from_numpy(load_probabilities(paths["bf16"])["probs"])
+                   - torch.from_numpy(load_probabilities(paths["int8static"])["probs"])).abs().max())
+    print(f"bf16 vs static int8 probabilities: max |dprob| {drift:.4f} (random-init members; not gated)")
+
+    # 4. Evaluation through the providers (test fold 0: the fold whose members are trained).
+    provider = orch.make_prob_provider(config, layout)
+    zero()
+    res = {scheme: evaluate_ensembles(provider, 1, scheme, name=config.subfolder_name(),
+                                      min_val_losses_provider=orch.min_val_losses_provider(config, layout))
+           for scheme in ("SUM", "VALIDATION_ERROR_INVERSE")}
+    check(launched() == dict.fromkeys(counters, 0), "evaluation recomputed probabilities")
+    weights = res["VALIDATION_ERROR_INVERSE"].folds[0].weights
+    check(len(weights) == 2 and abs(float(np.sum(weights)) - 1.0) < 1e-6, f"VEI weights {weights}")
+    csv_path = res["SUM"].save_predictions_csv(layout.results_dir)
+    print(f"evaluate_ensembles on test fold 0: SUM accuracy {res['SUM'].mean_accuracy:.4f}, "
+          f"VALIDATION_ERROR_INVERSE {res['VALIDATION_ERROR_INVERSE'].mean_accuracy:.4f} (weights "
+          f"{np.round(np.asarray(weights, np.float64), 4).tolist()}), member accuracies "
+          f"{res['SUM'].folds[0].member_accuracies}; {os.path.basename(csv_path)} written")
+
+    # 5. Report matrices, and their PDFs where matplotlib imports.
+    d = load_probabilities(paths["bf16"])
+    cm = reports.row_normalize(reports.confusion_matrix(d["labels"], res["SUM"].folds[0].predictions, CLASSES))
+    hist = reports.agreement_histogram(reports.members_correct_per_clip(d["probs"], d["labels"]), 2)
+    check(cm.shape == (CLASSES, CLASSES) and hist.sum() == n_test, "report matrices")
+    try:
+        import matplotlib
+    except ImportError as e:
+        print(f"reports: matplotlib absent ({e}): matrices computed, PDFs not rendered")
+    else:
+        pdfs = [reports.render_confusion_pdf(cm, os.path.join(layout.results_dir, "confusion.pdf"), "fold 0",
+                                             reports.CROWD11_CLASS_NAMES),
+                reports.render_agreement_pdf([hist], os.path.join(layout.results_dir, "agreement.pdf"), 2)]
+        check(all(open(p, "rb").read(4) == b"%PDF" for p in pdfs), "report PDFs")
+        print(f"reports: matplotlib {matplotlib.__version__}: confusion and agreement PDFs rendered")
+    print(f"reports: agreement histogram {hist.tolist()}, confusion diagonal {np.round(np.diag(cm), 3).tolist()}")
+    print(f"experiment seconds by stage {({k: round(v, 2) for k, v in timer.totals.items()})}; launches in the phase "
+          f"{totals}")
+    for k in kernels:
+        if k["name"] in totals:
+            k["launches_experiment"] = totals[k["name"]]
+            k["launches"] += totals[k["name"]]
 
 
 def ingest_dependencies() -> str:
@@ -2763,7 +3027,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("int8", check_int8, torch, np, dev, kernels)
     torch.cuda.empty_cache()
-    phase("ingest", check_ingest, torch, np, dev, kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("ingest", check_ingest, torch, np, dev, kernels, tmp)
+        torch.cuda.empty_cache()
+        phase("experiment", check_experiment, torch, np, dev, kernels, tmp)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase {phase_s}")
     print(json.dumps({"kernels": kernels}))

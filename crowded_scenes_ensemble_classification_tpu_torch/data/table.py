@@ -3,9 +3,11 @@ DataFrames of the JAX data layer.
 
 The card's machine has no pandas, so the clip table, the fold and split CSVs
 and the pipelines' row lists live in `ClipTable`: ordered columns of numpy
-arrays (int64 for whole numbers, object arrays of `str` otherwise), with the few operations `data/` needs: column access
-(`table["class"]`, as `train.engine.fit` reads it), rows by position that
-carry their position as `row.name` (what pandas gives after
+arrays (int64 for whole numbers, object arrays of `str` otherwise), with the
+few operations `data/` needs: column access (`table["class"]`, as
+`train.engine.fit` reads it) and assignment (`table[name] = values`, as
+offline augmentation adds its path columns), rows by position that carry
+their position as `row.name` (what pandas gives after
 `reset_index(drop=True)`, which the JAX callers always apply), filtering,
 sorting and concatenation.  Every derived table is indexed 0..n-1 again.
 
@@ -106,6 +108,16 @@ class ClipTable:
 
     def __getitem__(self, name: str) -> np.ndarray:
         return self._cols[name]
+
+    def __setitem__(self, name: str, values: Sequence) -> None:
+        """Set a column: a new one goes last, an existing one keeps its
+        place (pandas `df[name] = values`)."""
+        col = _column(values)
+        if self._cols and len(col) != self._n:
+            raise ValueError(f"column {name!r} has {len(col)} rows, the table {self._n}")
+        if not self._cols:
+            self._n = len(col)
+        self._cols[name] = col
 
     def __repr__(self) -> str:
         return f"ClipTable({self._n} rows, columns {self.columns})"

@@ -18,18 +18,21 @@ Counterpart of `crowded_scenes_ensemble_classification_tpu/models/pretrained.py`
 A checkpoint is a Keras h5 path, its layer dict (`weights_io.
 read_keras_h5`'s form, which needs no h5py), or a converted state-dict file
 (`weights_registry.convert_keras_checkpoint`, a path ending in `.pt`).
-`build_with_condition` waits for `ExperimentConfig` (ROADMAP Queue 1
-item 6).
+`build_with_condition` (JAX pretrained.py:115-134) builds an experiment's
+seeded model and applies its training condition.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from ..core.config import ExperimentConfig
+from ..utils.device import resolve_device
 from .i3d import I3DKinetics
+from .registry import ModelBundle, build_model
 from .weights_io import state_dict_from_keras
 from .weights_registry import Source, keras_layers, load_converted
 
@@ -97,3 +100,26 @@ def load_pretrained(
             raise ValueError(f"shape mismatch at {k}: {tuple(fresh[k].shape)} vs {tuple(v.shape)}")
     module.load_state_dict({**fresh, **state}, strict=True)
     return module
+
+
+def build_with_condition(
+    config: ExperimentConfig,
+    seed: int = 0,
+    rgb_h5: Optional[Source] = None,
+    flow_h5: Optional[Source] = None,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+    trainable: bool = True,
+) -> Tuple[ModelBundle, Dict[str, torch.Tensor]]:
+    """(bundle, its state dict) honouring `config.training_condition`, the
+    train_load_model dispatch (train.py:1619-1710): the model's weights drawn
+    on `device` (the card when None) from a generator seeded by `seed`
+    (_SCRATCH), then the checkpoints overlaid by `load_pretrained`
+    (_PRETRAINED).  A trainable bundle computing in `dtype` by default."""
+    device = resolve_device(device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    bundle = build_model(config.model_type, config.num_classes, dtype=dtype, device=device, generator=generator,
+                         trainable=trainable)
+    if config.training_condition == "_PRETRAINED":
+        load_pretrained(config.model_type, bundle.module, config.num_classes, rgb_h5, flow_h5)
+    return bundle, bundle.module.state_dict()

@@ -12,6 +12,10 @@ the decisions are a value of their own: `draw_decisions` takes them from a
 `torch.Generator`, and `crowd11_augment_from_decisions` applies given ones,
 which is what the parity tests feed with the JAX package's own draws.
 
+`crowd11_augment` is the single-clip form (JAX augment.py:42-93) that
+offline augmentation calls: the batch form with B=1, so its salt/pepper
+tail is the noise kernel on the card as on every other augmenting path.
+
 `crowd11_augment_gray_pair_batch` (JAX augment.py:132-200) applies the rgb
 stream's decisions to the Farnebäck gray pairs of the augmented-Farnebäck
 mode, whose salt and pepper are per-pixel `torch.where`s as there.
@@ -73,7 +77,7 @@ def draw_decisions(
     return AugmentDecisions(do_crop, y0, x0, flip, salt, pepper, seed)
 
 
-def _crop_flip_resize(clips: torch.Tensor, out_hw: Tuple[int, int], d: AugmentDecisions) -> torch.Tensor:
+def crop_flip_resize(clips: torch.Tensor, out_hw: Tuple[int, int], d: AugmentDecisions) -> torch.Tensor:
     """The per-clip crop window (or the whole frame) and flip of `d`,
     resampled to out_hw (JAX augment.py:57-82)."""
     _, _, h, w, _ = clips.shape
@@ -95,7 +99,7 @@ def crowd11_augment_from_decisions(
     per-clip window and flip as in JAX crowd11_augment (augment.py:57-82),
     then the salt/pepper kernel with the decisions' gates and seed."""
     d = decisions.to(clips.device)
-    out = _crop_flip_resize(clips, out_hw, d)
+    out = crop_flip_resize(clips, out_hw, d)
     return salt_pepper(out, d.seed, d.salt, d.pepper, NOISE_RATIO)
 
 
@@ -109,6 +113,18 @@ def crowd11_augment_batch(
     b, _, h, w, _ = clips.shape
     decisions = draw_decisions(generator, b, (h, w), p)
     return crowd11_augment_from_decisions(clips, out_hw, decisions)
+
+
+def crowd11_augment(
+    clip: torch.Tensor,
+    out_hw: Tuple[int, int],
+    p: float,
+    generator: torch.Generator,
+) -> torch.Tensor:
+    """Augment one (T, H, W, C) clip → float32 (T, oh, ow, C):
+    `crowd11_augment_batch` of the clip as a batch of one, its decisions
+    drawn from `generator`."""
+    return crowd11_augment_batch(clip[None], out_hw, p, generator)[0]
 
 
 def identity_resize_batch(clips: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -141,7 +157,7 @@ def crowd11_augment_gray_pair_from_decisions(
     and pepper gates and the pixel's hit agree, per frame of the pair."""
     _, _, h, w, _ = gray.shape
     d = decisions.to(gray.device)
-    out = [_crop_flip_resize(g, (h, w), d) for g in (gray, gray_next)]
+    out = [crop_flip_resize(g, (h, w), d) for g in (gray, gray_next)]
     if hits is None:
         return out[0], out[1]
     gate = lambda g: g.view(-1, 1, 1, 1, 1)  # noqa: E731

@@ -304,15 +304,20 @@ def evaluate_model(
     input_scale: float = 1.0,
     flow_fast_warp: bool = False,
     flow_params: Optional[dict] = None,
+    eval_step=None,
 ) -> Dict[str, Any]:
     """Masked eval over epoch 0 of `pipeline` (reference evaluate(),
     train.py:1925-1971, batched): {"loss", "accuracy", "count"} and, with
     `collect_probs`, the valid rows' probabilities in clip-id order.  The
-    module holds the weights, so no variables are passed.  The step is the
-    resident one for a `ResidentClips`, else the dense one; TwoStream gray
-    pairs turn into flow with `flow_params` and `flow_fast_warp`."""
-    make = make_resident_eval_step if isinstance(pipeline, ResidentClips) else make_eval_step
-    eval_step = make(bundle, out_hw, input_scale=input_scale, flow_fast_warp=flow_fast_warp, flow_params=flow_params)
+    module holds the weights, so no variables are passed.  The step is
+    `eval_step` when given (one step shared across calls, JAX
+    engine.py:518-536), else the resident one for a `ResidentClips` and
+    the dense one otherwise; TwoStream gray pairs turn into flow with
+    `flow_params` and `flow_fast_warp`."""
+    if eval_step is None:
+        make = make_resident_eval_step if isinstance(pipeline, ResidentClips) else make_eval_step
+        eval_step = make(bundle, out_hw, input_scale=input_scale, flow_fast_warp=flow_fast_warp,
+                         flow_params=flow_params)
     sums = torch.zeros(3, dtype=torch.float64, device=bundle.device)  # loss_sum, correct, count
     probs_all, ids_all = [], []
     with iterate_batches(pipeline, 0) as batches:
@@ -356,6 +361,8 @@ def fit(
     resume_full: bool = False,
     flow_from_augmented: bool = False,
     flow_params: Optional[dict] = None,
+    train_step=None,
+    eval_step=None,
 ) -> Dict[str, Any]:
     """Epoch loop with the reference's callback semantics (JAX
     engine.py:569-744).  Trains `bundle` (a trainable one) in place from its
@@ -368,7 +375,10 @@ def fit(
     - The steps are the resident ones for a `ResidentClips`, else the
       dense ones, with the family's optimizer and l2 rule (`train_policy`).
     - TwoStream gray pairs turn into flow with `flow_params`, in training
-      from the augmented pairs with `flow_from_augmented`."""
+      from the augmented pairs with `flow_from_augmented`.
+    - `train_step`/`eval_step`: steps built once and shared across fits
+      (JAX engine.py:594-603), closing over this bundle; a train step must
+      have been built with the same optimizer factory as `optimizer`."""
     out_hw = (bundle.clip.height, bundle.clip.width)
     policy = lr_policy or lr_policy_for(bundle.model_type)
     tx, l2w = train_policy(bundle.model_type, optimizer or make_optimizer(bundle.model_type, policy.initial_lr))
@@ -384,9 +394,10 @@ def fit(
     else:
         cw = torch.ones(bundle.num_classes, device=bundle.device)
 
-    make = make_resident_train_step if isinstance(train_pipeline, ResidentClips) else make_train_step
-    train_step = make(bundle, tx, out_hw, augment, augment_p, l2w, input_scale=input_scale,
-                      flow_params=flow_params, flow_from_augmented=flow_from_augmented)
+    if train_step is None:
+        make = make_resident_train_step if isinstance(train_pipeline, ResidentClips) else make_train_step
+        train_step = make(bundle, tx, out_hw, augment, augment_p, l2w, input_scale=input_scale,
+                          flow_params=flow_params, flow_from_augmented=flow_from_augmented)
     early = EarlyStopping(patience=early_stopping_patience)
     history = {"loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
     best_val = math.inf
@@ -421,7 +432,8 @@ def fit(
             history["loss"].append(epoch_loss)
             break
 
-        val = evaluate_model(bundle, val_pipeline, out_hw, input_scale=input_scale, flow_params=flow_params)
+        val = evaluate_model(bundle, val_pipeline, out_hw, input_scale=input_scale, flow_params=flow_params,
+                             eval_step=eval_step)
         history["loss"].append(epoch_loss)
         history["accuracy"].append(epoch_acc)
         history["val_loss"].append(val["loss"])

@@ -1020,3 +1020,44 @@ def test_static_member_export_on_card_equals_eager(torch, no_tf32, tmp_path):
     sites = len(quant_sites(module))
     assert (int8_conv3d.launches - before[0], quantize_int8.launches - before[1]) == (sites, sites)
     assert torch.equal(out["probs"], eager)
+
+
+def test_offline_augment_video_file_on_card_equals_plain_route(torch, tmp_path):
+    """`augment_video_file` on the card (the noise kernel, one launch) writes
+    the frames of the plain route: the same decisions, crop, flip and resize
+    on the card, then `salt_pepper`'s plain version, on a copy whose salt and
+    pepper gates are on (its frames differ from the noiseless ones); the two
+    mp4 files decode to the same frames, and the copy re-runs bit-equal."""
+    import numpy as np
+
+    pytest.importorskip("cv2")
+    from crowded_scenes_ensemble_classification_tpu_torch.data import augment_offline, video_io
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.augment import NOISE_RATIO, crop_flip_resize, draw_decisions
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper, salt_pepper_plain
+
+    clip = np.random.default_rng(0).integers(0, 256, (12, 120, 160, 3), dtype=np.uint8)
+    src = str(tmp_path / "src.mp4")
+    video_io.write_video(src, clip)
+    decoded = augment_offline._load_full_clip(src)
+    for clip_index in range(16):  # the first copy whose noise gates are on
+        seed = augment_offline.offline_seed(0, 1, clip_index, 0)
+        d = draw_decisions(torch.Generator().manual_seed(seed), 1, decoded.shape[1:3],
+                           augment_offline.OFFLINE_AUGMENT_P)
+        if bool(d.salt[0] and d.pepper[0]):
+            break
+    else:
+        pytest.fail("no copy of the first 16 has both noise gates on")
+    d = d.to("cuda")
+    x = torch.from_numpy(decoded).cuda()[None]
+    resized = crop_flip_resize(x, augment_offline.OFFLINE_OUT_HW, d)
+    plain = salt_pepper_plain(resized, d.seed, d.salt, d.pepper, NOISE_RATIO)[0].to(torch.uint8).cpu().numpy()
+    before = salt_pepper.launches
+    out = augment_offline.augment_video_file(src, str(tmp_path / "kernel.mp4"), seed, device="cuda")
+    assert salt_pepper.launches == before + 1
+    frames = augment_offline.augment_clip(decoded, seed, "cuda")
+    assert frames.shape == (12, 224, 224, 3) and np.array_equal(frames, plain)
+    assert (frames != resized[0].to(torch.uint8).cpu().numpy()).any()  # the noise wrote pixels
+    assert np.array_equal(frames, augment_offline.augment_clip(decoded, seed, "cuda"))
+    video_io.write_video(str(tmp_path / "plain.mp4"), plain)
+    assert np.array_equal(video_io.decode_clip(out, 12, None), video_io.decode_clip(str(tmp_path / "plain.mp4"), 12,
+                                                                                        None))

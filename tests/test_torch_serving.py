@@ -18,6 +18,7 @@ the port are imported by fixtures, not at collection
 import os
 from unittest import mock
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -28,6 +29,7 @@ from crowded_scenes_ensemble_classification_tpu.ensemble.members import (
 from crowded_scenes_ensemble_classification_tpu.ensemble.members import stack_variables
 from crowded_scenes_ensemble_classification_tpu.models import i3d as ji3d
 from crowded_scenes_ensemble_classification_tpu.models.registry import ModelBundle as JModelBundle
+from crowded_scenes_ensemble_classification_tpu.ops import augment as jaugment
 from torch_port_memory import release_heap_after_module, torch  # noqa: F401 (fixtures)
 
 FRAMES, HW, BATCH, MEMBERS, CLASSES = 16, 32, 2, 2, 11
@@ -50,7 +52,13 @@ def reference(torch):
     for share, hw in SERVE_HW.items():
         h, w = hw or (HW, HW)
         rgb = rng.integers(0, 256, (BATCH, FRAMES, h, w, 3), dtype=np.uint8)
-        batches[share] = rgb, np.asarray(forward(stack_variables(vs), {"rgb": rgb}))
+        # One compile of the forward serves both sizes: the 40² batch goes
+        # through JAX's own resize first, the step the forward takes, and the
+        # forward's resize of the 32² floats it then gets is an exact copy.
+        x = jnp.asarray(rgb, jnp.float32)
+        if hw is not None:
+            x = jaugment.identity_resize_batch(x, (HW, HW))
+        batches[share] = rgb, np.asarray(forward(stack_variables(vs), {"rgb": x}))
     return vs, batches
 
 
@@ -166,6 +174,35 @@ def _static_member(torch, case, gen, calib_batch):
     return module, ClipSpec(FRAMES, HW, HW), share, keys
 
 
+def _fresh_static_member(torch, case):
+    """A baked static member of `case`'s architecture on other weights
+    (seed 99), with every activation scale at 1 instead of a calibration
+    pass: it holds static operands of its own, so a load must refresh
+    them."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models.c3d import C3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3D
+    from crowded_scenes_ensemble_classification_tpu_torch.models.quantize import (
+        quant_sites,
+        quantize_variables,
+        set_quant_mode,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.models.r3d import R3D
+
+    gen = torch.Generator().manual_seed(99)
+    if case == "C3D":
+        module = C3D(CLASSES, 0.125, clip_thw=(FRAMES, HW, HW), generator=gen, quant="calib")
+    elif case == "R3D_18":
+        module = R3D(CLASSES, 18, 0.125, generator=gen, quant="calib")
+    else:
+        module = I3D(CLASSES, frames=FRAMES, stem_prestaged=True, generator=gen, quant="calib")
+    sites = quant_sites(module).values()
+    for m in sites:
+        m.act_absmax.fill_(1.0)
+    set_quant_mode(quantize_variables(module), "static")
+    assert all(m.static_wp is not None for m in sites)
+    return module.eval()
+
+
 @pytest.mark.parametrize("case", STATIC_CASES)
 def test_static_int8_member_exports_equal_to_eager(torch, tmp_path, case):
     """A baked static-int8 member (C3D and R3D-18 at width 0.125, a
@@ -208,8 +245,10 @@ def test_static_int8_member_exports_equal_to_eager(torch, tmp_path, case):
     assert torch.equal(out["probs"], eager)
     assert torch.equal(out["preds"], eager[0].argmax(-1))
 
-    fresh, _, _, _ = _static_member(torch, case, torch.Generator().manual_seed(99), calib)
+    fresh = _fresh_static_member(torch, case)
+    held = {n: m.static_wp.clone() for n, m in quant_sites(fresh).items()}
     fresh.load_state_dict(state, strict=True)
+    assert all(not torch.equal(m.static_wp, held[n]) for n, m in quant_sites(fresh).items())
     again = make_member_forward([fresh], (HW, HW), share_stem_staging=share, input_scale=SCALE)(batch)
     assert torch.equal(again, eager)
 

@@ -28,6 +28,7 @@ port are imported by fixtures, not at collection
 (tests/torch_port_memory.py).
 """
 
+import functools
 import importlib
 
 import jax
@@ -107,9 +108,16 @@ def _jax_tx(model_type):
     return jstate.make_optimizer(model_type, jcallbacks.lr_policy_for(model_type).initial_lr)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_state_fn(tx):
+    """`jstate.TrainState.create` with `tx`, jitted: one compile, where the
+    optimizer's eager init compiles an op for every parameter shape."""
+    return jax.jit(lambda v, key: jstate.TrainState.create(v, tx, key))
+
+
 def _jax_state(variables, tx, seed=0):
     v = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), variables)  # no XLA convert
-    return jstate.TrainState.create(v, tx, jax.random.key(seed))
+    return _jax_state_fn(tx)(v, jax.random.key(seed))
 
 
 def _as_port(port, model_type, tree):
