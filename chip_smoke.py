@@ -226,7 +226,26 @@ Phases, each of which raises on failure (exit code 1):
    confusion and agreement matrices, their PDFs only where matplotlib
    imports (a line says whether it does).  Prints seconds by stage,
    offline augmentation clips/s, train and probabilities clips/s with the
-   card's busy share (profiler), and the phase's launches by kernel.
+   card's busy share (profiler), and the phase's launches by kernel;
+23. the command line (`cli/main.py`) on phase 22's experiment: `python -m`
+   the port `--help` as a subprocess (exit 0); `launch --runner commands
+   --recover` prints the 4 pending members' commands; the first runs as a
+   subprocess to its end on the card (exit 0, checkpoint and history;
+   its seconds include the interpreter, imports and kernel library load),
+   the other 3 through `cli.main.main` (9 max-pool launches a train step
+   and an eval batch, 9 gradient launches a train step); `probs` of every
+   test fold (fold 0 phase 22's cache, 0 launches; folds 1-2 finite rows
+   summing to 1 ± 1e-2, 9 max-pool launches a member a batch); `probs -t 0
+   --quant static` phase 22's static cache, 0 launches; `ensemble` SUM
+   over the 3 folds, `global`, `combine`; `report` (PDFs where matplotlib
+   imports, else exit 2 with its message); `export` of test fold 0 baked
+   and lean, each served on fold 0's CSV (predictions equal the eager
+   fused argmax wherever its top-2 gap exceeds 1e-2, a row a clip); the
+   checkpoint drill on `random_i3d_h5_layers`: `convert --drill` over a
+   `file://` spec where h5py imports, else its parity and probabilities
+   legs on layer dicts and a converted `.pt` (a line says which), parity
+   on the card in f32 within 1e-4 of the float64 oracle.  Prints seconds
+   by command and the phase's launches by kernel.
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 1,979 TOPS
 dense int8, 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s.  The line
@@ -241,8 +260,10 @@ path's, phase 21's fit and phase 22's offline augmentation; the gradient
 kernel's the I3D training path's, phase 19's, phase 21's fit and phase
 22's training; the int8 conv's and the quantize pass's the int8 main
 path's 15 steps at B=16 and phase 22's static cache, their times the sums
-over one member's 57 convs at B=16; each record keeps a phase's own count
-under `launches_<phase>`); the last line is `{"ok": true, "device":
+over one member's 57 convs at B=16; phase 23's in-process commands add to
+each, and every record carries their count as `launches_cli`; each record
+keeps a phase's own count under `launches_<phase>`); the last line is
+`{"ok": true, "device":
 {...}}`.  Needs one card and no network.
 """
 
@@ -2955,6 +2976,220 @@ def check_experiment(torch, np, dev, kernels, tmp: str) -> None:
         if k["name"] in totals:
             k["launches_experiment"] = totals[k["name"]]
             k["launches"] += totals[k["name"]]
+    return config, layout, paths
+
+
+def split_batches(layout, config, t: int, v: int) -> dict:
+    """Batches of member (t, v)'s train (precomputed copies expanded), val
+    and test splits at the config's batch size."""
+    from crowded_scenes_ensemble_classification_tpu_torch import data
+
+    rows = {k: data.ClipTable.read_csv(layout.split_csv(t, v, k)) for k in ("train", "val", "test")}
+    rows["train"] = data.expand_precomputed_augmentation(rows["train"], config.augmentation_frequency)
+    return {k: -(-len(r) // config.batch_size) for k, r in rows.items()}
+
+
+def check_cli(torch, np, dev, kernels, config, layout, caches: dict) -> None:
+    """The command line on phase 22's experiment: `python -m` the port with
+    `--help`; `launch --runner commands --recover` prints the 4 pending
+    members' commands, the first runs as a subprocess to its end on the
+    card, the other 3 through `cli.main.main`; `probs` of every test fold
+    (fold 0 from phase 22's cache), `probs -t 0 --quant static` (phase 22's
+    cache); `ensemble` SUM over the 3 folds, `global`, `combine`; `report`;
+    `export` of test fold 0 baked and lean, each served on fold 0's CSV;
+    the checkpoint drill's legs on the card.  Launches counted by command."""
+    import contextlib
+    import io
+    import shlex
+    import subprocess
+
+    from crowded_scenes_ensemble_classification_tpu_torch import data, orchestration as orch
+    from crowded_scenes_ensemble_classification_tpu_torch.cli.main import _fold_members, main as cli
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import member_probabilities
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.probability_store import load_probabilities
+    from crowded_scenes_ensemble_classification_tpu_torch.models import checkpoint_drill
+    from crowded_scenes_ensemble_classification_tpu_torch.models.weights_registry import convert_keras_checkpoint
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import int8_conv3d, quantize_int8
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.stem_conv import stem_conv_7x7x7_s2
+    from crowded_scenes_ensemble_classification_tpu_torch.utils.metrics import MetricsLogger
+
+    counters = {fn.__name__: fn for fn in (max_pool_3x3x3_same, max_pool_3x3x3_same_backward, salt_pepper,
+                                           stem_conv_7x7x7_s2, int8_conv3d, quantize_int8)}
+    none = dict.fromkeys(counters, 0)
+    totals, secs = dict(none), {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = layout.root
+    base = ["-mt", config.model_type, "-fn", str(config.folds_number), "-as", config.augmentation_status,
+            "-af", str(config.augmentation_frequency), "-e", str(config.epochs), "-bs", str(config.batch_size)]
+
+    def timed(name, fn):
+        """fn() with the counts zeroed first → (its value, its launches),
+        seconds kept by name."""
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = round(secs.get(name, 0.0) + time.perf_counter() - t, 2)
+        counts = {n: c.launches for n, c in counters.items()}
+        for n, v in counts.items():
+            totals[n] += v
+        return out, counts
+
+    def run(name, argv, rc=0):
+        """One command in this process → (its printed lines, its launches)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got, counts = timed(name, lambda: cli(argv))
+        check(got == rc, f"`{' '.join(argv[:1])}` exited {got}, not {rc}")
+        return buf.getvalue().splitlines(), counts
+
+    def max_pools(n):
+        return {**none, "max_pool_3x3x3_same": n}
+
+    # 1. The module's entry point.
+    proc, _ = timed("help", lambda: subprocess.run([sys.executable, "-m", PORT, "--help"], cwd=repo,
+                                                   capture_output=True, text=True, timeout=120))
+    check(proc.returncode == 0 and proc.stdout.startswith(f"usage: {PORT}"), f"--help: {proc.stderr[-2000:]}")
+
+    # 2. The recovery commands; the first one run as a scheduler would.
+    pending = orch.pending_members(config, layout)
+    lines, counts = run("launch", ["launch", "--work-dir", work, *base, "--runner", "commands", "--recover"])
+    check(len(lines) == 4 and lines == orch.member_cli_commands(config, work, pairs=pending) and counts == none,
+          f"launch --recover printed {lines}, launches {counts}")
+    def epoch_end(t, v) -> float:
+        """Wall time of member (t, v)'s end of epoch, from its metrics stream."""
+        records = MetricsLogger(os.path.join(work, "metrics", f"{config.artifact_stem(t, v)}.jsonl")).read()
+        return next(r["t"] for r in records if r["event"] == "epoch")
+
+    argv = shlex.split(lines[0])
+    launched_at = time.time()
+    proc, _ = timed("train_subprocess", lambda: subprocess.run([sys.executable, *argv[1:]], cwd=repo,
+                                                               capture_output=True, text=True, timeout=600))
+    check(proc.returncode == 0, f"`{lines[0]}` exited {proc.returncode}: {proc.stderr[-3000:]}")
+    check(orch.member_is_complete(config, layout, *pending[0]), f"member {pending[0]} has no checkpoint and history")
+    to_epoch = {"subprocess": epoch_end(*pending[0]) - launched_at}
+    for line, (t, v) in zip(lines[1:], pending[1:]):
+        started_at = time.time()
+        printed, counts = run("train", shlex.split(line)[3:])
+        to_epoch[(t, v)] = epoch_end(t, v) - started_at
+        z = split_batches(layout, config, t, v)
+        want = {**none, "max_pool_3x3x3_same": 9 * (z["train"] + z["val"] + z["test"]),
+                "max_pool_3x3x3_same_backward": 9 * z["train"]}
+        check(counts == want, f"train ({t}, {v}) launches {counts}, expected {want}")
+        check(printed[-1].startswith("test_acc="), f"train ({t}, {v}) printed {printed}")
+    check(orch.pending_members(config, layout) == [], "members still pending after the recovery commands")
+    in_process = sum(v for k, v in to_epoch.items() if k != "subprocess") / 3
+    print(f"cli: `{lines[0]}` ran as a subprocess to its end in {secs['train_subprocess']:.2f} s: "
+          f"{proc.stdout.strip()}; launch to the end of its epoch {to_epoch['subprocess']:.2f} s, against "
+          f"{in_process:.2f} s for the 3 run in this process ({secs['train']:.2f} s in all): the subprocess's start "
+          f"(interpreter, imports, CUDA context, kernel library load, first cuDNN calls) about "
+          f"{to_epoch['subprocess'] - in_process:.2f} s")
+
+    # 3. Probabilities of every test fold: fold 0 from phase 22's cache.
+    mtime = os.path.getmtime(caches["bf16"])
+    paths, probs_counts = run("probs", ["probs", "--work-dir", work, *base])
+    check(len(paths) == 3 and paths[0] == caches["bf16"] and os.path.getmtime(caches["bf16"]) == mtime,
+          f"probs paths {paths}: fold 0 not phase 22's cache")
+    tests = [len(data.ClipTable.read_csv(layout.split_csv(t, (t + 1) % 3, "test"))) for t in range(3)]
+    want = max_pools(sum(9 * 2 * -(-tests[t] // config.batch_size) for t in (1, 2)))
+    check(probs_counts == want, f"probs launches {probs_counts}, expected {want}")
+    for t, path in enumerate(paths):
+        check_probs(torch, torch.from_numpy(load_probabilities(path)["probs"]), (2, tests[t], CLASSES),
+                    f"probs of test fold {t}")
+    static, counts = run("probs_static", ["probs", "--work-dir", work, *base, "-t", "0", "--quant", "static"])
+    check(static == [caches["int8static"]] and counts == none, f"probs --quant static: {static}, launches {counts}")
+
+    # 4. Evaluation and reports.
+    evaluated, counts = run("ensemble", ["ensemble", "--work-dir", work, *base, "-wt", "SUM"])
+    check(evaluated[3].startswith("mean accuracy:") and counts == none, f"ensemble printed {evaluated}")
+    glob, _ = run("ensemble", ["ensemble", "--work-dir", work, *base, "--operation", "global"])
+    combined, _ = run("ensemble", ["ensemble", "--work-dir", work, *base, "--operation", "combine"])
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            run("report", ["report", "--work-dir", work, *base], rc=2)
+        check("matplotlib" in err.getvalue(), f"report's message: {err.getvalue()}")
+        report = f"report exits 2 without matplotlib: {err.getvalue().strip()!r}"
+    else:
+        pdfs, _ = run("report", ["report", "--work-dir", work, *base])
+        check(all(open(p, "rb").read(4) == b"%PDF" for p in pdfs), f"report PDFs {pdfs}")
+        report = f"report wrote {[os.path.basename(p) for p in pdfs]}"
+    print(f"cli: probs {[os.path.basename(p) for p in paths]} (fold 0 phase 22's; folds 1-2 launched "
+          f"{probs_counts['max_pool_3x3x3_same']} max pools), `probs -t 0 --quant static` phase 22's cache; "
+          f"ensemble {evaluated[:4]}, {glob[0]}, {combined}; {report}")
+
+    # 5. Export test fold 0, baked and lean, and serve its fold CSV.
+    fold_csv = os.path.join(layout.folds_dir, f"{config.folds_number}_folds", "fold0.csv")
+    table = data.ClipTable.read_csv(fold_csv)
+    bundles, _ = _fold_members(config, layout, 0, dev)
+    pipe = data.BatchPipeline(table, data.SampleSpec(config.clip.frames, (config.clip.height, config.clip.width)),
+                              config.batch_size, shuffle=False)
+    eager = member_probabilities([b.module for b in bundles], pipe, (config.clip.height, config.clip.width),
+                                 input_scale=config.input_scale).sum(0)
+    del bundles
+    top2 = np.sort(eager, -1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 1e-2
+    batches = -(-len(table) // config.batch_size)
+    for form in ([], ["--no-bake-params"]):
+        art = os.path.join(work, f"fold0{'_lean' if form else ''}.zip")
+        out, counts = run("export", ["export", "--work-dir", work, *base, "-t", "0", "--out", art, *form])
+        check(out == [art] and counts == none, f"export printed {out}, launches {counts}")
+        served = ["serve", "--artifact", art, "--csv", fold_csv] + (["--work-dir", work] if form else [])
+        out, counts = run("serve", served)
+        check(counts == max_pools(9 * 2 * batches), f"serve launches {counts}")
+        preds = np.asarray(data.ClipTable.read_csv(out[-1])["prediction"])
+        check(len(preds) == len(table) and np.array_equal(preds[decided], np.argmax(eager, -1)[decided]),
+              "served predictions differ from the eager fused argmax")
+        print(f"cli: export {'lean' if form else 'baked'} {os.path.getsize(art) / 1e6:.1f} MB, serve: {out[0]}; "
+              f"predictions equal eager's on the {int(decided.sum())} of {len(preds)} clips whose top-2 gap "
+              f"exceeds 1e-2; {counts['max_pool_3x3x3_same']} max-pool launches")
+
+    # 6. The checkpoint drill's legs on the card.
+    layers = oracle_i3d().random_i3d_h5_layers(seed=61, stream="rgb", num_classes=11)
+    layers.pop("predictions")  # no-top, like the release files
+    drill = os.path.join(work, "drill")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        def legs():
+            converted, _ = convert_keras_checkpoint("I3D", os.path.join(drill, "I3D.pt"), rgb_h5=layers)
+            parity = checkpoint_drill._parity("I3D", {"rgb": layers})
+            probs = checkpoint_drill._probs_leg("I3D", converted, drill, num_clips=4, hw=(64, 64))
+            return parity, probs
+
+        (parity, probs), counts = timed("drill", legs)
+        route = "h5py absent: parity and probabilities legs on in-memory layer dicts and a converted .pt"
+    else:
+        from crowded_scenes_ensemble_classification_tpu_torch.models.weights_io import write_keras_h5
+
+        h5 = write_keras_h5(os.path.join(drill, "src", "i3d_rgb.h5"), layers)
+        spec = os.path.join(drill, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"families": [{"family": "I3D", "model_type": "I3D", "probs_hw": [64, 64], "streams": {
+                "rgb": {"url": "file://" + h5, "filename": "i3d_rgb.h5", "sha256": checkpoint_drill._sha256(h5)}}}]}, f)
+        out, counts = run("drill", ["convert", "--drill", spec, "--work-dir", drill, "--cache-dir",
+                                    os.path.join(drill, "cache")])
+        steps = json.load(open(out[-1]))["families"]["I3D"]["steps"]
+        parity, probs = steps["parity"], steps["probs"]
+        route = "h5py present: `convert --drill` over a file:// spec"
+    p = np.load(probs["path"])["probs"]
+    check(parity["ok"] and parity["max_softmax_delta"] <= 1e-4 and probs["ok"] and p.shape == (1, 4, 11)
+          and np.allclose(p.sum(-1), 1.0, atol=1e-5), f"drill: parity {parity}, probabilities {probs}")
+    print(f"cli: checkpoint drill ({route}): I3D parity on the card in f32 (TF32 off) max |dsoftmax| "
+          f"{parity['max_softmax_delta']:.3g} against the float64 oracle; probabilities {p.shape} finite; "
+          f"launches {counts}")
+    print(f"cli seconds by command {secs}; launches in the phase {totals}")
+    for k in kernels:
+        k["launches_cli"] = totals[k["name"]]
+        k["launches"] += totals[k["name"]]
 
 
 def ingest_dependencies() -> str:
@@ -3030,7 +3265,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase("ingest", check_ingest, torch, np, dev, kernels, tmp)
         torch.cuda.empty_cache()
-        phase("experiment", check_experiment, torch, np, dev, kernels, tmp)
+        experiment = phase("experiment", check_experiment, torch, np, dev, kernels, tmp)
+        torch.cuda.empty_cache()
+        phase("cli", check_cli, torch, np, dev, kernels, *experiment)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase {phase_s}")
     print(json.dumps({"kernels": kernels}))

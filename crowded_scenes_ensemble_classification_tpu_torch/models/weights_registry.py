@@ -5,7 +5,10 @@ Counterpart of `crowded_scenes_ensemble_classification_tpu/models/weights_regist
 (train.py:41-57), the file names Keras caches them under (train.py:775-804,
 941-962), the C3D sports1M file name (train.py:1673), and the conversion of
 a Keras-layout checkpoint into a file the port loads.  Nothing is
-downloaded: `fetch_weights` is not ported, the files are placed by hand.
+downloaded: `placed_weights` resolves a registry name to the file placed
+by hand where JAX `fetch_weights` caches its download (JAX
+weights_registry.py:64-80), and raises with that path when it is absent
+(the download is left out: no network, ROADMAP Queue 1 item 8).
 
 A converted file is a torch state dict (`torch.save`, usually `.pt`),
 written atomically, that `load_converted` and `models.pretrained.
@@ -62,6 +65,21 @@ def default_cache_dir() -> str:
         "CROWDED_SCENES_TPU_WEIGHTS_CACHE",
         os.path.join(os.path.expanduser("~"), ".cache", "crowded_scenes_tpu", "models"),
     )
+
+
+def placed_weights(name: str, include_top: bool = False, cache_dir: Optional[str] = None) -> str:
+    """The local h5 path of registry checkpoint `name`, placed by hand in
+    `cache_dir` (`default_cache_dir()` when None) under the reference's
+    file name.  Raises KeyError for an unknown name and FileNotFoundError,
+    naming the path to place the file at, when it is absent."""
+    if name not in WEIGHTS_NAME:
+        raise KeyError(f"unknown weights name {name!r}; known: {WEIGHTS_NAME}")
+    path = os.path.join(cache_dir or default_cache_dir(), cached_filename(name, include_top))
+    if not os.path.exists(path):
+        url = (WEIGHTS_PATH if include_top else WEIGHTS_PATH_NO_TOP)[name]
+        raise FileNotFoundError(f"{path} is not placed: download {url} elsewhere and place it at {path} "
+                                "(the port downloads nothing, ROADMAP Queue 1 item 8)")
+    return path
 
 
 def keras_layers(source: Source) -> Layers:

@@ -350,8 +350,8 @@ def member_cli_commands(
 ) -> List[str]:
     """One CLI command per (t, v) member, for external schedulers (reference
     launch_train_ensemble.py:144-158): JAX orchestration.py:384-429's
-    commands with this package's module name.  The package's `__main__` and
-    its `train` command come with the port's CLI (ROADMAP Queue 1 item 6).
+    commands with this package's module name, each run by the port's
+    `cli/main.py` `train` command on the card.
 
     pairs — restrict to these (test, val) members (recovery runs pass the
     pending set so completed members are not re-queued)."""

@@ -1,8 +1,8 @@
 """Every module of the port imports on a machine without pandas, JAX, h5py,
 matplotlib or skimage, as the card's machine may be: one subprocess imports
-every module of the port's packages, and its root modules, with those names
-blocked in `sys.modules` (an import of any of them raises there).  No torch
-is imported in this process."""
+every module of the port's packages, its root modules, the command line and
+the checkpoint drill, with those names blocked in `sys.modules` (an import
+of any of them raises there).  No torch is imported in this process."""
 
 import json
 import os
@@ -16,7 +16,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = "crowded_scenes_ensemble_classification_tpu_torch"
 # package (or root module) → how many modules it holds at least
 PACKAGES = {"data": 3, "ensemble": 3, "train": 3, "core": 2, "ops": 9, "reports": 2, "parallel": 1, "utils": 2,
-            "orchestration": 1}
+            "orchestration": 1, "cli": 2, "models.checkpoint_drill": 1}
 BLOCKED = ("pandas", "jax", "h5py", "matplotlib", "skimage")
 
 
@@ -27,7 +27,8 @@ def imported():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for pkg in PACKAGES
-        for p in ((REPO / PORT / pkg).rglob("*.py") if (REPO / PORT / pkg).is_dir() else [REPO / PORT / f"{pkg}.py"])
+        for path in [REPO / PORT / pkg.replace(".", "/")]
+        for p in (path.rglob("*.py") if path.is_dir() else [path.with_suffix(".py")])
     )
     code = (
         "import importlib, json, sys\n"
