@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --fanout-worker HOST:PORT PROCESSES RANK WORK_DIR`
+is phase 24's worker process, which the script starts itself.)
+
 Phases, each of which raises on failure (exit code 1):
 
 1. print whether cv2 and h5py import on this machine, with their versions
@@ -245,7 +248,32 @@ Phases, each of which raises on failure (exit code 1):
    `file://` spec where h5py imports, else its parity and probabilities
    legs on layer dicts and a converted `.pt` (a line says which), parity
    on the card in f32 within 1e-4 of the float64 oracle.  Prints seconds
-   by command and the phase's launches by kernel.
+   by command and the phase's launches by kernel;
+24. distribution (`core/mesh`, `parallel/`), every mesh of positions on
+   the one card: (a) `time_sharded_i3d_trunk` over 4 positions on a
+   (2, 64, 224, 224, 3) clip against the unsharded full-width `I3DTrunk`
+   (BN spread): f32 with TF32 off within atol 2e-3, rtol 1e-4
+   (tests/test_parallel.py:217), bf16 within 5e-2 relative L2 error, both
+   timed, 36 max-pool launches a call (9 blocks × 4 positions); the
+   halo-form 3³/1 pool at the Mixed_3b/4b/5b shapes `torch.equal` to its
+   plain version, timed beside the unsharded kernel; (b)
+   `make_time_sharded_convbn_train_step` over the I3D front end at full
+   width (7³/2 64 with its (1,3,3)/(1,2,2) pool, 1³ 64, 3³ 192, then a
+   3³/1 pool) on (1, 32, 224, 224, 3) over 4 positions against the port's
+   ConvBN modules' unsharded train step, f32 with TF32 off: loss rtol
+   1e-5, grads atol 2e-4 and rtol 1e-4, running moments atol 1e-5
+   (tests/test_parallel.py:290-319), 4 max-pool and 4 gradient launches,
+   both timed; (c) `member_probabilities` of 4 bf16 prestaged I3D members
+   over a (member 2, data 2) mesh on 2 batches of B=16 20×224² clips
+   against mesh=None: finite rows summing to 1 ± 1e-2, max |Δp| ≤ 1e-2,
+   argmax equal where the top-2 gap exceeds 1e-2, 144 max-pool launches,
+   both timed; (d) two processes (this script with `--fanout-worker`)
+   join a gloo group at 127.0.0.1, all-reduce 1 + 2 = 3, and train their
+   `my_member_assignments` of a 3-fold I3D experiment (1 epoch, B=8) on
+   phase 21's dataset into one work dir: disjoint, covering all 6
+   members, each with a best checkpoint and a history; this process then
+   caches every test fold's probabilities from the union and fuses them
+   with SUM.  Prints seconds by part and the phase's launches by kernel.
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 1,979 TOPS
 dense int8, 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s.  The line
@@ -261,8 +289,10 @@ kernel's the I3D training path's, phase 19's, phase 21's fit and phase
 22's training; the int8 conv's and the quantize pass's the int8 main
 path's 15 steps at B=16 and phase 22's static cache, their times the sums
 over one member's 57 convs at B=16; phase 23's in-process commands add to
-each, and every record carries their count as `launches_cli`; each record
-keeps a phase's own count under `launches_<phase>`); the last line is
+each, and every record carries their count as `launches_cli`; phase 24's
+(the max pool's and its gradient's, the fan-out workers' included) add
+too, under `launches_distribution`; each record keeps a phase's own count
+under `launches_<phase>`); the last line is
 `{"ok": true, "device":
 {...}}`.  Needs one card and no network.
 """
@@ -3192,6 +3222,349 @@ def check_cli(torch, np, dev, kernels, config, layout, caches: dict) -> None:
         k["launches"] += totals[k["name"]]
 
 
+DIST_POSITIONS = 4  # positions of phase 24's meshes, all on cuda:0
+TRUNK_CLIP = (2, 64, SIZE, SIZE, 3)  # (a): 64 frames over 4 positions, the JAX test's T=64 geometry
+HALO_TRAIN_CLIP = (1, 32, SIZE, SIZE, 3)  # (b)
+# (b)'s stack: the I3D front end at full width, then the Mixed blocks' 3³/1 pool
+HALO_TRAIN_LAYERS = [((7, 7, 7), 64, {"strides": (2, 2, 2), "pool": ((1, 3, 3), (1, 2, 2))}),
+                     ((1, 1, 1), 64, {"strides": (1, 1, 1)}),
+                     ((3, 3, 3), 192, {"strides": (1, 1, 1), "pool": ((3, 3, 3), (1, 1, 1))})]
+FANOUT_PROCESSES = 2
+
+
+def fanout_config():
+    """(d)'s experiment: I3D, 3 folds, 1 epoch, B=8, on phase 21's dataset."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ExperimentConfig
+
+    return ExperimentConfig("I3D", "_SCRATCH", folds_number=EXPERIMENT_FOLDS, epochs=1, batch_size=EXPERIMENT_BATCH)
+
+
+def fanout_worker(coordinator: str, processes: int, rank: int, work: str) -> int:
+    """One process of phase 24 (d) (`chip_smoke.py --fanout-worker ...`):
+    join the gloo group, all-reduce rank + 1, train this process's
+    `my_member_assignments` on the card into `work`, leave the group;
+    prints one JSON line with its launches by kernel."""
+    import torch
+
+    from crowded_scenes_ensemble_classification_tpu_torch import orchestration as orch
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.parallel import distributed
+    from crowded_scenes_ensemble_classification_tpu_torch.utils.device import require_cuda
+
+    require_cuda()
+    distributed.initialize_distributed(coordinator, processes, rank, timeout_s=300)
+    try:
+        config = fanout_config()
+        assignments = distributed.my_member_assignments(config.folds_number)
+        total = torch.tensor([rank + 1.0])
+        torch.distributed.all_reduce(total)
+        joined_at = time.time()
+        trained = []
+        for t, v in assignments:
+            out = orch.train_member(config, orch.WorkLayout(work), t, v)
+            trained.append([t, v, out["test_loss"], out["best_val_loss"]])
+        torch.distributed.barrier()
+    finally:
+        distributed.shutdown_distributed()
+    print(json.dumps({"process_id": rank, "processes": processes, "assignments": assignments,
+                      "all_reduce": total.item(), "trained": trained, "joined_at": joined_at, "done_at": time.time(),
+                      "launches": {f.__name__: f.launches
+                                   for f in (max_pool_3x3x3_same, max_pool_3x3x3_same_backward)}}))
+    return 0
+
+
+def check_distribution(torch, np, dev, kernels, tmp: str) -> None:
+    """Phase 24: the distribution layer on one card, over meshes of
+    positions that all hold `dev`: (a) the time-sharded I3D trunk,
+    (b) the time-sharded ConvBN train step, (c) member-sharded
+    probabilities, (d) the two-process member fan-out.  Launches counted
+    by part."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+
+    counters = {f.__name__: f for f in (max_pool_3x3x3_same, max_pool_3x3x3_same_backward)}
+    totals = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        """fn() with the counts zeroed first → (its value, its launches)."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        for n, v in counts.items():
+            totals[n] += v
+        return out, counts
+
+    secs = {}
+    for part, fn, args in (("a", distribution_trunk, ()), ("b", distribution_train, ()),
+                           ("c", distribution_members, ()), ("d", distribution_fanout, (tmp,))):
+        t0 = time.perf_counter()
+        extra = fn(torch, np, dev, counted, *args)
+        for n, v in (extra or {}).items():  # launches made in other processes
+            totals[n] += v
+        torch.cuda.empty_cache()
+        secs[part] = round(time.perf_counter() - t0, 1)
+    print(f"distribution seconds by part {secs}; launches in the phase {totals}")
+    for k in kernels:
+        if k["name"] in totals:
+            k["launches_distribution"] = totals[k["name"]]
+            k["launches"] += totals[k["name"]]
+
+
+def dist_ms(fn, iters: int = 5) -> float:
+    """Device ms a call of a many-launch function, as the host issues them."""
+    return cuda_ms(fn, iters=iters, warmup=2, queue_ahead=False)
+
+
+def distribution_trunk(torch, np, dev, counted) -> None:
+    """(a) `time_sharded_i3d_trunk` over DIST_POSITIONS positions against the
+    unsharded `I3DTrunk` on the same clip: f32 (TF32 off) within JAX's
+    atol 2e-3, rtol 1e-4 (tests/test_parallel.py:217), bf16 within 5e-2
+    relative L2 error (each of the ~60 layers rounds to bf16, and the
+    sharded convs' cuDNN algorithms differ from the unsharded ones'), each
+    timed; 9 max-pool launches a position a call.  Then the halo-form 3³/1
+    pool at the trunk's Mixed shapes against its plain version, timed beside
+    the unsharded kernel."""
+    import copy
+
+    from crowded_scenes_ensemble_classification_tpu_torch.core.mesh import gather, make_mesh
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import cast_for_inference, to_nthwc
+    from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3DTrunk
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_reference,
+        max_pool_3x3x3_same,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.parallel import temporal_halo as th
+
+    mesh = make_mesh((("time", DIST_POSITIONS),), [dev] * DIST_POSITIONS)
+    trunk = I3DTrunk(generator=torch.Generator().manual_seed(24)).eval().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    spread_batchnorm(trunk, gen)
+    x = torch.randn(TRUNK_CLIP, device=dev, generator=gen)
+    sharded = th.time_sharded_i3d_trunk(mesh, trunk)
+    with torch.inference_mode():
+        got, counts = counted(lambda: gather(sharded(th.shard_time(x, mesh)), dim=1))
+        want = to_nthwc(trunk(x))
+        check(counts == {"max_pool_3x3x3_same": 9 * DIST_POSITIONS, "max_pool_3x3x3_same_backward": 0},
+              f"time-sharded trunk launches {counts}")
+        err, ref_max = (got - want).abs().max().item(), want.abs().max().item()
+        check(got.shape == want.shape and torch.allclose(got, want, atol=2e-3, rtol=1e-4),
+              f"time-sharded trunk f32 max |d| {err:.3g} against the unsharded trunk (atol 2e-3, rtol 1e-4)")
+        f32_ms = (dist_ms(lambda: sharded(th.shard_time(x, mesh))), dist_ms(lambda: trunk(x)))
+        trunk16 = cast_for_inference(copy.deepcopy(trunk), torch.bfloat16)
+        sharded16 = th.time_sharded_i3d_trunk(mesh, trunk16)
+        x16 = x.to(torch.bfloat16)
+        got16 = gather(sharded16(th.shard_time(x16, mesh)), dim=1).float()
+        want16 = to_nthwc(trunk16(x16)).float()
+        rel16 = ((got16 - want16).norm() / want16.norm()).item()
+        check(bool(torch.isfinite(got16).all()) and rel16 <= 5e-2,
+              f"time-sharded trunk bf16 relative L2 error {rel16:.3g} against the unsharded bf16 trunk (gate 5e-2)")
+        bf16_ms = (dist_ms(lambda: sharded16(th.shard_time(x16, mesh))), dist_ms(lambda: trunk16(x16)))
+    print(f"distribution (a): time-sharded I3D trunk over {DIST_POSITIONS} positions of {mesh.devices.flat[0]}, "
+          f"clip {TRUNK_CLIP}: f32 (TF32 off) max |d| {err:.3g} against the unsharded trunk (max |ref| {ref_max:.3g}); "
+          f"bf16 relative L2 error {rel16:.3g}, max |d| {(got16 - want16).abs().max().item():.3g}; "
+          f"{counts['max_pool_3x3x3_same']} max-pool launches a call; ms f32 sharded {f32_ms[0]:.3f}, unsharded "
+          f"{f32_ms[1]:.3f}; bf16 sharded {bf16_ms[0]:.3f}, unsharded {bf16_ms[1]:.3f}")
+    del trunk16, sharded16, got16, want16, got, want, x, trunk, sharded
+    # (B, positions · T_loc, H, W, C) entering the 3³/1 pools of Mixed_3b, Mixed_4b and Mixed_5b
+    frames, size = TRUNK_CLIP[1], TRUNK_CLIP[2]
+    for t, hw, c in ((frames // 2, size // 8, 192), (frames // 4, size // 16, 480), (frames // 8, size // 32, 832)):
+        xp = torch.randn(TRUNK_CLIP[0], t, hw, hw, c, device=dev, generator=gen).to(torch.bfloat16)
+        halo = lambda: th.halo_max_pool3d(list(xp.chunk(DIST_POSITIONS, dim=1)), (3, 3, 3), (1, 1, 1))  # noqa: E731
+        check(torch.equal(torch.cat(halo(), 1), max_pool_3x3x3_reference(xp)),
+              f"halo-form pool != the plain version at {tuple(xp.shape)}")
+        times = (dist_ms(halo, 10), dist_ms(lambda: max_pool_3x3x3_same(xp), 10),
+                 dist_ms(lambda: max_pool_3x3x3_reference(xp), 10))
+        print(f"distribution (a): halo-form 3³/1 pool bf16 {tuple(xp.shape)} over {DIST_POSITIONS} positions "
+              f"(padded shards of {t // DIST_POSITIONS + 2} frames) == plain version; ms halo form {times[0]:.4f}, "
+              f"unsharded kernel {times[1]:.4f}, plain {times[2]:.4f}")
+
+
+def distribution_train(torch, np, dev, counted) -> None:
+    """(b) `make_time_sharded_convbn_train_step` over HALO_TRAIN_LAYERS on
+    HALO_TRAIN_CLIP over DIST_POSITIONS positions against the unsharded
+    step of the port's ConvBN modules in train mode (their KerasBatchNorm3d
+    statistics) with the same pools, f32 with TF32 off: loss rtol 1e-5,
+    grads atol 2e-4 and rtol 1e-4, running moments atol 1e-5
+    (tests/test_parallel.py:290-319); one max-pool and one gradient launch
+    a position; both steps timed."""
+    import torch.nn.functional as F
+
+    from crowded_scenes_ensemble_classification_tpu_torch.core.mesh import make_mesh
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import ConvBN, max_pool_3d, to_ncdhw, to_nthwc
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+    from crowded_scenes_ensemble_classification_tpu_torch.parallel import halo_train, temporal_halo as th
+
+    mesh = make_mesh((("time", DIST_POSITIONS),), [dev] * DIST_POSITIONS)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    x = torch.randn(HALO_TRAIN_CLIP, device=dev, generator=gen)
+    cin, params, modules = HALO_TRAIN_CLIP[-1], [], []
+    for k, f, spec in HALO_TRAIN_LAYERS:
+        m = ConvBN(cin, f, k, spec["strides"], generator=torch.Generator().manual_seed(f + k[0])).to(dev).train()
+        m.bn.bias.data.normal_(0.0, 0.1, generator=gen)
+        modules.append(m)
+        params.append({"kernel": m.conv.weight.detach().clone(), "bias": m.bn.bias.detach().clone()})
+        cin = f
+    leaves = [t for m in modules for t in (m.conv.weight, m.bn.bias)]
+
+    def unsharded_loss(target=None):
+        h = to_ncdhw(x)
+        for m, (_, _, spec) in zip(modules, HALO_TRAIN_LAYERS):
+            h = m(h)
+            if spec.get("pool") == ((1, 3, 3), (1, 2, 2)):
+                h = max_pool_3d(h, (1, 3, 3), (1, 2, 2))
+            elif spec.get("pool") is not None:
+                h = to_ncdhw(max_pool_3x3x3_same(to_nthwc(h)))
+        return to_nthwc(h) if target is None else F.mse_loss(to_nthwc(h), target)
+
+    running = tuple({"mean": m.bn.running_mean.clone(), "var": m.bn.running_var.clone()} for m in modules)
+    target = torch.randn(unsharded_loss().shape, device=dev, generator=gen)
+    for m, r in zip(modules, running):  # the reference step starts from the same running moments
+        m.bn.running_mean.copy_(r["mean"])
+        m.bn.running_var.copy_(r["var"])
+    ref_loss = unsharded_loss(target)
+    ref_grads = torch.autograd.grad(ref_loss, leaves)
+    step = halo_train.make_time_sharded_convbn_train_step(mesh, [spec for _, _, spec in HALO_TRAIN_LAYERS])
+    sharded_args = lambda: (tuple(params), th.shard_time(x, mesh), th.shard_time(target, mesh))  # noqa: E731
+    (loss, grads, stats), counts = counted(lambda: step(*sharded_args()))
+    check(counts == {"max_pool_3x3x3_same": DIST_POSITIONS, "max_pool_3x3x3_same_backward": DIST_POSITIONS},
+          f"halo train step launches {counts}")
+    check(math.isclose(loss.item(), ref_loss.item(), rel_tol=1e-5),
+          f"halo train loss {loss.item()} against the unsharded step's {ref_loss.item()} (rtol 1e-5)")
+    got = [g for layer in grads for g in (layer["kernel"], layer["bias"])]
+    grad_err = max((g - r).abs().max().item() for g, r in zip(got, ref_grads))
+    check(all(torch.allclose(g, r, atol=2e-4, rtol=1e-4) for g, r in zip(got, ref_grads)),
+          f"halo train grads max |d| {grad_err:.3g} (atol 2e-4, rtol 1e-4)")
+    new_running = halo_train.update_running_stats(running, stats)
+    moment_err = max((new_running[i][k] - getattr(m.bn, f"running_{k}")).abs().max().item()
+                     for i, m in enumerate(modules) for k in ("mean", "var"))
+    check(moment_err <= 1e-5, f"halo train running moments max |d| {moment_err:.3g} (atol 1e-5)")
+    step_ms = (dist_ms(lambda: step(*sharded_args()), 3),
+               dist_ms(lambda: torch.autograd.grad(unsharded_loss(target), leaves), 3))
+    print(f"distribution (b): time-sharded ConvBN train step (the I3D front end at full width: 7³/2 64 with its "
+          f"(1,3,3)/(1,2,2) pool, 1³ 64, 3³ 192, then a 3³/1 pool) on {HALO_TRAIN_CLIP} over {DIST_POSITIONS} "
+          f"positions, f32 (TF32 off): loss {loss.item():.6g} against the unsharded step's {ref_loss.item():.6g}, "
+          f"grads max |d| {grad_err:.3g}, running moments max |d| {moment_err:.3g}; launches {counts}; ms a step "
+          f"sharded {step_ms[0]:.2f}, unsharded {step_ms[1]:.2f}")
+
+
+def distribution_members(torch, np, dev, counted) -> None:
+    """(c) `member_probabilities` of MEMBERS bf16 prestaged I3D members over
+    a (member 2, data 2) mesh against mesh=None on 2 batches of B=BATCH
+    20×224² clips: finite rows summing to 1 ± 1e-2, max |Δp| ≤ 1e-2 (bf16
+    batches of 8 and 16 may take different cuDNN algorithms), argmax equal
+    on the rows whose top-2 gap exceeds 1e-2; 9 max-pool launches a member
+    a data shard; both timed on batches already on the card."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.mesh import make_mesh
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import member_probabilities
+
+    members = [b.module for b in seeded_members(torch, "I3D", MEMBERS, 2400, stem_prestaged=True)]
+    batches = [{"rgb": torch.randint(0, 256, (BATCH, FRAMES, SIZE, SIZE, 3), generator=torch.Generator().manual_seed(i),
+                                     dtype=torch.uint8)} for i in range(2)]
+    mesh = make_mesh((("member", 2), ("data", 2)), [dev] * 4)
+    sharded, counts = counted(lambda: member_probabilities(members, batches, (SIZE, SIZE), INPUT_SCALE, mesh=mesh))
+    plain = member_probabilities(members, batches, (SIZE, SIZE), INPUT_SCALE)
+    check(counts == {"max_pool_3x3x3_same": 9 * MEMBERS * 2 * len(batches), "max_pool_3x3x3_same_backward": 0},
+          f"member-sharded probabilities launches {counts}")
+    sp, pp = torch.from_numpy(sharded), torch.from_numpy(plain)
+    check_probs(torch, sp, (MEMBERS, BATCH * len(batches), CLASSES), "member-sharded probabilities")
+    dp = (sp - pp).abs().max().item()
+    top2 = pp.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 1e-2
+    check(dp <= 1e-2 and bool((sp.argmax(-1) == pp.argmax(-1))[decided].all()),
+          f"member-sharded probabilities max |dp| {dp:.3g}, or an argmax differs, against the unsharded form")
+    on_card = [{"rgb": b["rgb"].to(dev)} for b in batches]
+    probs_ms = (dist_ms(lambda: member_probabilities(members, on_card, (SIZE, SIZE), INPUT_SCALE, mesh=mesh), 2),
+                dist_ms(lambda: member_probabilities(members, on_card, (SIZE, SIZE), INPUT_SCALE), 2))
+    print(f"distribution (c): member_probabilities of {MEMBERS} bf16 I3D members at {FRAMES}×{SIZE}², B={BATCH}, "
+          f"{len(batches)} batches, over a (member 2, data 2) mesh: max |dp| {dp:.3g} against the unsharded form, "
+          f"argmax equal on the {int(decided.sum())} of {decided.numel()} rows whose top-2 gap exceeds 1e-2; "
+          f"{counts['max_pool_3x3x3_same']} max-pool launches; ms for the {len(batches)} batches sharded "
+          f"{probs_ms[0]:.2f}, unsharded {probs_ms[1]:.2f}")
+
+
+def distribution_fanout(torch, np, dev, counted, tmp: str) -> dict:
+    """(d) FANOUT_PROCESSES processes (`chip_smoke.py --fanout-worker`) join
+    one gloo group at 127.0.0.1 and train their `my_member_assignments` of
+    `fanout_config()` on phase 21's dataset (written under `tmp` when
+    absent) into one new work dir: disjoint assignments covering every
+    member, an all-reduce of 1 + 2 = 3 in each, a best checkpoint and a
+    history for every member; then this process caches every test fold's
+    probabilities from the union and fuses them with SUM.  Returns the
+    workers' launches."""
+    import socket
+    import subprocess
+
+    from crowded_scenes_ensemble_classification_tpu_torch import data, orchestration as orch
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import split_pairs
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.evaluate import evaluate_ensembles
+    from crowded_scenes_ensemble_classification_tpu_torch.train.checkpoints import best_exists
+
+    t0 = time.perf_counter()
+    table, write_s = ingest_dataset(data, tmp)
+    config = fanout_config()
+    layout = orch.prepare_ensemble(config, table, os.path.join(tmp, "fanout"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_train, launched_at = time.perf_counter(), time.time()
+    procs = [subprocess.Popen([sys.executable, os.path.join(repo, "chip_smoke.py"), "--fanout-worker", coordinator,
+                               str(FANOUT_PROCESSES), str(rank), layout.root], cwd=repo, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(FANOUT_PROCESSES)]
+    records = {}
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"fan-out worker exited {p.returncode}: {err[-3000:]}")
+            record = json.loads(out.strip().splitlines()[-1])
+            records[record["process_id"]] = record
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    train_s = time.perf_counter() - t_train
+    ranks = range(FANOUT_PROCESSES)
+    pairs = [{tuple(x) for x in records[r]["assignments"]} for r in ranks]
+    check(pairs[0].isdisjoint(pairs[1]) and pairs[0] | pairs[1] == set(split_pairs(config.folds_number)),
+          f"fan-out assignments {pairs}")
+    check(all(records[r]["all_reduce"] == 3.0 for r in ranks), f"gloo all_reduce {records}")
+    for t, v in split_pairs(config.folds_number):
+        check(best_exists(layout.checkpoint_dir(config, t, v)) and os.path.exists(layout.history_path(config, t, v)),
+              f"member ({t}, {v}) left no best checkpoint and history")
+    check(all(math.isfinite(x) for r in ranks for row in records[r]["trained"] for x in row[2:]),
+          f"fan-out losses {records}")
+    launches = {n: sum(records[r]["launches"][n] for r in ranks)
+                for n in ("max_pool_3x3x3_same", "max_pool_3x3x3_same_backward")}
+    check(all(launches.values()), f"fan-out workers launched {launches}")
+    paths, counts = counted(lambda: [orch.cache_probabilities(config, layout, t) for t in range(config.folds_number)])
+    for path in paths:
+        d = np.load(path)
+        check(d["probs"].shape[0] == config.folds_number - 1 and np.isfinite(d["probs"]).all()
+              and np.allclose(d["probs"].sum(-1), 1.0, atol=1e-2), f"fan-out probabilities {path}")
+    res = evaluate_ensembles(orch.make_prob_provider(config, layout), config.folds_number, "SUM",
+                             name=config.subfolder_name())
+    check(np.isfinite(res.mean_accuracy) and all(f.predictions.shape[0] > 0 for f in res.folds),
+          "fan-out SUM evaluation")
+    print(f"distribution (d): {FANOUT_PROCESSES} gloo processes (127.0.0.1, one card) trained "
+          f"{[records[r]['assignments'] for r in ranks]} of {config.subfolder_name()} on phase 21's dataset "
+          f"({len(table)} clips{f', written here in {write_s:.1f} s' if write_s else ''}) in {train_s:.2f} s: "
+          f"each joined its group {[round(records[r]['joined_at'] - launched_at, 2) for r in ranks]} s after its "
+          f"launch (interpreter, imports, CUDA start) and trained for "
+          f"{[round(records[r]['done_at'] - records[r]['joined_at'], 2) for r in ranks]} s; all_reduce 1 + 2 = 3.0 "
+          f"in both; launches in the workers "
+          f"{launches}; every test fold's probabilities cached from the union ({counts['max_pool_3x3x3_same']} "
+          f"max-pool launches) and fused: SUM accuracy {res.mean_accuracy:.4f}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def ingest_dependencies() -> str:
     """Whether cv2 (video decode, phase 21) and h5py (the Keras h5 reader)
     import on this machine, and their versions."""
@@ -3268,6 +3641,8 @@ def main() -> int:
         experiment = phase("experiment", check_experiment, torch, np, dev, kernels, tmp)
         torch.cuda.empty_cache()
         phase("cli", check_cli, torch, np, dev, kernels, *experiment)
+        torch.cuda.empty_cache()
+        phase("distribution", check_distribution, torch, np, dev, kernels, tmp)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase {phase_s}")
     print(json.dumps({"kernels": kernels}))
@@ -3277,4 +3652,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fanout-worker"]:
+        sys.exit(fanout_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

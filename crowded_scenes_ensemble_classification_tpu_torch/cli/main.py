@@ -21,10 +21,12 @@ option, mapped onto the reference's entry points (SURVEY.md §7.1.9):
 
 Every command runs on the card: `main` resolves it first and raises
 without one.  Its `device` keyword, which no flag sets, lets tests name
-"cpu".  Flags the port has no counterpart for (`--mesh-data`,
-`--mesh-member`, `--fuse-1x1`) are still parsed, so the parser equals the
-reference's, and raise a ValueError naming their ROADMAP item (README,
-"Left out of the port").
+"cpu".  `probs --mesh-data N` shards the probabilities over a mesh of N
+positions on the visible cards (`core.mesh`).  Flags the port has no
+counterpart for yet (`train`/`launch --mesh-data`, `export --mesh-member`,
+`--fuse-1x1`) are still parsed, so the parser equals the reference's, and
+raise a ValueError naming their ROADMAP item (README, "Left out of the
+port").
 """
 
 from __future__ import annotations
@@ -90,8 +92,10 @@ def _add_config_flags(p: argparse.ArgumentParser):
     )
     p.add_argument(
         "--mesh-data", type=int, default=None, metavar="N",
-        help="not ported: the port runs on one card; giving N raises "
-             "(ROADMAP Queue 1 item 7)",
+        help="probs: shard over an N-position data mesh on the visible "
+             "cards (positions cycle over them; -1 = one a card); "
+             "train/launch: not ported yet, giving N raises (ROADMAP Queue 1 "
+             "item 9); other subcommands ignore it",
     )
 
 
@@ -228,8 +232,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported: the fused 1x1x1 convs are left out; "
                         "giving it raises (ROADMAP Queue 1 item 8)")
     p.add_argument("--mesh-member", type=int, default=None, metavar="M",
-                   help="not ported: multi-card artifacts; giving M raises "
-                        "(ROADMAP Queue 1 item 7)")
+                   help="not ported yet: mesh artifacts; giving M raises "
+                        "(ROADMAP Queue 1 item 9)")
 
     p = sub.add_parser(
         "serve",
@@ -396,12 +400,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Raise for a flag the port parses but has no counterpart for."""
-    if getattr(args, "mesh_data", None) or getattr(args, "mesh_member", None):
-        raise ValueError("--mesh-data/--mesh-member are not ported: the port runs on one card "
-                         "(ROADMAP Queue 1 item 7; README, 'Left out of the port')")
+    training_mesh = args.command in ("train", "launch") and getattr(args, "mesh_data", None)
+    if training_mesh or getattr(args, "mesh_member", None):
+        raise ValueError("train/launch --mesh-data and export --mesh-member are not ported yet: data-parallel "
+                         "training and serving over the mesh are ROADMAP Queue 1 item 9 (distribution, part 2; "
+                         "README, 'Left out of the port')")
     if getattr(args, "fuse_1x1", False):
         raise ValueError("--fuse-1x1 is not ported: the fused 1x1x1 convs are left out "
                          "(ROADMAP Queue 1 item 8; README, 'Left out of the port')")
+
+
+def _mesh_from_args(args, device):
+    """`--mesh-data N`: a data mesh of N positions (JAX cli/main.py:88-94)
+    cycling over the visible cards, or over `device` when it is not a card;
+    -1 takes one position a card."""
+    import torch
+
+    from ..core.mesh import make_mesh
+
+    n = getattr(args, "mesh_data", None)
+    if not n:
+        return None
+    devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
+               else [device])
+    positions = devices if n == -1 else [devices[i % len(devices)] for i in range(n)]
+    return make_mesh((("data", len(positions)),), positions)
 
 
 def _fold_members(config: ExperimentConfig, layout, t: int, device, quant=False):
@@ -621,6 +644,7 @@ def _probs(args, device) -> int:
     for t in tests:
         path = cache_probabilities(
             config, layout, t, args.subset,
+            mesh=_mesh_from_args(args, device),
             long_video=args.long_video,
             window_stride=args.window_stride,
             long_frames=args.long_frames,

@@ -92,8 +92,8 @@ class ExperimentConfig:
     ("bfloat16" or "float32"): `orchestration.train_member` trains f32
     master weights computing in it, and `cache_probabilities` runs the
     members in it.  `data_axis` and `member_axis` name mesh axes; they are
-    kept so the JSON round-trips, and nothing reads them until the mesh is
-    ported (ROADMAP Queue 1 item 7)."""
+    kept so the JSON round-trips, and nothing reads them: the mesh forms
+    take their axis names as arguments (`core.mesh`)."""
 
     model_type: str = "C3D"
     training_condition: str = "_SCRATCH"

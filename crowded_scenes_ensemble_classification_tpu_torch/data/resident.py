@@ -9,8 +9,8 @@ so the card's 80 GB holds about twenty thousand of them.
 
 Left out, with their reasons: `FlatRows`, which works around the TPU's
 (8, 128) tile padding of a 3-wide lane dimension (a dense uint8 tensor pads
-nothing here), and the mesh, which waits for the port's multi-card work
-(ROADMAP Queue 1 items 7 and 8).  Per-epoch batching keeps the JAX class's
+nothing here), and the sharded gather over the mesh, part 2 of the port's
+distribution (ROADMAP Queue 1 items 8 and 9).  Per-epoch batching keeps the JAX class's
 rules exactly, as one shard: the same pools, shuffles, padding and ids for
 the same (seed, epoch, preshuffle, pad_to).  `from_pipeline` fills it from
 a `BatchPipeline` (decode or clip cache) once.

@@ -30,12 +30,20 @@ batch before, as JAX members.py:113-146, :322-325) or from any iterable of
 batch dicts; host uint8 batches move to the members' device here.
 `get_member_forward` has no counterpart: it caches `jit`ted forwards, and
 here each member is an `nn.Module` run eagerly.  `calibrate_members` (JAX
-members.py:94-162) makes static-int8 members.  The member-sharded mesh form
-is not ported yet (ROADMAP Queue 1 item 7).
+members.py:94-162) makes static-int8 members.
+
+On a mesh (`core.mesh`, JAX members.py:231-257 and :293-320) the members
+split over its `member` axis and each batch over its `data` axis: member
+group g runs data shard d on position (g, d)'s device, a member copied
+there only where it lies on another device, the inputs prepared (and, with
+shared staging, staged) once a data shard; the (M, B, C) result is
+gathered on the first position's device.  BN runs in eval mode, so no
+shard depends on another.
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..core.mesh import Mesh, split_positions
 from ..data.pipeline import iterate_batches
 from ..flow.farneback import gray_pair_flow
 from ..models.common import s2d_stem_stage
@@ -141,8 +150,11 @@ def _member_inputs(members: Sequence[nn.Module], batch: Dict, out_hw: Tuple[int,
     return [s2d_stem_stage(x) for x in xs] if share_stem_staging else xs
 
 
+_CLIP_KEYS = ("rgb", "flow", "gray", "gray_next")
+
+
 def _on_device(batch: Dict, device: torch.device) -> Dict:
-    return {k: torch.as_tensor(batch[k]).to(device) for k in ("rgb", "flow", "gray", "gray_next") if k in batch}
+    return {k: torch.as_tensor(batch[k]).to(device) for k in _CLIP_KEYS if k in batch}
 
 
 def calibrate_members(
@@ -225,6 +237,36 @@ def stacked_member_softmax(
     ])
 
 
+def _sharded_forward(members: Sequence[nn.Module], mesh: Mesh, member_axis: str, data_axis: str,
+                     prepare: Callable[[List[nn.Module], Dict], List[torch.Tensor]]) -> Callable[[Dict], torch.Tensor]:
+    """`make_member_forward`'s mesh form: fn(batch) → (M, B, C) on the first
+    position's device."""
+    grid = mesh.grid(member_axis, data_axis)
+    n_members, n_data = grid.shape
+    if len(members) % n_members:
+        raise ValueError(f"{len(members)} members do not divide over a {member_axis} axis of {n_members}")
+    per_group = len(members) // n_members
+    home = next(members[0].parameters()).device
+
+    def on(module: nn.Module, device: torch.device) -> nn.Module:
+        return module if device == home else copy.deepcopy(module).to(device)
+
+    groups = [[[on(m, grid[g, d]) for m in members[g * per_group:(g + 1) * per_group]] for d in range(n_data)]
+              for g in range(n_members)]
+
+    def forward(batch: Dict) -> torch.Tensor:
+        rows = {k: split_positions(torch.as_tensor(v), list(grid[0]), dim=0) for k, v in batch.items()
+                if k in _CLIP_KEYS}
+        with torch.inference_mode():
+            shards = [prepare(groups[0][d], {k: v[d] for k, v in rows.items()}) for d in range(n_data)]
+            out = [torch.cat([_softmax_stack(groups[g][d], *(x.to(grid[g, d]) for x in shards[d])).to(grid[0, 0])
+                              for d in range(n_data)], dim=1)
+                   for g in range(n_members)]
+            return torch.cat(out, dim=0)
+
+    return forward
+
+
 def make_member_forward(
     members: Sequence[nn.Module],
     out_hw: Tuple[int, int],
@@ -232,6 +274,9 @@ def make_member_forward(
     input_scale: float = 1.0,
     flow_fast_warp: bool = False,
     flow_params: Optional[dict] = None,
+    mesh: Optional[Mesh] = None,
+    member_axis: str = "member",
+    data_axis: str = "data",
 ) -> Callable[[Dict], torch.Tensor]:
     """Returns fn(batch) → (M, B, C) softmax probabilities.  `batch['rgb']`
     (and for TwoStream `batch['flow']`, or the gray pairs Farnebäck turns
@@ -239,8 +284,15 @@ def make_member_forward(
     on the members' device; it is resized to `out_hw`, scaled by
     `input_scale` (computed flow is not) and cast to the members' dtype,
     then each member runs on it (unshared) or on its s2d staging (shared)
-    (JAX members.py:165-257)."""
+    (JAX members.py:165-257).  With a `mesh`, the members split over its
+    `member_axis` and the batch (anywhere: each data shard moves to its
+    position's device) over its `data_axis`, an absent axis counting as 1;
+    the members must divide over the member axis and B over the data axis,
+    and the result lies on the first position's device."""
     check_member_form(members, share_stem_staging)
+    if mesh is not None:
+        return _sharded_forward(members, mesh, member_axis, data_axis, lambda group, batch: _member_inputs(
+            group, batch, out_hw, share_stem_staging, input_scale, flow_fast_warp, flow_params))
 
     def forward(batch: Dict) -> torch.Tensor:
         with torch.inference_mode():
@@ -256,6 +308,7 @@ def member_probabilities(
     out_hw: Tuple[int, int],
     input_scale: float = 1.0,
     flow_params: Optional[dict] = None,
+    mesh: Optional[Mesh] = None,
 ) -> np.ndarray:
     """Run every member over the batches → (M, N, C) float32 in batch
     order, keeping the rows a batch marks `valid` (all rows when it has no
@@ -267,11 +320,16 @@ def member_probabilities(
     so they are `stem_prestaged` members; C3D and R3D members run
     unshared.  TwoStream batches carry `flow` or the gray pairs;
     flow_params must be the Farnebäck schedule the members trained with
-    (`flow.farneback.flow_schedule_params`)."""
+    (`flow.farneback.flow_schedule_params`).  With a `mesh` whose `member`
+    axis divides the member count the members and batches are sharded over
+    it (`make_member_forward(mesh=)`); with any other mesh they run
+    unsharded, as in JAX members.py:308-309."""
     share = isinstance(members[0], (I3D, TwoStreamI3D))
+    if mesh is not None and not ("member" in mesh.axis_names and len(members) % mesh.shape["member"] == 0):
+        mesh = None
     forward = make_member_forward(members, out_hw, share_stem_staging=share, input_scale=input_scale,
-                                  flow_params=flow_params)
-    device = next(members[0].parameters()).device
+                                  flow_params=flow_params, mesh=mesh)
+    device = next(members[0].parameters()).device if mesh is None else mesh.devices.flat[0]
     chunks = []
     with iterate_batches(batches) as stream:
         for batch in stream:

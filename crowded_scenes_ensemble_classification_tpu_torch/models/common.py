@@ -25,6 +25,7 @@ from ..ops.kernels.stem_conv import s2d_stem_kernel, s2d_stem_stage, stem_conv_7
 # JAX models/common.py:24-25 (Keras 2.2.4 defaults); torch counts momentum
 # from the other side: 1 - 0.99.
 KERAS_BN_EPS = 1e-3
+KERAS_BN_MOMENTUM = 0.99
 TORCH_BN_MOMENTUM = 0.01
 
 

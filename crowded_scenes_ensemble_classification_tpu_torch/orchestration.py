@@ -20,8 +20,13 @@ here, with the same names string for string:
 The port's idiom: clip tables are `data.ClipTable`s, a module holds its
 weights (members are modules, checkpoints `train.checkpoints`'s state
 dicts), and every entry point runs on the card unless `device=` names
-another.  Two arguments have no working form yet and raise: `mesh=`
-(ROADMAP Queue 1 item 7) and `fuse_1x1=True` (left out, item 8).
+another.  Inference takes a `mesh=` (`core.mesh`): the probability
+functions shard the members and batches over it
+(`ensemble.members.member_probabilities`).  Two arguments have no
+working form yet and raise: `mesh=` in training (data-parallel training
+over the mesh, ROADMAP Queue 1 item 9) and `fuse_1x1=True` (left out,
+item 8).  With a torch.distributed group up (`parallel.distributed`),
+the recovery list is divided over its processes.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from .train.engine import (
     store_history,
     train_policy,
 )
+from .parallel.distributed import process_count_index
 from .utils.device import resolve_device
 from .utils.metrics import MetricsLogger
 
@@ -71,9 +77,10 @@ DEFAULT_STAGING_HW = (256, 256)
 CLI_MODULE = "crowded_scenes_ensemble_classification_tpu_torch"
 
 
-def _no_mesh(mesh) -> None:
+def _no_training_mesh(mesh) -> None:
     if mesh is not None:
-        raise ValueError("mesh= is not ported yet: the port runs on one card (ROADMAP Queue 1 item 7)")
+        raise ValueError("mesh= in training is not ported yet: data-parallel training over the mesh, with "
+                         "global-batch BatchNorm, is ROADMAP Queue 1 item 9 (distribution, part 2)")
 
 
 def compute_dtype(config: ExperimentConfig) -> torch.dtype:
@@ -249,8 +256,9 @@ def train_member(
     with `optimizer`.  resident=True pins the train split on the bundle's
     device once (`data.resident.ResidentClips`), so every epoch gathers its
     batches there; val and test stream through the pipelines.
-    input_scale=None reads config.input_scale."""
-    _no_mesh(mesh)
+    input_scale=None reads config.input_scale.  `mesh=` raises (ROADMAP
+    Queue 1 item 9)."""
+    _no_training_mesh(mesh)
     if input_scale is None:
         input_scale = config.input_scale
     member_seed = seed + 1000 * t + v
@@ -388,15 +396,6 @@ def member_cli_commands(
     return cmds
 
 
-def _process_count_index() -> Tuple[int, int]:
-    """(processes, this process's rank) of an initialised torch.distributed
-    group, else (1, 0)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
-
-
 def launch_ensemble_training(
     config: ExperimentConfig,
     clip_table: Optional[ClipTable],
@@ -414,14 +413,16 @@ def launch_ensemble_training(
     members — restrict to these (test, val) pairs.  recover=True — train
     (or emit commands for) only the members with no complete (checkpoint,
     history) pair; with `members` None and a torch.distributed group up,
-    the pending list is divided round-robin over its processes.
+    the pending list is divided round-robin over its processes
+    (`parallel.distributed.process_count_index`).  `mesh=` raises (ROADMAP
+    Queue 1 item 9).
     One trainable bundle and one train and one eval step are built and
     shared by every member (each member loads a seeded build's weights), unless the
     caller passes `bundle` or `train_step`.  member_kwargs go to
     `train_member`; `device` also to `prepare_ensemble`."""
     if runner not in ("local", "commands"):
         raise ValueError(f"runner {runner!r} not in ('local', 'commands')")
-    _no_mesh(member_kwargs.get("mesh"))
+    _no_training_mesh(member_kwargs.get("mesh"))
     layout = prepare_ensemble(config, clip_table, work_dir, device=member_kwargs.get("device"))
     if runner == "commands":
         return member_cli_commands(
@@ -436,7 +437,7 @@ def launch_ensemble_training(
     if recover:
         pend = pending_members(config, layout)
         if members is None:
-            n, p = _process_count_index()
+            n, p = process_count_index()
             pairs = [pair for i, pair in enumerate(pend) if i % n == p]
         else:
             pend_set = set(pend)
@@ -590,9 +591,11 @@ def cache_probabilities(
     the subset's first 2 batches of model-window clips
     (`calibrate_members`) and bakes int8 weights; quant_blocks (I3D family,
     static only: 'mixed' or a comma list) limits int8 to those sites.  Each
-    form has its own npz path (`probability_variant`).  fuse_1x1=True (the
-    JAX fused 1×1 convs) is left out of the port (ROADMAP Queue 1 item 8)."""
-    _no_mesh(mesh)
+    form has its own npz path (`probability_variant`).  `mesh` (a
+    `core.mesh.Mesh`) shards the window form's members and batches over
+    its member and data axes (`member_probabilities`); the long-video form
+    runs unsharded, as in JAX.  fuse_1x1=True (the JAX fused 1×1 convs) is
+    left out of the port (ROADMAP Queue 1 item 8)."""
     if fuse_1x1:
         raise ValueError("fuse_1x1 is not ported: the fused 1x1x1 convs are left out (ROADMAP Queue 1 item 8)")
     if input_scale is None:
@@ -640,7 +643,8 @@ def cache_probabilities(
         probs = streaming_member_probabilities_over_pipeline(members, pipe, out_hw, clip.frames,
                                                              stride=window_stride, input_scale=input_scale)
     else:
-        probs = member_probabilities(members, pipe, out_hw, input_scale=input_scale, flow_params=flow_params)
+        probs = member_probabilities(members, pipe, out_hw, input_scale=input_scale, flow_params=flow_params,
+                                     mesh=mesh)
     save_probabilities(path, probs, np.asarray(table["class"], np.int64), names)
     return path
 
@@ -649,11 +653,11 @@ def make_prob_provider(
     config: ExperimentConfig, layout: WorkLayout, mesh=None, **kwargs
 ) -> Callable[[int, str], Dict[str, np.ndarray]]:
     """ProbProvider for `ensemble.evaluate`: computes and caches on a miss
-    (reference auto-compute at evaluate_ensemble.py:1161-1174)."""
-    _no_mesh(mesh)
+    (reference auto-compute at evaluate_ensemble.py:1161-1174); `mesh` goes
+    to `cache_probabilities`."""
 
     def provider(t: int, subset: str) -> Dict[str, np.ndarray]:
-        return load_probabilities(cache_probabilities(config, layout, t, subset, **kwargs))
+        return load_probabilities(cache_probabilities(config, layout, t, subset, mesh=mesh, **kwargs))
 
     return provider
 
@@ -719,15 +723,15 @@ def global_prob_providers(
 ) -> Dict[str, Callable]:
     """Named ProbProviders over several architecture configs sharing one
     workspace; each config takes the input_scale its members trained with
-    from its subfolder's experiment.json when one exists."""
-    _no_mesh(mesh)
+    from its subfolder's experiment.json when one exists; `mesh` goes to
+    every provider."""
     layout = WorkLayout(work_dir)
     out = {}
     for name, cfg in parse_global_model_specs(specs, folds_number, num_classes).items():
         saved = layout.experiment_json(cfg)
         if os.path.exists(saved):
             cfg = dataclasses.replace(cfg, input_scale=ExperimentConfig.load(saved).input_scale)
-        out[name] = make_prob_provider(cfg, layout, **kwargs)
+        out[name] = make_prob_provider(cfg, layout, mesh=mesh, **kwargs)
     return out
 
 

@@ -1,3 +1,40 @@
-"""Parallel forms: streaming long-video windows (`streaming`).  The mesh,
-halo and multi-process forms of the JAX package's `parallel/` are not
-ported yet (ROADMAP Queue 1 item 7)."""
+"""Parallel forms (JAX `parallel/__init__.py:1-33`): the device mesh
+(`core.mesh`), the processes that share an ensemble's members
+(`distributed`), streaming long-video windows (`streaming`), time-sharded
+long clips with halo exchange for inference (`temporal_halo`) and
+training (`halo_train`).  Data-parallel training over the mesh waits for
+ROADMAP Queue 1 item 9."""
+
+from ..core.mesh import (  # noqa: F401
+    data_parallel_mesh,
+    ensemble_mesh,
+    gather,
+    make_mesh,
+    shard_batch,
+)
+from .distributed import (  # noqa: F401
+    initialize_distributed,
+    is_multi_process,
+    my_member_assignments,
+    shutdown_distributed,
+)
+from .halo_train import (  # noqa: F401
+    halo_conv_bn_relu_train,
+    make_time_sharded_convbn_train_step,
+    update_running_stats,
+)
+from .streaming import (  # noqa: F401
+    extract_windows,
+    streaming_member_probabilities,
+    streaming_predict,
+    streaming_predict_batch,
+    window_starts,
+)
+from .temporal_halo import (  # noqa: F401
+    halo_conv3d,
+    halo_exchange,
+    halo_max_pool3d,
+    shard_time,
+    time_sharded_conv_stack,
+    time_sharded_i3d_trunk,
+)

@@ -28,7 +28,7 @@ Artifact = one zip: `module.pt2` (`torch.export.save`) + `metadata.json`.
 Static-int8 members baked into a program carry their packed weights and
 scales as constants (`models/common.QuantConv`).  The CLI's `export` and
 `serve` commands write and read these artifacts.  Not ported yet: the mesh
-form (ROADMAP Queue 1 item 7).
+form (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations

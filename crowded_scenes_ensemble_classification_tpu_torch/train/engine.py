@@ -27,7 +27,7 @@ stop) runs on the host in `fit`, with the reference's callback semantics
 engine.py:542-544, :682-685), a `ResidentClips` through its `batches(epoch)`
 and the resident steps, or any other object with `batches(epoch)`.  Not
 ported: the wire-fed step (a TPU transfer workaround, left out: ROADMAP
-Queue 1 item 8) and the mesh (item 7).
+Queue 1 item 8) and data-parallel training over the mesh (item 9).
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@ are in-place writes to buffers, and the `csec::` custom ops (the max pool,
 its gradient, the noise) have no vmap rule.
 
 The member-sharded mesh form, which puts members on different devices,
-waits for the port's distributed layer (ROADMAP Queue 1 item 7).
+is part 2 of the port's distribution (ROADMAP Queue 1 item 9); the mesh
+itself is `core.mesh`.
 """
 
 from __future__ import annotations

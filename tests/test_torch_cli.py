@@ -574,8 +574,9 @@ def test_export_then_serve_equal_eager(torch, pcli, port, ws, tiny_builds, tmp_p
 
 
 @pytest.mark.parametrize("argv,error,words", [
-    (["train", "--work-dir", "/w", "-t", "0", "-v", "1", "--mesh-data", "2"], ValueError, "item 7"),
-    (["export", "--work-dir", "/w", "-t", "0", "--out", "a.zip", "--mesh-member", "2"], ValueError, "item 7"),
+    (["train", "--work-dir", "/w", "-t", "0", "-v", "1", "--mesh-data", "2"], ValueError, "item 9"),
+    (["launch", "--work-dir", "/w", "--mesh-data", "2"], ValueError, "item 9"),
+    (["export", "--work-dir", "/w", "-t", "0", "--out", "a.zip", "--mesh-member", "2"], ValueError, "item 9"),
     (["probs", "--work-dir", "/w", "--fuse-1x1"], ValueError, "item 8"),
     (["ensemble", "--work-dir", "/w", "--fuse-1x1"], ValueError, "item 8"),
     (["convert", "--fetch-rgb", "rgb_kinetics_only", "--cache-dir", "{tmp}", "--out", "x.pt"], FileNotFoundError,

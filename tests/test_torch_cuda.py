@@ -1061,3 +1061,70 @@ def test_offline_augment_video_file_on_card_equals_plain_route(torch, tmp_path):
     video_io.write_video(str(tmp_path / "plain.mp4"), plain)
     assert np.array_equal(video_io.decode_clip(out, 12, None), video_io.decode_clip(str(tmp_path / "plain.mp4"), 12,
                                                                                         None))
+
+
+# ----------------------------------------------------------------------
+# Time-sharded long clips (parallel/temporal_halo): positions on cuda:0
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("t_loc", [2, 4, 16])
+def test_halo_pool_kernel_equals_plain(torch, t_loc, batch, dtype):
+    """The 3³/1 halo pool over 2 positions on the card (the kernel on each
+    halo-padded shard of T_loc + 2 frames, trimmed) equals the plain
+    version of the whole clip, one forward and one gradient launch a
+    position; the gradient, through the exchange, equals the plain
+    version's (dy in multiples of 1/8 on tie-free x: exact sums)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import (
+        max_pool_3x3x3_backward_reference,
+        max_pool_3x3x3_reference,
+        max_pool_3x3x3_same,
+        max_pool_3x3x3_same_backward,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.parallel.temporal_halo import halo_max_pool3d
+
+    gen = torch.Generator(device="cuda").manual_seed(t_loc * 10 + batch)
+    dt = getattr(torch, dtype)
+    x = torch.randn(batch, 2 * t_loc, 14, 14, 64, device="cuda", generator=gen).to(dt).requires_grad_(True)
+    dy = (torch.randint(-8, 9, x.shape, device="cuda", generator=gen) / 8).to(dt)
+    fwd, bwd = max_pool_3x3x3_same.launches, max_pool_3x3x3_same_backward.launches
+    y = torch.cat(halo_max_pool3d(list(x.chunk(2, dim=1)), (3, 3, 3), (1, 1, 1)), dim=1)
+    (g,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    assert max_pool_3x3x3_same.launches == fwd + 2 and max_pool_3x3x3_same_backward.launches == bwd + 2
+    assert torch.equal(y, max_pool_3x3x3_reference(x.detach()))
+    want = max_pool_3x3x3_backward_reference(x.detach().float(), dy.float())
+    assert torch.equal(g.float(), want) if dtype == "float32" else torch.equal(g, want.to(dt))
+
+
+def test_time_sharded_i3d_trunk_on_card(torch, no_tf32):
+    """A full-width I3D trunk (f32, TF32 off) over 2 positions on cuda:0 at
+    16 × 32² equals the unsharded trunk (atol 2e-3, rtol 1e-4: JAX's
+    tests/test_parallel.py:217) and launches the max-pool kernel in its 9
+    Mixed blocks once a position."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.mesh import gather, make_mesh
+    from crowded_scenes_ensemble_classification_tpu_torch.models.i3d import I3DTrunk
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.maxpool import max_pool_3x3x3_same
+    from crowded_scenes_ensemble_classification_tpu_torch.parallel.temporal_halo import (
+        shard_time,
+        time_sharded_i3d_trunk,
+    )
+
+    trunk = I3DTrunk(generator=torch.Generator().manual_seed(0)).eval().cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for m in trunk.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):  # planted statistics in [0.5, 1.5]
+                m.running_mean.uniform_(0.5, 1.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    x = torch.randn(1, 16, 32, 32, 3, device="cuda", generator=gen)
+    mesh = make_mesh((("time", 2),), [torch.device("cuda:0")] * 2)
+    with torch.inference_mode():
+        before = max_pool_3x3x3_same.launches
+        got = gather(time_sharded_i3d_trunk(mesh, trunk)(shard_time(x, mesh)), dim=1)
+        launches = max_pool_3x3x3_same.launches - before
+        want = trunk(x).permute(0, 2, 3, 4, 1)
+    assert launches == 9 * 2
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-4)

@@ -335,7 +335,7 @@ def test_probability_npz_names_match_jax(orch, pconfig, workspace, monkeypatch, 
 
 def test_cache_probabilities_refusals(orch, workspace):
     pcfg, pl = workspace["port"]
-    for kw, words in ((dict(mesh=object()), "item 7"), (dict(fuse_1x1=True), "item 8"),
+    for kw, words in ((dict(fuse_1x1=True), "item 8"),
                       (dict(quant_blocks="mixed", quant="static"), "I3D-family"),
                       (dict(subset="val"), "unknown subset")):
         kw = dict(kw)
@@ -364,8 +364,10 @@ def test_providers_into_evaluate_ensembles_match_jax(torch, orch, workspace, cac
         assert fp.accuracy == fj.accuracy and fp.member_accuracies == fj.member_accuracies
         np.testing.assert_allclose(np.asarray(fp.weights, np.float64), np.asarray(fj.weights, np.float64),
                                    rtol=1e-6)
-    with pytest.raises(ValueError, match="item 7"):
-        orch.make_prob_provider(pcfg, pl, mesh=object())
+    # a mesh goes through to cache_probabilities (here a cache hit)
+    mesh = _port("core.mesh").make_mesh((("member", 2), ("data", -1)), [torch.device("cpu")] * 2)
+    meshed = orch.make_prob_provider(pcfg, pl, mesh=mesh, staging_hw=STAGING, device="cpu")(0, "test")
+    np.testing.assert_array_equal(meshed["probs"], pprov(0, "test")["probs"])
 
 
 def test_reference_csv_provider_matches_jax(torch, orch, workspace, cached, tmp_path):
@@ -440,7 +442,7 @@ def test_launch_local_shares_one_train_and_eval_step(torch, orch, workspace, mon
         assert start.keys() == want.keys() and all(torch.equal(start[k], want[k]) for k in want)
     assert not torch.equal(starts[0][1]["conv1.weight"], starts[1][1]["conv1.weight"])
     assert orch.launch_ensemble_training(pcfg, None, work, members=[(2, 0)], recover=True) == {}
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="item 9"):
         orch.launch_ensemble_training(pcfg, None, work, mesh=object())
 
 
