@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --fanout-worker HOST:PORT PROCESSES RANK WORK_DIR`
-is phase 24's worker process, which the script starts itself.)
+is phase 24's worker process, `--dataparallel-worker HOST:PORT PROCESSES
+RANK` and `--recover-worker WORK_DIR MEMBERS_JSON SENTINEL_DIR` phase 25's;
+the script starts them itself.)
 
 Phases, each of which raises on failure (exit code 1):
 
@@ -273,7 +275,48 @@ Phases, each of which raises on failure (exit code 1):
    phase 21's dataset into one work dir: disjoint, covering all 6
    members, each with a best checkpoint and a history; this process then
    caches every test fold's probabilities from the union and fuses them
-   with SUM.  Prints seconds by part and the phase's launches by kernel.
+   with SUM.  Prints seconds by part and the phase's launches by kernel;
+25. data-parallel training (`train/engine` with `mesh=`, global-batch
+   BatchNorm through `core/lockstep`), every mesh of 4 positions on the
+   one card.  Each comparison takes one step of Keras SGD (lr 0.003,
+   momentum 0.9: the first update is the gradient times the rate) from
+   equal weights on the same global batch, augment on, data-parallel and
+   unsharded, on clips of unequal brightness (the shards' moments
+   differ), and reads the data-parallel step's relative errors against
+   the unsharded one (‖a − b‖/‖b‖ over the whole model): the loss, the
+   update p_after − p_before, the running statistics.  The gate, in f32
+   with TF32 off and cuDNN deterministic at one clip a position: loss and
+   statistics within 1e-4, the update within 0.08 (`DP_LIMITS`); two
+   planted faults (the last position's gradient dropped; per-shard
+   BatchNorm moments) run beside and must fail it.
+   (a) I3D at full width on resident 20×256² rows, B=16 (4 a position),
+   bf16: 36 max-pool, 36 gradient and 4 noise launches, finite losses,
+   both forms timed; then I3D's gate at B=4, the same launches; (b) the
+   gates of TwoStream-I3D (turbo Farnebäck of resident gray pairs at each
+   position; 72/72/4 launches) and R3D-18 (0/0/4); (c) the noise kernel
+   at clip offsets 0, 4, 8, 12 of a global batch of 16 `torch.equal` to
+   its plain version and to those rows of the whole call, timed; (d)
+   `train --mesh-data 4 --resident -as augmented_onTheFly` of member
+   (0, 1) of a 3-fold I3D experiment on phase 21's dataset (B=8): a
+   ResidentClips sharded 4 ways, 36/36/4 launches a step and 36 max-pool
+   launches an eval batch, a finite history; (e) 2 R3D-18 members through
+   the multi-member step on a (member 2, data 2) mesh, B=2 each, f32,
+   each member held to the unsharded member loop by the gate; (f)
+   two processes (this script with `--dataparallel-worker`) in a gloo
+   group take one f32 R3D-18 step whose data axis spans them (2 + 2 rows
+   of 4, one a position): the same weights in both, and the gate
+   against the one-process step; (g) 2 bf16 I3D members exported as a
+   mesh artifact over (member 2, data 2), served on 2 batches of 8, each
+   position's member and rows held to the single-card baked artifact
+   exported at the shard's batch of 4 and served on the same rows:
+   probabilities within 2e-5 (JAX's), argmax equal, and another shard's
+   rows and another member beyond it; then the kill-and-recover drill on
+   2 scenes a class of phase 21's dataset (66 clips, a 3-fold C3D
+   experiment; two `--recover-worker` processes, B's process group
+   killed once B has finished its first member and started its second):
+   recovery retrains exactly the pending members and touches no finished
+   one, and a second finds nothing.  Prints seconds by part and the
+   phase's launches by kernel.
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 1,979 TOPS
 dense int8, 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s.  The line
@@ -291,7 +334,9 @@ path's 15 steps at B=16 and phase 22's static cache, their times the sums
 over one member's 57 convs at B=16; phase 23's in-process commands add to
 each, and every record carries their count as `launches_cli`; phase 24's
 (the max pool's and its gradient's, the fan-out workers' included) add
-too, under `launches_distribution`; each record keeps a phase's own count
+too, under `launches_distribution`, and phase 25's (the max pool's, its
+gradient's and the noise's, the worker processes' of (f) included, those
+of (g)'s drill workers not) under `launches_data_parallel`; each record keeps a phase's own count
 under `launches_<phase>`); the last line is
 `{"ok": true, "device":
 {...}}`.  Needs one card and no network.
@@ -304,6 +349,7 @@ import itertools
 import json
 import math
 import os
+import signal
 import sys
 import tempfile
 import time
@@ -3565,6 +3611,744 @@ def distribution_fanout(torch, np, dev, counted, tmp: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase 25: data-parallel training and the mesh serving artifact
+# ----------------------------------------------------------------------
+
+DP_POSITIONS = 4  # phase 25's data positions, all on cuda:0
+DP_FAMILIES = ("I3D", "TWOSTREAM_I3D", "R3D_18")  # each held in f32 by (a) and (b)
+NOISE_OFFSETS = (0, 4, 8, 12)  # (c): a position's first row of a global batch of 16
+
+# The gate of a data-parallel step against the unsharded step on the same
+# global batch from equal weights, in f32 with TF32 off and cuDNN
+# deterministic, one clip a position: the relative errors of the loss and of
+# the running statistics within PERF.md §2's 1e-4, and of the update
+# (p_after − p_before over every trainable parameter) within 0.08.  Each
+# limit lies between the sound steps' readings and the planted faults'
+# (`dp_fault`), which every run also takes and which must fail it: on the
+# H100, the sound steps read at most 1.3e-6 (loss), 2e-8 (statistics) and
+# 0.0125 (update, the max-pool's near-ties flipping between batch sizes);
+# the dropped gradient 0.54-0.69 (update), per-shard moments 0.012-0.086
+# (loss) and 3.6e-3-7.4e-3 (statistics) (PERF.md §6, data parallel).
+DP_LIMITS = {"loss": 1e-4, "stats": 1e-4, "update": 0.08}
+# A planted fault → the errors that must exceed their limits under it.
+DP_FAULTS = {"dropped_gradient": ("update",), "per_shard_moments": ("loss", "stats")}
+
+
+def dp_counted(torch, fn):
+    """fn() with the three training kernels' counts zeroed first → (its
+    value, the launches it made)."""
+    zero_zoo_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, zoo_launches()
+
+
+def dp_rows(np, rng, clip, rows: int, two_stream: bool):
+    """`rows` seeded uint8 clips staged at the model size + 32 (bench.py:664),
+    clip b's pixels uniform below 256·(b + 1)/rows, so that the shards'
+    moments differ, with TwoStream's f32 gray pairs (`zoo_resident`'s), and
+    labels."""
+    top = (256.0 * (np.arange(rows) + 1) / rows).astype(np.float32).reshape(-1, 1, 1, 1, 1)
+    shape = (rows, clip.frames, clip.height + 32, clip.width + 32, 3)
+    rgb = (rng.random(shape, dtype=np.float32) * top).astype(np.uint8)
+    arrays = {"rgb": rgb}
+    if two_stream:
+        arrays["gray"] = rgb.mean(-1, keepdims=True, dtype=np.float32)
+        arrays["gray_next"] = np.roll(arrays["gray"], -1, axis=1)
+    return arrays, rng.integers(0, CLASSES, rows)
+
+
+def dp_trainable(module) -> dict:
+    """A copy of `module`'s trainable parameters: the start of a step."""
+    return {n: p.detach().clone() for n, p in module.named_parameters() if p.requires_grad}
+
+
+def dp_step_errors(before: dict, ref, other, loss_ref, loss_other) -> dict:
+    """How far `other`'s step lies from `ref`'s, both from the parameters
+    `before`, each a relative error over the whole model (‖a − b‖/‖b‖ of
+    every tensor of the kind flattened into one, in float64): the loss; the
+    update p_after − p_before of every trainable parameter; the running
+    statistics."""
+    import torch
+
+    def flat(tensors):
+        return torch.cat([t.detach().double().reshape(-1) for t in tensors])
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    mine, theirs = dict(ref.named_parameters()), dict(other.named_parameters())
+    stats = [n for n, _ in ref.named_buffers() if n.endswith(("running_mean", "running_var"))]
+    mbuf, tbuf = dict(ref.named_buffers()), dict(other.named_buffers())
+    return {
+        "loss": abs(float(loss_other) - float(loss_ref)) / max(abs(float(loss_ref)), 1e-30),
+        "update": rel(flat(theirs[n] - p for n, p in before.items()), flat(mine[n] - p for n, p in before.items())),
+        "stats": rel(flat(tbuf[n] for n in stats), flat(mbuf[n] for n in stats)) if stats else 0.0,
+    }
+
+
+def dp_over(errors: dict) -> list:
+    """The errors of a step over their limits (DP_LIMITS)."""
+    return [k for k, v in errors.items() if v > DP_LIMITS[k]]
+
+
+def dp_hold(res: dict, what: str) -> None:
+    """Fail unless the sound data-parallel step keeps within every limit
+    and each planted fault exceeds the limits it must."""
+    check(not dp_over(res["errors"]["sharded"]),
+          f"{what}: the data-parallel step differs from the unsharded: {dp_fmt(res['errors']['sharded'])}")
+    for fault, must in DP_FAULTS.items():
+        if fault in res["errors"]:
+            over = dp_over(res["errors"][fault])
+            check(all(k in over for k in must),
+                  f"{what}: planted fault {fault} passes the gate: {dp_fmt(res['errors'][fault])}")
+
+
+def dp_fmt(errors: dict) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in errors.items())
+
+
+def dp_res_fmt(res: dict) -> str:
+    return "; ".join(f"{name} {dp_fmt(e)}" for name, e in res["errors"].items())
+
+
+def dp_fault(name: str):
+    """A planted fault of the data-parallel step, as a context manager:
+    `dropped_gradient`, the last position's cross-entropy detached (the
+    loss is unchanged, its rows' gradient is dropped); `per_shard_moments`,
+    every BatchNorm normalising by its own shard's moments (the rendezvous
+    returns the position's own sums, scaled to the global count)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.lockstep import Lockstep
+    from crowded_scenes_ensemble_classification_tpu_torch.train import engine
+
+    if name == "dropped_gradient":
+        real = engine.run_positions
+
+        def dropped(fn, shards):
+            outs = real(fn, shards)
+            outs[-1] = (outs[-1][0].detach(), outs[-1][1])
+            return outs
+
+        return mock.patch.object(engine, "run_positions", dropped)
+    return mock.patch.object(Lockstep, "sum", lambda self, position, values, device: [v.to(device) * self.n
+                                                                                      for v in values])
+
+
+def dp_deterministic(torch, on: bool) -> None:
+    """cuDNN's deterministic algorithms for the f32 gates (TF32 is off
+    throughout, `main`)."""
+    torch.backends.cudnn.deterministic = on
+
+
+def dp_train_pair(torch, np, model_type: str, batch: int, seed: int, mesh, dtype, faults=()) -> dict:
+    """One augmented resident train step of `model_type` at full width from
+    equal weights on the same global batch, unsharded and data-parallel
+    over `mesh`, in `dtype`, then data-parallel under each planted fault of
+    `faults`: each data-parallel step's errors against the unsharded one
+    (`dp_step_errors`), the sound step's launches, and ms a step of the two
+    sound forms (one more step each)."""
+    import contextlib
+    import copy
+    import dataclasses as dc
+
+    from crowded_scenes_ensemble_classification_tpu_torch.data.resident import ResidentClips
+    from crowded_scenes_ensemble_classification_tpu_torch.flow.farneback import flow_schedule_params
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        make_resident_train_step,
+        train_policy,
+    )
+
+    plain = build_model(model_type, dtype=dtype, generator=torch.Generator(device="cuda").manual_seed(seed),
+                        trainable=True)
+    before = dp_trainable(plain.module)
+    names = ("unsharded", "sharded", *faults)
+    modules = {n: plain.module if n == "unsharded" else copy.deepcopy(plain.module) for n in names}
+    hw = (plain.clip.height, plain.clip.width)
+    arrays, labels = dp_rows(np, np.random.default_rng(seed), plain.clip, batch, plain.two_stream)
+    data = [ResidentClips(arrays, labels, batch, shuffle=False),
+            ResidentClips(arrays, labels, batch, shuffle=False, mesh=mesh)]
+    rows = [next(d.batches(0)) for d in data]
+    check(np.array_equal(rows[0]["index"], rows[1]["index"]), "sharded and unsharded batches hold other rows")
+    _, l2 = train_policy(model_type)
+    kw = dict(l2_weight=l2, input_scale=INPUT_SCALE,
+              flow_params=flow_schedule_params("turbo") if plain.two_stream else None)
+    cw = torch.ones(CLASSES, device="cuda")
+    runs = {}
+    for name in names:
+        sharded = name != "unsharded"
+        tx = make_optimizer("I3D", 0.003)  # SGD (module docstring)
+        step = make_resident_train_step(dc.replace(plain, module=modules[name]), tx, hw, augment=True,
+                                        mesh=mesh if sharded else None, **kw)
+        state = TrainState.create(modules[name], tx, seed=seed)
+        row = rows[1] if sharded else rows[0]
+        with dp_fault(name) if name in faults else contextlib.nullcontext():
+            (_, metrics), launches = dp_counted(torch, lambda: step(state, row, cw))
+        runs[name] = {"loss": metrics["loss"], "launches": launches, "step": step, "state": state, "row": row}
+    u = runs["unsharded"]
+    res = {"launches": runs["sharded"]["launches"], "loss": float(u["loss"]),
+           "errors": {n: dp_step_errors(before, modules["unsharded"], modules[n], u["loss"], runs[n]["loss"])
+                      for n in names[1:]},
+           "ms": {n: train_steps(runs[n]["step"], runs[n]["state"], [runs[n]["row"]], cw, torch)[2]
+                  for n in ("unsharded", "sharded")}}
+    check(np.isfinite(res["loss"]) and np.isfinite(float(runs["sharded"]["loss"])), f"{model_type}: loss {res}")
+    del plain, modules, runs, data
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_gate_family(torch, np, model_type: str, seed: int, mesh) -> dict:
+    """`model_type`'s f32 gate (DP_LIMITS): `dp_train_pair` in f32 at one
+    clip a position with every planted fault, cuDNN deterministic."""
+    dp_deterministic(torch, True)
+    try:
+        return dp_train_pair(torch, np, model_type, DP_POSITIONS, seed, mesh, torch.float32, tuple(DP_FAULTS))
+    finally:
+        dp_deterministic(torch, False)
+
+
+def data_parallel_worker(coordinator: str, processes: int, rank: int) -> int:
+    """One process of phase 25 (f) (`chip_smoke.py --dataparallel-worker
+    ...`): join the gloo group; take one data-parallel R3D-18 step in f32
+    (TF32 off, cuDNN deterministic) whose data axis spans the group (this
+    process's 2 rows of a global batch of 4 on 2 positions of the card, one
+    clip a position, `ProcessSum`), then the one-process step on the whole
+    batch from the same weights; print one JSON line: the loss, a digest of
+    the updated weights and statistics, the data-parallel step's errors
+    against the one-process step's (`dp_step_errors`), ms and launches."""
+    import copy
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from crowded_scenes_ensemble_classification_tpu_torch.core.mesh import make_mesh
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.parallel import distributed
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        train_policy,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.utils.device import require_cuda
+
+    require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dp_deterministic(torch, True)
+    distributed.initialize_distributed(coordinator, processes, rank, timeout_s=300)
+    try:
+        plain = build_model("R3D_18", dtype=torch.float32, trainable=True,
+                            generator=torch.Generator(device="cuda").manual_seed(250))
+        before = dp_trainable(plain.module)
+        bundles = {"unsharded": plain, "sharded": dataclasses.replace(plain, module=copy.deepcopy(plain.module))}
+        rows = 2 * processes
+        arrays, labels = dp_rows(np, np.random.default_rng(251), plain.clip, rows, False)
+        batch = {"rgb": arrays["rgb"], "label": labels, "valid": np.ones(rows, bool)}
+        mine = {k: v[rank * 2:(rank + 1) * 2] for k, v in batch.items()}
+        hw = (plain.clip.height, plain.clip.width)
+        _, l2 = train_policy("R3D_18")
+        mesh = make_mesh((("data", 2),), [torch.device("cuda", 0)] * 2)
+        cw = torch.ones(CLASSES, device="cuda")
+        losses, ms = {}, None
+        for name, bundle in bundles.items():
+            tx = make_optimizer("I3D", 0.003)  # SGD, as phase 25's comparisons
+            sharded = name == "sharded"
+            step = make_train_step(bundle, tx, hw, True, l2_weight=l2, input_scale=INPUT_SCALE,
+                                   mesh=mesh if sharded else None,
+                                   processes=distributed.ProcessSum() if sharded else None)
+            state = TrainState.create(bundle.module, tx, seed=252)
+            zero_zoo_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step(state, mine if sharded else batch, cw)
+            torch.cuda.synchronize()
+            losses[name] = metrics["loss"]
+            if sharded:
+                ms, launches = (time.perf_counter() - t0) * 1e3, zoo_launches()
+        errors = dp_step_errors(before, plain.module, bundles["sharded"].module, losses["unsharded"],
+                                losses["sharded"])
+        digest = hashlib.sha256(b"".join(v.detach().cpu().numpy().tobytes()
+                                         for v in bundles["sharded"].module.state_dict().values())).hexdigest()
+        torch.distributed.barrier()
+    finally:
+        distributed.shutdown_distributed()
+    print(json.dumps({"process_id": rank, "loss": float(losses["sharded"]), "digest": digest, "errors": errors,
+                      "ms": ms, "launches": launches}))
+    return 0
+
+
+def drill_config():
+    """(g)'s drill: C3D, 3 folds, 1 epoch, B=8, pixels scaled to [0, 1] (at
+    0-255 a full-width C3D in bf16 can end its epoch at a NaN val loss and
+    leave no best checkpoint), on phase 21's dataset."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ExperimentConfig
+
+    return ExperimentConfig("C3D", "_SCRATCH", folds_number=EXPERIMENT_FOLDS, epochs=1, batch_size=EXPERIMENT_BATCH,
+                            input_scale=INPUT_SCALE)
+
+
+def recover_worker(work: str, members: str, sentinels: str) -> int:
+    """One process of phase 25 (g)'s drill (`chip_smoke.py --recover-worker
+    WORK MEMBERS_JSON SENTINEL_DIR`): train the given members of the
+    prepared work dir one after another, writing SENTINEL_DIR/started_<t>_<v>
+    before each and done_<t>_<v> after."""
+    from crowded_scenes_ensemble_classification_tpu_torch import orchestration as orch
+    from crowded_scenes_ensemble_classification_tpu_torch.utils.device import require_cuda
+
+    require_cuda()
+    config = drill_config()
+    for t, v in json.loads(members):
+        open(os.path.join(sentinels, f"started_{t}_{v}"), "w").close()
+        orch.train_member(config, orch.WorkLayout(work), t, v)
+        open(os.path.join(sentinels, f"done_{t}_{v}"), "w").close()
+    print(json.dumps({"done": json.loads(members)}))
+    return 0
+
+
+def check_data_parallel(torch, np, dev, kernels, tmp: str) -> None:
+    """Phase 25: data-parallel training over DP_POSITIONS positions of the
+    card, the cross-process step and the mesh serving artifact, (a)-(g) as
+    the module docstring says; launches counted by part."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.mesh import make_mesh
+
+    mesh = make_mesh((("data", DP_POSITIONS),), [dev] * DP_POSITIONS)
+    names = ("max_pool_3x3x3_same", "max_pool_3x3x3_same_backward", "salt_pepper")
+    totals = dict.fromkeys(names, 0)
+    secs = {}
+    drill = {}
+    parts = (("a", dp_i3d, (mesh,)), ("b", dp_families, (mesh,)), ("c", dp_noise, ()),
+             ("d", dp_train_command, (tmp,)), ("e", dp_multi_member, ()),
+             ("f", dp_processes, ()), ("g", dp_artifact_and_drill, (drill, tmp)))
+    try:
+        for part, fn, args in parts:
+            t0 = time.perf_counter()
+            counts = fn(torch, np, dev, *args)
+            for n in names:
+                totals[n] += counts.get(n, 0)
+            torch.cuda.empty_cache()
+            secs[part] = round(time.perf_counter() - t0, 1)
+    finally:
+        for p in drill.get("procs", []):  # a failed part leaves no worker behind
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    print(f"data parallel seconds by part {secs}; launches in the phase {totals}")
+    for k in kernels:
+        if k["name"] in totals:
+            k["launches_data_parallel"] = totals[k["name"]]
+            k["launches"] += totals[k["name"]]
+
+
+def dp_i3d(torch, np, dev, mesh) -> dict:
+    """(a) I3D at full width: the data-parallel resident train step over 4
+    positions (B=16, 4 a position, bf16, augment on) beside the unsharded
+    step, both timed: 36 max-pool, 36 gradient and 4 noise launches (9, 9
+    and 1 a position) and finite losses; then I3D's f32 gate
+    (`dp_gate_family`: B=4, one clip a position, TF32 off, the planted
+    faults), with the same launches."""
+    bf16 = dp_train_pair(torch, np, "I3D", BATCH, 200, mesh, torch.bfloat16)
+    f32 = dp_gate_family(torch, np, "I3D", 201, mesh)
+    print(f"data parallel (a): I3D full width, 20×224², resident, augment on, over {DP_POSITIONS} positions of "
+          f"{dev}: B={BATCH} bf16, sharded against unsharded: {dp_res_fmt(bf16)} (loss {bf16['loss']:.5f}); "
+          f"launches {bf16['launches']}; ms a step sharded {bf16['ms']['sharded']:.2f}, unsharded "
+          f"{bf16['ms']['unsharded']:.2f}. The gate, B={DP_POSITIONS} f32 (TF32 off, cuDNN deterministic), "
+          f"against the unsharded step: {dp_res_fmt(f32)} (loss {f32['loss']:.5f}; limits {DP_LIMITS}); ms a step sharded {f32['ms']['sharded']:.2f}, unsharded "
+          f"{f32['ms']['unsharded']:.2f}")
+    for run in (bf16, f32):
+        check(run["launches"] == {"max_pool_3x3x3_same": 36, "max_pool_3x3x3_same_backward": 36, "salt_pepper": 4},
+              f"(a) sharded I3D step launches {run['launches']}")
+    dp_hold(f32, "(a) I3D")
+    return {k: bf16["launches"][k] + f32["launches"][k] for k in bf16["launches"]}
+
+
+def dp_families(torch, np, dev, mesh) -> dict:
+    """(b) the f32 gates of TwoStream-I3D (turbo Farnebäck of resident gray
+    pairs at each position) and R3D-18 at full width (`dp_gate_family`):
+    72/72/4 and 0/0/4 launches."""
+    totals = {}
+    for seed, model_type in enumerate(DP_FAMILIES[1:], 210):
+        res = dp_gate_family(torch, np, model_type, seed, mesh)
+        print(f"data parallel (b): {model_type} full width, B={DP_POSITIONS} over {DP_POSITIONS} positions, f32 "
+              f"(TF32 off, cuDNN deterministic), augment on, against the unsharded step: {dp_res_fmt(res)} (loss "
+              f"{res['loss']:.5f}; limits {DP_LIMITS}); launches "
+              f"{res['launches']}; ms a step sharded {res['ms']['sharded']:.2f}, unsharded {res['ms']['unsharded']:.2f}")
+        pool = 18 * DP_POSITIONS if model_type == "TWOSTREAM_I3D" else 0
+        check(res["launches"] == {"max_pool_3x3x3_same": pool, "max_pool_3x3x3_same_backward": pool,
+                                  "salt_pepper": DP_POSITIONS}, f"(b) {model_type} launches {res['launches']}")
+        dp_hold(res, f"(b) {model_type}")
+        for k, v in res["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def dp_noise(torch, np, dev) -> dict:
+    """(c) the noise kernel at each position's clip offset of a global
+    batch of 16 (4 rows a position, NOISE_SHAPE) `torch.equal` to its plain
+    version there and to those rows of the whole batch's kernel call;
+    timed with offset 12 beside offset 0."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.noise import salt_pepper, salt_pepper_plain
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randint(0, 256, NOISE_SHAPE, generator=gen, device=dev).float()
+    salt = torch.rand(BATCH, generator=gen, device=dev) < 0.75
+    pepper = torch.rand(BATCH, generator=gen, device=dev) < 0.75
+    seed = 2**50 + 26
+    rows = BATCH // DP_POSITIONS
+    (full, parts), launches = dp_counted(torch, lambda: (salt_pepper(x, seed, salt, pepper, 100), [
+        salt_pepper(x[k:k + rows].contiguous(), seed, salt[k:k + rows], pepper[k:k + rows], 100, k)
+        for k in NOISE_OFFSETS]))
+    for k, part in zip(NOISE_OFFSETS, parts):
+        plain = salt_pepper_plain(x[k:k + rows], seed, salt[k:k + rows], pepper[k:k + rows], 100, k)
+        check(torch.equal(part, plain), f"(c) noise kernel != its plain version at clip offset {k}")
+        check(torch.equal(part, full[k:k + rows]), f"(c) noise at clip offset {k} != rows {k}.. of the whole call")
+    xs = x[12:16].contiguous()
+    ms = (cuda_ms(lambda: salt_pepper(xs, 5, salt[12:], pepper[12:], 100, 12)),
+          cuda_ms(lambda: salt_pepper(xs, 5, salt[12:], pepper[12:], 100)))
+    print(f"data parallel (c): noise kernel at clip offsets {NOISE_OFFSETS} (4 of {BATCH} rows each, f32 "
+          f"20×224²×3) == its plain version and == those rows of the whole call (torch.equal); ms at offset 12 "
+          f"{ms[0]:.4f}, at offset 0 {ms[1]:.4f}")
+    return launches
+
+
+def dp_train_command(torch, np, dev, tmp: str) -> dict:
+    """(d) `train --mesh-data 4 --resident -as augmented_onTheFly` of member
+    (0, 1) of a 3-fold I3D experiment on phase 21's dataset (B=8, 1 epoch):
+    `fit` over a ResidentClips sharded over 4 positions of the card, val
+    and test batches split over them; a best checkpoint and history, a
+    finite test loss; 36 max-pool and gradient launches and 4 noise
+    launches a step, 36 max-pool launches an eval batch."""
+    from crowded_scenes_ensemble_classification_tpu_torch import data, orchestration as orch
+    from crowded_scenes_ensemble_classification_tpu_torch.cli.main import main as cli_main
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import ExperimentConfig
+    from crowded_scenes_ensemble_classification_tpu_torch.train.checkpoints import best_exists
+
+    table, _ = ingest_dataset(data, tmp)
+    config = ExperimentConfig("I3D", "_SCRATCH", folds_number=EXPERIMENT_FOLDS, epochs=1, batch_size=EXPERIMENT_BATCH,
+                              augmentation_status="augmented_onTheFly")
+    layout = orch.prepare_ensemble(config, table, os.path.join(tmp, "data_parallel"))
+    argv = ["train", "--work-dir", layout.root, "-mt", "I3D", "-fn", str(EXPERIMENT_FOLDS), "-bs",
+            str(EXPERIMENT_BATCH), "-e", "1", "-as", "augmented_onTheFly", "-t", "0", "-v", "1", "--resident",
+            "--mesh-data", str(DP_POSITIONS)]
+    t0 = time.perf_counter()
+    code, launches = dp_counted(torch, lambda: cli_main(argv))
+    secs = time.perf_counter() - t0
+    check(code == 0, f"(d) train --mesh-data exited {code}")
+    check(best_exists(layout.checkpoint_dir(config, 0, 1)) and os.path.exists(layout.history_path(config, 0, 1)),
+          "(d) no best checkpoint and history")
+    sizes = {k: len(orch._read_split(layout, 0, 1, k)) for k in ("train", "val", "test")}
+    per_shard = -(-sizes["train"] // DP_POSITIONS)
+    steps = -(-per_shard // (EXPERIMENT_BATCH // DP_POSITIONS))
+    evals = sum(-(-sizes[k] // EXPERIMENT_BATCH) for k in ("val", "test"))
+    want = {"max_pool_3x3x3_same": 36 * (steps + evals), "max_pool_3x3x3_same_backward": 36 * steps,
+            "salt_pepper": DP_POSITIONS * steps}
+    check(launches == want, f"(d) train --mesh-data launches {launches}, not {want}")
+    history = np.load(layout.history_path(config, 0, 1))
+    check(np.isfinite(history).all(), f"(d) history {history}")
+    print(f"data parallel (d): `train --mesh-data {DP_POSITIONS} --resident` of member (0, 1) on phase 21's "
+          f"dataset (splits {sizes}, {steps} steps of B={EXPERIMENT_BATCH} from a ResidentClips sharded "
+          f"{DP_POSITIONS} ways, {evals} eval batches split over the positions) in {secs:.2f} s; val loss "
+          f"{history.tolist()}; launches {launches}")
+    return launches
+
+
+def dp_multi_member(torch, np, dev) -> dict:
+    """(e) 2 full-width R3D-18 members through `make_multi_member_train_step`
+    on a (member 2, data 2) mesh of the card (B=2 each, one clip a
+    position, f32, TF32 off, cuDNN deterministic, augment on) beside the
+    unsharded member loop from equal weights, each member held to its loop
+    step by the gate (DP_LIMITS); 0/0/4 launches; ms a step of both
+    members, one more step each."""
+    import copy
+
+    from crowded_scenes_ensemble_classification_tpu_torch.core.mesh import make_mesh
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        make_multi_member_train_step,
+        make_optimizer,
+        train_policy,
+    )
+
+    c = CLIP_SPECS["R3D_18"]
+    hw = (c.height, c.width)
+    rng = np.random.default_rng(27)
+    parts = [dp_rows(np, rng, c, 2, False) for _ in range(2)]
+    batch = {"rgb": np.stack([a["rgb"] for a, _ in parts]), "label": np.stack([lab for _, lab in parts]),
+             "valid": np.ones((2, 2), bool)}
+    members = [build_model("R3D_18", dtype=torch.float32, trainable=True,
+                           generator=torch.Generator(device="cuda").manual_seed(270 + i)) for i in range(2)]
+    before = [dp_trainable(m.module) for m in members]
+    groups = {"unsharded": members, "sharded": [dataclasses.replace(m, module=copy.deepcopy(m.module)) for m in members]}
+    _, l2 = train_policy("R3D_18")
+    mesh = make_mesh((("member", 2), ("data", 2)), [dev] * 4)
+    cw = torch.ones(CLASSES, device="cuda")
+    runs = {}
+    dp_deterministic(torch, True)
+    try:
+        for name, group in groups.items():
+            tx = make_optimizer("I3D", 0.003)
+            step = make_multi_member_train_step(group[0], tx, hw, True, l2_weight=l2, input_scale=INPUT_SCALE,
+                                                mesh=mesh if name == "sharded" else None)
+            states = [TrainState.create(m.module, tx, seed=i) for i, m in enumerate(group)]
+            (_, metrics), launches = dp_counted(torch, lambda: step(states, batch, cw))
+            runs[name] = {"loss": metrics["loss"], "launches": launches, "step": step, "states": states}
+        errors = [dp_step_errors(before[i], members[i].module, groups["sharded"][i].module,
+                                 runs["unsharded"]["loss"][i], runs["sharded"]["loss"][i]) for i in range(2)]
+        ms = {}
+        for name in ("unsharded", "sharded"):  # ms a step of both members, one more step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]["step"](runs[name]["states"], batch, cw)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+    finally:
+        dp_deterministic(torch, False)
+    launches = runs["sharded"]["launches"]
+    print(f"data parallel (e): 2 R3D-18 members on a (member 2, data 2) mesh of {dev}, B=2 each, f32 (TF32 off, "
+          f"cuDNN deterministic), augment on, against the unsharded member loop by member: "
+          f"{[dp_fmt(e) for e in errors]}; launches {launches}; ms a step of both members sharded "
+          f"{ms['sharded']:.2f}, loop {ms['unsharded']:.2f}")
+    check(launches == {"max_pool_3x3x3_same": 0, "max_pool_3x3x3_same_backward": 0, "salt_pepper": 4},
+          f"(e) member-sharded step launches {launches}")
+    check(not any(dp_over(e) for e in errors), f"(e) member-sharded step differs from the loop: {errors}")
+    return launches
+
+
+def dp_processes(torch, np, dev) -> dict:
+    """(f) 2 processes (`chip_smoke.py --dataparallel-worker`) in one gloo
+    group at 127.0.0.1 take one data-parallel R3D-18 step whose data axis
+    spans them: the same weights in both (the same bytes), and R3D-18's
+    gate (DP_LIMITS) against the one-process step on the whole batch;
+    their launches."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(repo, "chip_smoke.py"), "--dataparallel-worker",
+                               coordinator, "2", str(rank)], cwd=repo, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    records = {}
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0, f"(f) data-parallel worker exited {p.returncode}: {err[-3000:]}")
+            record = json.loads(out.strip().splitlines()[-1])
+            records[record["process_id"]] = record
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    launches = {n: sum(records[r]["launches"][n] for r in (0, 1)) for n in records[0]["launches"]}
+    print(f"data parallel (f): 2 gloo processes (127.0.0.1, one card), 2 positions each, one R3D-18 step in f32 "
+          f"(TF32 off, cuDNN deterministic) on 2 + 2 rows of a global batch of 4 (augment on, BatchNorm sums and "
+          f"gradients summed through the host): the same weights in both (sha256 {records[0]['digest'][:12]}); "
+          f"against the one-process step {dp_fmt(records[0]['errors'])}; the step {records[0]['ms']:.1f} / "
+          f"{records[1]['ms']:.1f} ms (its first, with cuDNN's plans); launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    check(records[0]["digest"] == records[1]["digest"] and records[0]["loss"] == records[1]["loss"],
+          f"(f) the processes hold other weights: {records}")
+    check(not any(dp_over(records[r]["errors"]) for r in (0, 1)), f"(f) cross-process step: {records}")
+    check(launches["salt_pepper"] == 4, f"(f) launches {launches}")
+    return launches
+
+
+DP_ARTIFACT_MEMBERS = 2  # (g): one member a group of the (member 2, data 2) mesh
+DP_ARTIFACT_ATOL = 2e-5  # (g): JAX's, tests/test_serving.py:232-262
+
+
+def dp_artifact(torch, np, dev, tmp: str) -> dict:
+    """(g) DP_ARTIFACT_MEMBERS bf16 prestaged I3D members exported as a
+    mesh artifact over a (member 2, data 2) mesh, served on 2 batches of 8
+    20×224² clips, each position's member group and data shard held to the
+    single-card baked artifact of the same members exported at the shard's
+    batch of 4 and served on the same rows: probabilities, the fused sum
+    and the argmax within DP_ARTIFACT_ATOL; two planted faults, another
+    shard's rows and another member's, read beside it and exceeding it."""
+    from crowded_scenes_ensemble_classification_tpu_torch.core.mesh import make_mesh
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import stack_variables
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    m, shards = DP_ARTIFACT_MEMBERS, 2
+    bundles = seeded_members(torch, "I3D", m, 280, stem_prestaged=True)
+    mesh = make_mesh((("member", 2), ("data", shards)), [dev] * 4)
+    batches = [{"rgb": torch.randint(0, 256, (8, FRAMES, SIZE, SIZE, 3), generator=torch.Generator().manual_seed(i),
+                                     dtype=torch.uint8).to(dev)} for i in range(2)]
+    params = stack_variables([b.module.state_dict() for b in bundles])
+    serves, counts, secs = {}, {}, {}
+    for name, batch, kw in (("single", 8 // shards, {}), ("mesh", 8, {"mesh": mesh})):
+        t0 = time.perf_counter()
+        program = export_ensemble(bundles, serving_batch_example(bundles[0], batch), input_scale=INPUT_SCALE,
+                                  share_stem_staging=True, **kw)
+        path = save_serving_artifact(os.path.join(tmp, f"dp_{name}.zip"), program, {
+            "fusion_weights": [1.0] * m, "mesh": {"member": 2, "data": shards} if kw else None})
+        serves[name], _ = load_serving_artifact(path)
+        secs[name] = time.perf_counter() - t0
+    served = {}
+    served["mesh"], counts["mesh"] = dp_counted(torch, lambda: [serves["mesh"](params, b) for b in batches])
+    served["single"], counts["single"] = dp_counted(torch, lambda: [
+        [serves["single"]({"rgb": b["rgb"][s * 4:(s + 1) * 4]}) for s in range(shards)] for b in batches])
+
+    def diff(i: int, s: int, g: int, rows: int, member: int) -> float:
+        """max |dp| of the mesh's member g on shard s of batch i against the
+        single-card artifact's `member` on shard `rows`."""
+        mine = served["mesh"][i]["probs"][g, s * 4:(s + 1) * 4].float()
+        return (mine - served["single"][i][rows]["probs"][member].float()).abs().max().item()
+
+    pairs = [(i, s, g) for i in range(len(batches)) for s in range(shards) for g in range(m)]
+    reading = {"sound": max(diff(i, s, g, s, g) for i, s, g in pairs),
+               "other_shard": min(diff(i, s, g, 1 - s, g) for i, s, g in pairs),
+               "other_member": min(diff(i, s, g, s, 1 - g) for i, s, g in pairs)}
+    fused = max((a["fused"][s * 4:(s + 1) * 4].float() - b[s]["fused"].float()).abs().max().item()
+                for a, b in zip(served["mesh"], served["single"]) for s in range(shards))
+    preds = all(torch.equal(a["preds"][s * 4:(s + 1) * 4], b[s]["preds"])
+                for a, b in zip(served["mesh"], served["single"]) for s in range(shards))
+    print(f"data parallel (g): {m} bf16 I3D members, B=8: the mesh artifact over (member 2, data {shards}) against "
+          f"the single-card baked artifact at B={8 // shards} on each shard's rows: max |dp| {reading['sound']:.3g}, "
+          f"fused {fused:.3g}, argmax equal {preds}; planted faults, the least max |dp|: another shard's rows "
+          f"{reading['other_shard']:.3g}, another member {reading['other_member']:.3g} (limit {DP_ARTIFACT_ATOL}); "
+          f"export + save + load s mesh {secs['mesh']:.1f}, single {secs['single']:.1f}; launches {counts}")
+    check(counts["mesh"]["max_pool_3x3x3_same"] == 9 * m * 2 * len(batches)
+          and counts["single"]["max_pool_3x3x3_same"] == 9 * m * shards * len(batches), f"(g) served launches {counts}")
+    check(reading["sound"] <= DP_ARTIFACT_ATOL and fused <= m * DP_ARTIFACT_ATOL and preds,
+          f"(g) the mesh artifact differs from the single-card artifact: {reading}, fused {fused}, argmax {preds}")
+    check(reading["other_shard"] > DP_ARTIFACT_ATOL and reading["other_member"] > DP_ARTIFACT_ATOL,
+          f"(g) a planted fault passes the limit: {reading}")
+    del bundles, served, params, program, serves
+    torch.cuda.empty_cache()
+    return {k: counts["mesh"][k] + counts["single"][k] for k in counts["mesh"]}
+
+
+def dp_artifact_and_drill(torch, np, dev, drill: dict, tmp: str) -> dict:
+    """(g): the mesh artifact, then the drill (its processes into `drill`,
+    so that a failure leaves none behind)."""
+    counts = dp_artifact(torch, np, dev, tmp)
+    drill_start(drill, tmp)
+    launches = drill_finish(torch, drill)
+    return {k: counts[k] + launches[k] for k in counts}
+
+
+DRILL_SCENES = 2  # scenes a class of phase 21's 5 that (g)'s drill trains on
+
+
+def drill_start(drill: dict, tmp: str) -> None:
+    """Start (g)'s kill-and-recover drill (`drill_config()` on the clips of
+    DRILL_SCENES scenes a class of phase 21's dataset): two
+    `--recover-worker` processes, each the leader of a
+    process group (the interpreter may run under a launcher process), train
+    half the members each, and a watcher thread kills B's group as soon as
+    B has finished its first member and started its second; `drill` takes
+    what `drill_finish` checks."""
+    import subprocess
+    import threading
+
+    import numpy as np
+
+    from crowded_scenes_ensemble_classification_tpu_torch import data, orchestration as orch
+    from crowded_scenes_ensemble_classification_tpu_torch.core.config import split_pairs
+
+    table, _ = ingest_dataset(data, tmp)
+    first = {}  # the first DRILL_SCENES scenes of each class: a third of the decoding
+    for scene, label in zip(table["scene_number"], table["label"]):
+        first.setdefault(int(label), set())
+        if len(first[int(label)]) < DRILL_SCENES:
+            first[int(label)].add(int(scene))
+    keep = set().union(*first.values())
+    table = table.filter(np.array([int(sc) in keep for sc in table["scene_number"]]))
+    config = drill_config()
+    layout = orch.prepare_ensemble(config, table, os.path.join(tmp, "drill"))
+    pairs = split_pairs(config.folds_number)
+    halves = pairs[:3], pairs[3:]
+    sentinels = os.path.join(tmp, "drill_sentinels")
+    os.makedirs(sentinels, exist_ok=True)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(tmp, f"drill_worker_{i}.log"), "w+") for i in range(2)]  # no pipe to fill
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(repo, "chip_smoke.py"), "--recover-worker", layout.root,
+                               json.dumps(h), sentinels], cwd=repo, stdout=log, stderr=subprocess.STDOUT,
+                              start_new_session=True) for h, log in zip(halves, logs)]
+    drill.update(config=config, layout=layout, pairs=pairs, halves=halves, sentinels=sentinels, logs=logs,
+                 procs=procs, t0=t0, error=None, clips=len(table))
+
+    def watch() -> None:
+        try:
+            second = os.path.join(sentinels, "started_{}_{}".format(*halves[1][1]))
+            while not os.path.exists(second):
+                if procs[1].poll() is not None or time.perf_counter() - t0 > 300:
+                    drill["error"] = "worker B exited or never started its second member"
+                    return
+                time.sleep(0.1)
+            os.killpg(procs[1].pid, signal.SIGKILL)
+            drill["killed_s"] = time.perf_counter() - t0
+            procs[1].wait(timeout=60)
+        except Exception as e:  # noqa: BLE001 (drill_finish reports it)
+            drill["error"] = repr(e)
+
+    drill["watcher"] = threading.Thread(target=watch, name="drill-watcher")
+    drill["watcher"].start()
+
+
+def drill_finish(torch, drill: dict) -> dict:
+    """(g)'s drill, after the kill: worker A ends; the pending members are
+    those B left (its second, maybe its third); `launch_ensemble_training(
+    recover=True)` here retrains exactly those and touches no finished
+    member, and a second recovery finds nothing."""
+    from crowded_scenes_ensemble_classification_tpu_torch import orchestration as orch
+
+    config, layout, pairs, halves, procs = (drill[k] for k in ("config", "layout", "pairs", "halves", "procs"))
+
+    def log_tail(i: int) -> str:
+        drill["logs"][i].seek(0)
+        return drill["logs"][i].read()[-3000:]
+
+    try:
+        drill["watcher"].join(timeout=360)
+        check(drill["error"] is None, f"(g) {drill['error']}: {log_tail(1)}")
+        procs[0].wait(timeout=300)
+        check(procs[0].returncode == 0, f"(g) worker A exited {procs[0].returncode}: {log_tail(0)}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for log in drill["logs"]:
+            log.close()
+    workers_s = time.perf_counter() - drill["t0"]
+    pending = orch.pending_members(config, layout)
+    check(halves[1][1] in pending and set(pending) <= set(halves[1][1:]),
+          f"(g) pending after the kill: {pending}; sentinels {sorted(os.listdir(drill['sentinels']))}")
+    done = [p for p in pairs if p not in pending]
+    mtimes = {p: os.path.getmtime(layout.history_path(config, *p)) for p in done}
+    t1 = time.perf_counter()
+    recovered, launches = dp_counted(torch, lambda: orch.launch_ensemble_training(config, None, layout.root,
+                                                                                 recover=True))
+    recover_s = time.perf_counter() - t1
+    check(set(recovered) == set(pending), f"(g) recovery trained {sorted(recovered)}, pending were {pending}")
+    check(all(orch.member_is_complete(config, layout, t, v) for t, v in pairs), "(g) a member is incomplete")
+    check({p: os.path.getmtime(layout.history_path(config, *p)) for p in done} == mtimes,
+          "(g) recovery touched a finished member")
+    check(orch.launch_ensemble_training(config, None, layout.root, recover=True) == {}, "(g) a second recovery ran")
+    print(f"data parallel (g): the drill ({config.subfolder_name()}, {len(pairs)} members on "
+          f"{drill['clips']} clips): "
+          f"worker B's group killed {drill['killed_s']:.1f} s after the start, as B trained its second member; "
+          f"worker A done at {workers_s:.1f} s; pending {pending}; recovery here retrained exactly those in "
+          f"{recover_s:.1f} s (launches {launches}), no finished member touched; a second recovery found nothing")
+    return launches
+
+
 def ingest_dependencies() -> str:
     """Whether cv2 (video decode, phase 21) and h5py (the Keras h5 reader)
     import on this machine, and their versions."""
@@ -3643,6 +4427,8 @@ def main() -> int:
         phase("cli", check_cli, torch, np, dev, kernels, *experiment)
         torch.cuda.empty_cache()
         phase("distribution", check_distribution, torch, np, dev, kernels, tmp)
+        torch.cuda.empty_cache()
+        phase("data_parallel", check_data_parallel, torch, np, dev, kernels, tmp)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase {phase_s}")
     print(json.dumps({"kernels": kernels}))
@@ -3654,4 +4440,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fanout-worker"]:
         sys.exit(fanout_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+    if sys.argv[1:2] == ["--dataparallel-worker"]:
+        sys.exit(data_parallel_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
+    if sys.argv[1:2] == ["--recover-worker"]:
+        sys.exit(recover_worker(sys.argv[2], sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -21,12 +21,13 @@ option, mapped onto the reference's entry points (SURVEY.md §7.1.9):
 
 Every command runs on the card: `main` resolves it first and raises
 without one.  Its `device` keyword, which no flag sets, lets tests name
-"cpu".  `probs --mesh-data N` shards the probabilities over a mesh of N
-positions on the visible cards (`core.mesh`).  Flags the port has no
-counterpart for yet (`train`/`launch --mesh-data`, `export --mesh-member`,
-`--fuse-1x1`) are still parsed, so the parser equals the reference's, and
-raise a ValueError naming their ROADMAP item (README, "Left out of the
-port").
+"cpu".  `--mesh-data N` builds a data mesh of N positions cycling over the
+visible cards (`core.mesh`; on one card all N sit on `cuda:0`): `train`
+and `launch` train data-parallel over it (global-batch BatchNorm, a
+resident split sharded over it) and `probs` shards the probabilities.
+`--fuse-1x1`, which the port has no counterpart for, is still parsed, so
+the parser equals the reference's, and raises a ValueError naming its
+ROADMAP item (README, "Left out of the port").
 """
 
 from __future__ import annotations
@@ -92,10 +93,10 @@ def _add_config_flags(p: argparse.ArgumentParser):
     )
     p.add_argument(
         "--mesh-data", type=int, default=None, metavar="N",
-        help="probs: shard over an N-position data mesh on the visible "
-             "cards (positions cycle over them; -1 = one a card); "
-             "train/launch: not ported yet, giving N raises (ROADMAP Queue 1 "
-             "item 9); other subcommands ignore it",
+        help="shard batches (and resident datasets) over an N-position "
+             "data mesh on the visible cards (positions cycle over them; "
+             "-1 = one a card): train/launch train data-parallel over it, "
+             "probs shards the probabilities; other subcommands ignore it",
     )
 
 
@@ -232,8 +233,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported: the fused 1x1x1 convs are left out; "
                         "giving it raises (ROADMAP Queue 1 item 8)")
     p.add_argument("--mesh-member", type=int, default=None, metavar="M",
-                   help="not ported yet: mesh artifacts; giving M raises "
-                        "(ROADMAP Queue 1 item 9)")
+                   help="with --mesh-data: export a mesh artifact over a "
+                        "(member M, data N) mesh: a lean program of one "
+                        "position, which `serve` runs at every position of "
+                        "that mesh on the visible cards")
 
     p = sub.add_parser(
         "serve",
@@ -400,30 +403,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Raise for a flag the port parses but has no counterpart for."""
-    training_mesh = args.command in ("train", "launch") and getattr(args, "mesh_data", None)
-    if training_mesh or getattr(args, "mesh_member", None):
-        raise ValueError("train/launch --mesh-data and export --mesh-member are not ported yet: data-parallel "
-                         "training and serving over the mesh are ROADMAP Queue 1 item 9 (distribution, part 2; "
-                         "README, 'Left out of the port')")
     if getattr(args, "fuse_1x1", False):
         raise ValueError("--fuse-1x1 is not ported: the fused 1x1x1 convs are left out "
                          "(ROADMAP Queue 1 item 8; README, 'Left out of the port')")
 
 
-def _mesh_from_args(args, device):
-    """`--mesh-data N`: a data mesh of N positions (JAX cli/main.py:88-94)
-    cycling over the visible cards, or over `device` when it is not a card;
-    -1 takes one position a card."""
+def _positions(device, n: int) -> list:
+    """n positions cycling over the visible cards, or over `device` when it
+    is not a card; -1 takes one position a card."""
     import torch
 
+    devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
+               else [device])
+    return devices if n == -1 else [devices[i % len(devices)] for i in range(n)]
+
+
+def _mesh_from_args(args, device):
+    """`--mesh-data N`: a data mesh of N positions (JAX cli/main.py:88-94)
+    (`_positions`)."""
     from ..core.mesh import make_mesh
 
     n = getattr(args, "mesh_data", None)
     if not n:
         return None
-    devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
-               else [device])
-    positions = devices if n == -1 else [devices[i % len(devices)] for i in range(n)]
+    positions = _positions(device, n)
     return make_mesh((("data", len(positions)),), positions)
 
 
@@ -484,6 +487,7 @@ def _launch(args, device) -> int:
         config, table, args.work_dir, runner=args.runner,
         rgb_h5=args.rgb_h5, flow_h5=args.flow_h5,
         resident=args.resident, recover=args.recover, device=device,
+        mesh=_mesh_from_args(args, device),
     )
     if args.runner == "commands":
         print("\n".join(out))
@@ -512,6 +516,7 @@ def _train(args, device) -> int:
         flow_h5=args.flow_h5,
         resident=args.resident,
         device=device,
+        mesh=_mesh_from_args(args, device),
     )
     print(
         f"test_acc={out['test_accuracy']:.4f} test_loss={out['test_loss']:.4f} "
@@ -526,6 +531,15 @@ def _export(args, device) -> int:
     from ..serving import export_ensemble, save_serving_artifact, serving_batch_example
 
     config = _config_from_args(args)
+    mesh = None
+    if args.mesh_member:
+        if not args.mesh_data:
+            print("--mesh-member requires --mesh-data", file=sys.stderr)
+            return 2
+        from ..core.mesh import make_mesh
+
+        mesh = make_mesh((("member", args.mesh_member), ("data", args.mesh_data)),
+                         _positions(device, args.mesh_member * args.mesh_data))
     bundles, names = _fold_members(config, WorkLayout(args.work_dir), args.test_index, device, args.quant)
     weights = np.load(args.weights_npy) if args.weights_npy else None
     example = serving_batch_example(
@@ -549,6 +563,7 @@ def _export(args, device) -> int:
         bake_params=not args.no_bake_params,
         share_stem_staging=config.model_type in ("I3D", "TWOSTREAM_I3D"),
         flow_params=flow_params,
+        mesh=mesh,
     )
     meta = {
         "model_type": config.model_type,
@@ -559,8 +574,8 @@ def _export(args, device) -> int:
         "fuse_1x1": False,
         "input_scale": config.input_scale,
         "platforms": [bundles[0].device.type],
-        "params_baked": not args.no_bake_params,
-        "mesh": None,
+        "params_baked": mesh is None and not args.no_bake_params,
+        "mesh": None if mesh is None else {"member": args.mesh_member, "data": args.mesh_data},
         # full config: `serve` rebuilds it to reload member checkpoints
         # for lean (params-unbaked) artifacts
         "experiment": json.loads(config.to_json()),

@@ -6,8 +6,11 @@
 // decide salt, the high 16 bits decide pepper, and pepper is applied after
 // salt.  The TPU drew its bits from the core's own generator; here they come
 // from Philox4x32-10 (Salmon et al., SC'11), written out below, keyed by the
-// 64-bit seed and counted by (element group, clip): element e of clip b takes
-// word e % 4 of philox(counter = (e / 4, b, 0, 0), key = (seed_lo, seed_hi)).
+// 64-bit seed and counted by (element group, clip): element e of clip b of the
+// call takes word e % 4 of philox(counter = (e / 4, clip_offset + b, 0, 0),
+// key = (seed_lo, seed_hi)).  `clip_offset` is the call's first row in the
+// global batch, so a data-parallel position that augments rows [k, k + n)
+// passes k and draws the noise the unsharded call draws for those rows.
 // `philox_bits` in ops/kernels/noise.py computes the same words in PyTorch,
 // so the kernel and its plain version agree bit for bit.
 //
@@ -49,8 +52,8 @@ template <bool VECTOR>
 __global__ void salt_pepper_kernel(const float* __restrict__ x, float* __restrict__ y,
                                    const uint8_t* __restrict__ salt_gates,
                                    const uint8_t* __restrict__ pepper_gates,
-                                   int64_t L, uint32_t k0, uint32_t k1,
-                                   uint32_t threshold) {
+                                   int64_t L, int64_t clip_offset, uint32_t k0,
+                                   uint32_t k1, uint32_t threshold) {
   const int64_t b = blockIdx.y;
   const int64_t g = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;  // group of 4
   const int64_t e0 = 4 * g;
@@ -68,7 +71,8 @@ __global__ void salt_pepper_kernel(const float* __restrict__ x, float* __restric
     for (int i = 0; i < 4; ++i) v[i] = (e0 + i < L) ? src[i] : 0.0f;
   }
   if (salt || pepper) {
-    const uint4 r = philox4x32_10(make_uint4((uint32_t)g, (uint32_t)b, 0u, 0u), k0, k1);
+    const uint4 r =
+        philox4x32_10(make_uint4((uint32_t)g, (uint32_t)(clip_offset + b), 0u, 0u), k0, k1);
     v[0] = noise_one(v[0], r.x, salt, pepper, threshold);
     v[1] = noise_one(v[1], r.y, salt, pepper, threshold);
     v[2] = noise_one(v[2], r.z, salt, pepper, threshold);
@@ -85,12 +89,15 @@ __global__ void salt_pepper_kernel(const float* __restrict__ x, float* __restric
 
 }  // namespace
 
-// x, y: (B, L) contiguous float32; gates: (B,) uint8.  Returns cudaError_t.
+// x, y: (B, L) contiguous float32; gates: (B,) uint8; clip_offset: the
+// global row of clip 0, with clip_offset + B <= 2^32.  Returns cudaError_t.
 extern "C" int salt_pepper_f32(const void* x, void* y, const void* salt_gates,
                                const void* pepper_gates, int64_t B, int64_t L,
-                               uint64_t seed, uint32_t threshold, void* stream) {
+                               int64_t clip_offset, uint64_t seed, uint32_t threshold,
+                               void* stream) {
   if (B == 0 || L == 0) return (int)cudaSuccess;
-  if (B > 65535) return (int)cudaErrorInvalidValue;
+  if (B > 65535 || clip_offset < 0 || clip_offset + B > (int64_t(1) << 32))
+    return (int)cudaErrorInvalidValue;
   const int threads = 256;
   const int64_t groups = (L + 3) / 4;
   const dim3 grid((unsigned)((groups + threads - 1) / threads), (unsigned)B);
@@ -103,9 +110,9 @@ extern "C" int salt_pepper_f32(const void* x, void* y, const void* salt_gates,
   const uint8_t* sg = static_cast<const uint8_t*>(salt_gates);
   const uint8_t* pg = static_cast<const uint8_t*>(pepper_gates);
   if (vector) {
-    salt_pepper_kernel<true><<<grid, threads, 0, s>>>(xf, yf, sg, pg, L, k0, k1, threshold);
+    salt_pepper_kernel<true><<<grid, threads, 0, s>>>(xf, yf, sg, pg, L, clip_offset, k0, k1, threshold);
   } else {
-    salt_pepper_kernel<false><<<grid, threads, 0, s>>>(xf, yf, sg, pg, L, k0, k1, threshold);
+    salt_pepper_kernel<false><<<grid, threads, 0, s>>>(xf, yf, sg, pg, L, clip_offset, k0, k1, threshold);
   }
   return (int)cudaGetLastError();
 }

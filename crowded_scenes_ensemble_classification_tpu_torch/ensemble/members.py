@@ -237,14 +237,35 @@ def stacked_member_softmax(
     ])
 
 
+def member_grid(mesh: Mesh, count: int, member_axis: str = "member", data_axis: str = "data") -> np.ndarray:
+    """The (member groups, data shards) grid of positions' devices that
+    `count` members and a batch split over; the members must divide."""
+    grid = mesh.grid(member_axis, data_axis)
+    if count % grid.shape[0]:
+        raise ValueError(f"{count} members do not divide over a {member_axis} axis of {grid.shape[0]}")
+    return grid
+
+
+def grid_forward(grid: np.ndarray, batch: Dict, run: Callable[[int, int, Dict], torch.Tensor]) -> torch.Tensor:
+    """The (M, B, C) result of a member-and-data-sharded forward on the
+    first position's device: the batch's clip entries split over the data
+    shards (B must divide), then `run(g, d, rows)` at position (g, d)
+    gives member group g's (M/G, B/N, C) on data shard d's rows."""
+    n_members, n_data = grid.shape
+    rows = {k: split_positions(torch.as_tensor(v), list(grid[0]), dim=0) for k, v in batch.items()
+            if k in _CLIP_KEYS}
+    shards = [{k: v[d] for k, v in rows.items()} for d in range(n_data)]
+    return torch.cat([torch.cat([run(g, d, shards[d]).to(grid[0, 0]) for d in range(n_data)], dim=1)
+                      for g in range(n_members)], dim=0)
+
+
 def _sharded_forward(members: Sequence[nn.Module], mesh: Mesh, member_axis: str, data_axis: str,
                      prepare: Callable[[List[nn.Module], Dict], List[torch.Tensor]]) -> Callable[[Dict], torch.Tensor]:
     """`make_member_forward`'s mesh form: fn(batch) → (M, B, C) on the first
-    position's device."""
-    grid = mesh.grid(member_axis, data_axis)
+    position's device; each data shard's inputs are prepared once, for
+    every member group."""
+    grid = member_grid(mesh, len(members), member_axis, data_axis)
     n_members, n_data = grid.shape
-    if len(members) % n_members:
-        raise ValueError(f"{len(members)} members do not divide over a {member_axis} axis of {n_members}")
     per_group = len(members) // n_members
     home = next(members[0].parameters()).device
 
@@ -255,14 +276,15 @@ def _sharded_forward(members: Sequence[nn.Module], mesh: Mesh, member_axis: str,
               for g in range(n_members)]
 
     def forward(batch: Dict) -> torch.Tensor:
-        rows = {k: split_positions(torch.as_tensor(v), list(grid[0]), dim=0) for k, v in batch.items()
-                if k in _CLIP_KEYS}
+        prepared = {}
+
+        def run(g: int, d: int, rows: Dict) -> torch.Tensor:
+            if d not in prepared:
+                prepared[d] = prepare(groups[0][d], rows)
+            return _softmax_stack(groups[g][d], *(x.to(grid[g, d]) for x in prepared[d]))
+
         with torch.inference_mode():
-            shards = [prepare(groups[0][d], {k: v[d] for k, v in rows.items()}) for d in range(n_data)]
-            out = [torch.cat([_softmax_stack(groups[g][d], *(x.to(grid[g, d]) for x in shards[d])).to(grid[0, 0])
-                              for d in range(n_data)], dim=1)
-                   for g in range(n_members)]
-            return torch.cat(out, dim=0)
+            return grid_forward(grid, batch, run)
 
     return forward
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.lockstep import current_shard
 from .common import QuantConv, flatten, lecun_normal_, max_pool_3d, quant_mode, to_ncdhw
 
 # (name, features at width 1, VALID pool after it or None) in order
@@ -76,8 +77,16 @@ def _dense(c_in: int, c_out: int, generator) -> nn.Linear:
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """flax `nn.Dropout(rate)` in train mode: keep each element with
     probability 1 − rate, scaled by 1/(1 − rate), the mask drawn from
-    `generator` on x's device."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    `generator` on x's device.  Inside a data-parallel step
+    (`core.lockstep.current_shard()`) the mask of the global batch is drawn
+    and the shard's rows of it kept, which the unsharded step draws for
+    those rows."""
+    shard = current_shard()
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    else:
+        full = torch.rand((shard.total, *x.shape[1:]), generator=generator, device=x.device)
+        keep = full[shard.start:shard.start + x.shape[0]] < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

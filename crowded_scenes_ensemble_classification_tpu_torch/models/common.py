@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.lockstep import current_shard
 from ..ops.kernels.int8_conv import int8_conv3d, int8_input_channels, pack_int8_weights, quantize_int8
 from ..ops.kernels.stem_conv import s2d_stem_kernel, s2d_stem_stage, stem_conv_7x7x7_s2
 
@@ -99,25 +100,52 @@ class KerasBatchNorm3d(nn.BatchNorm3d):
     least f32 (`aten.native_batch_norm`, which returns the batch mean and
     1/sqrt(var + eps)), and updates the running statistics with momentum
     0.99 and the BIASED variance, where torch would use the unbiased one
-    and drift by n/(n−1) every step.  The state dict is nn.BatchNorm3d's."""
+    and drift by n/(n−1) every step.  The state dict is nn.BatchNorm3d's.
+
+    Inside a data-parallel step (`core.lockstep.current_shard()` set) train
+    mode takes the moments of the global batch, as JAX's GSPMD step does:
+    each position's shard gives Σy and Σy² in (at least) f32, from its own
+    mean and biased variance in one pass, the positions' sums are added up,
+    mean = Σy/n and the biased var = max(Σy²/n − mean², 0) (flax's),
+    gradients flow through the sums, and one position updates the running
+    statistics."""
 
     def __init__(self, features: int, scale: bool = False):
         super().__init__(features, eps=KERAS_BN_EPS, momentum=TORCH_BN_MOMENTUM)
         self.weight.requires_grad_(scale)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        y, mean, invstd = torch.ops.aten.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0,
-                                                           self.eps)
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
             keep = 1.0 - self.momentum  # flax's momentum, 0.99
             self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
-            # The biased variance comes back through 1/sqrt(var + eps): for a
-            # variance far below eps (a constant channel) the round trip can
-            # land an ulp of eps below 0, so it is clamped there.
-            var = (invstd.pow(-2) - self.eps).clamp_min_(0.0)
             self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+
+    def _global_forward(self, x: torch.Tensor, shard) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        var, mean = torch.var_mean(xf, (0, 2, 3, 4), correction=0)  # the shard's, in one pass
+        n = x.numel() // x.shape[1]
+        sums = torch.stack([mean, torch.addcmul(var, mean, mean)]) * n  # Σy, Σy² of the shard
+        (moments,) = shard.lockstep.sum(shard.position, [sums], x.device)
+        mean, mean_sq = moments / (n // x.shape[0] * shard.total)
+        var = torch.addcmul(mean_sq, mean, mean, value=-1.0).clamp_min(0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        if shard.updates_running_stats:
+            self._update_running(mean.detach(), var.detach())
+        view = lambda t: t.view(1, -1, 1, 1, 1)  # noqa: E731
+        return torch.addcmul(view(self.bias - mean * scale), xf, view(scale)).to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        shard = current_shard()
+        if shard is not None:
+            return self._global_forward(x, shard)
+        y, mean, invstd = torch.ops.aten.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0,
+                                                           self.eps)
+        # The biased variance comes back through 1/sqrt(var + eps): for a
+        # variance far below eps (a constant channel) the round trip can
+        # land an ulp of eps below 0, so it is clamped there.
+        self._update_running(mean, (invstd.detach().pow(-2) - self.eps).clamp_min_(0.0))
         return y
 
 

@@ -48,12 +48,20 @@ class AugmentDecisions:
     pepper: torch.Tensor  # bool
     seed: int  # 64-bit Philox key of the noise kernel
 
-    def to(self, device) -> "AugmentDecisions":
-        move = lambda t: t.to(device, non_blocking=True)  # noqa: E731
+    def _map(self, fn) -> "AugmentDecisions":
         return dataclasses.replace(
-            self, do_crop=move(self.do_crop), y0=move(self.y0), x0=move(self.x0),
-            flip=move(self.flip), salt=move(self.salt), pepper=move(self.pepper),
+            self, do_crop=fn(self.do_crop), y0=fn(self.y0), x0=fn(self.x0),
+            flip=fn(self.flip), salt=fn(self.salt), pepper=fn(self.pepper),
         )
+
+    def to(self, device) -> "AugmentDecisions":
+        return self._map(lambda t: t.to(device, non_blocking=True))
+
+    def rows(self, start: int, stop: int) -> "AugmentDecisions":
+        """The decisions of clips [start, stop), the same noise seed: a
+        data-parallel position's share of the global batch's draws, which
+        it applies with `clip_offset=start`."""
+        return self._map(lambda t: t[start:stop])
 
 
 def draw_decisions(
@@ -94,13 +102,16 @@ def crowd11_augment_from_decisions(
     clips: torch.Tensor,
     out_hw: Tuple[int, int],
     decisions: AugmentDecisions,
+    clip_offset: int = 0,
 ) -> torch.Tensor:
     """Apply the policy to (B, T, H, W, C) clips → float32 (B, T, oh, ow, C),
     per-clip window and flip as in JAX crowd11_augment (augment.py:57-82),
-    then the salt/pepper kernel with the decisions' gates and seed."""
+    then the salt/pepper kernel with the decisions' gates and seed, the clips
+    being rows [clip_offset, clip_offset + B) of the batch the decisions'
+    noise was drawn for (`AugmentDecisions.rows`)."""
     d = decisions.to(clips.device)
     out = crop_flip_resize(clips, out_hw, d)
-    return salt_pepper(out, d.seed, d.salt, d.pepper, NOISE_RATIO)
+    return salt_pepper(out, d.seed, d.salt, d.pepper, NOISE_RATIO, clip_offset)
 
 
 def crowd11_augment_batch(
@@ -171,10 +182,17 @@ def crowd11_augment_gray_pair_batch(
     gray: torch.Tensor,
     gray_next: torch.Tensor,
     decisions: AugmentDecisions,
+    clip_offset: int = 0,
+    global_batch: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The augmented-Farnebäck mode's gray pairs: the rgb stream's
     `decisions` (so both streams see one crop window and one flip, as the
     reference's single augmented frame list fed both, train.py:176-184) and
-    salt/pepper hits drawn by `gray_pair_noise_hits` on the pairs' device."""
-    hits = gray_pair_noise_hits(decisions, gray.shape, gray.device)
+    salt/pepper hits drawn by `gray_pair_noise_hits` on the pairs' device.
+    A data-parallel position passes its rows' decisions, its first row
+    `clip_offset` and the `global_batch` size: it draws the global batch's
+    hits and keeps its rows', which the unsharded call draws for them."""
+    total = gray.shape[0] if global_batch is None else global_batch
+    hits = gray_pair_noise_hits(decisions, (total, *gray.shape[1:]), gray.device)
+    hits = hits[:, clip_offset:clip_offset + gray.shape[0]]
     return crowd11_augment_gray_pair_from_decisions(gray, gray_next, decisions, hits)

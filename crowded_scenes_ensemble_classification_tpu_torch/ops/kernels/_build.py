@@ -19,6 +19,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -38,7 +39,7 @@ SIGNATURES = {
     "maxpool3x3x3_same": ([_P, _P, *[_I64] * 5, *[ctypes.c_int] * 5, _P], ctypes.c_int),
     "maxpool3x3x3_same_backward": ([_P, _P, _P, *[_I64] * 5, *[ctypes.c_int] * 6, _P], ctypes.c_int),
     "salt_pepper_f32": (
-        [_P, _P, _P, _P, _I64, _I64, ctypes.c_uint64, ctypes.c_uint32, _P],
+        [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_uint64, ctypes.c_uint32, _P],
         ctypes.c_int,
     ),
     "stem_conv_s2d_f32": ([_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P], ctypes.c_int),
@@ -106,15 +107,29 @@ def build() -> tuple[Path, float]:
     return lib, time.perf_counter() - t0
 
 
+_LOCK = threading.Lock()  # the build and the launch counts: data-parallel positions launch from threads
+
+
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, declare every signature."""
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare every signature."""
+    with _LOCK:
+        return _load_library()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, under a lock."""
+    with _LOCK:
+        wrapper.launches += 1
 
 
 def check_launch(name: str, err: int) -> None:

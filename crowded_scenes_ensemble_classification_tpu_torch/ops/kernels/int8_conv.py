@@ -38,7 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, load_library
 
 K_STEP = 128  # the kernel's K stage, one 128-byte swizzle atom: packed rows are padded to a multiple
 F_TILE = 16  # packed F is padded to a multiple (the kernel zero-fills weight rows past it)
@@ -258,7 +258,7 @@ def _int8_conv_cuda(
             route["splits"], route["slab"], stream,
         )
     check_launch("int8_conv3d", err)
-    int8_conv3d.launches += 1
+    count_launch(int8_conv3d)
     return y
 
 
@@ -319,7 +319,7 @@ def _quantize_cuda(x: torch.Tensor, scalar: torch.Tensor, dynamic: bool, channel
         err = load_library().quantize_int8(x.data_ptr(), y.data_ptr(), scalar.data_ptr(), x.numel() // c if c else 0,
                                            c, cp, int(x.dtype == torch.bfloat16), int(dynamic), stream)
     check_launch("quantize_int8", err)
-    quantize_int8.launches += 1
+    count_launch(quantize_int8)
     return y
 
 

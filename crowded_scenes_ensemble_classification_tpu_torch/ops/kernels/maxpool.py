@@ -20,7 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HT_MAX, HT_MIN = 8, 4  # output rows of an H-tile: the kernel's register window, and the least chosen
@@ -220,7 +220,7 @@ def _max_pool_cuda(x: torch.Tensor) -> torch.Tensor:
             tiling.ht, tiling.wt, tiling.cv, stream,
         )
     check_launch("maxpool3x3x3_same", err)
-    max_pool_3x3x3_same.launches += 1
+    count_launch(max_pool_3x3x3_same)
     return y
 
 
@@ -272,7 +272,7 @@ def _max_pool_backward_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
             tiling.groups, stream,
         )
     check_launch("maxpool3x3x3_same_backward", err)
-    max_pool_3x3x3_same_backward.launches += 1
+    count_launch(max_pool_3x3x3_same_backward)
     return dx
 
 

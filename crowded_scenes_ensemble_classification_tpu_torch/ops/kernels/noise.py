@@ -9,14 +9,17 @@ Each element takes one 32-bit draw; its low 16 bits against
 pepper after salt — the TPU kernel's rule.  The draws come from
 Philox4x32-10 keyed by a 64-bit seed; `philox_bits` is the same generator
 in PyTorch, so the kernel, the plain version and the CPU path all give the
-same output for the same seed.
+same output for the same seed.  A clip's counter is its row in the global
+batch, `clip_offset` + its row in the call, so a data-parallel position
+that augments rows [k, k + n) of a batch with `clip_offset=k` draws what
+the unsharded call draws for those rows.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, load_library
 
 _MASK32 = 0xFFFFFFFF
 _MASK64 = (1 << 64) - 1
@@ -50,12 +53,13 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_bits(seed: int, batch: int, length: int, device) -> torch.Tensor:
+def philox_bits(seed: int, batch: int, length: int, device, clip_offset: int = 0) -> torch.Tensor:
     """(batch, length) int64 tensor of the 32-bit draws the kernel uses:
-    element e of clip b is word e % 4 of philox((e // 4, b, 0, 0), seed)."""
+    element e of clip b is word e % 4 of philox((e // 4, clip_offset + b,
+    0, 0), seed)."""
     groups = (length + 3) // 4
     g = torch.arange(groups, dtype=torch.int64, device=device).expand(batch, groups)
-    b = torch.arange(batch, dtype=torch.int64, device=device)[:, None].expand(batch, groups)
+    b = torch.arange(clip_offset, clip_offset + batch, dtype=torch.int64, device=device)[:, None].expand(batch, groups)
     zero = torch.zeros_like(g)
     words = philox4x32_10(g, b, zero, zero, seed & _MASK32, (seed >> 32) & _MASK32)
     return torch.stack(words, dim=-1).reshape(batch, 4 * groups)[:, :length]
@@ -88,11 +92,12 @@ def salt_pepper_plain(
     salt_gates: torch.Tensor,
     pepper_gates: torch.Tensor,
     ratio: int,
+    clip_offset: int = 0,
 ) -> torch.Tensor:
-    """Plain version drawing its bits from `philox_bits(seed)`: equal to the
-    kernel on the same arguments."""
+    """Plain version drawing its bits from `philox_bits(seed, clip_offset=)`:
+    equal to the kernel on the same arguments."""
     b = x.shape[0]
-    bits = philox_bits(seed, b, x[0].numel() if b else 0, x.device)
+    bits = philox_bits(seed, b, x[0].numel() if b else 0, x.device, clip_offset)
     return salt_pepper_reference(x, bits, salt_gates, pepper_gates, ratio)
 
 
@@ -100,14 +105,16 @@ def salt_pepper_plain(
 # passes its two's complement, the implementations mask it back.
 @torch.library.custom_op("csec::salt_pepper", mutates_args=(), device_types="cpu")
 def _salt_pepper_op(
-    x: torch.Tensor, seed: int, salt_gates: torch.Tensor, pepper_gates: torch.Tensor, ratio: int
+    x: torch.Tensor, seed: int, salt_gates: torch.Tensor, pepper_gates: torch.Tensor, ratio: int,
+    clip_offset: int = 0,
 ) -> torch.Tensor:
-    return salt_pepper_plain(x, seed & _MASK64, salt_gates, pepper_gates, ratio)
+    return salt_pepper_plain(x, seed & _MASK64, salt_gates, pepper_gates, ratio, clip_offset)
 
 
 @_salt_pepper_op.register_kernel("cuda")
 def _salt_pepper_cuda(
-    x: torch.Tensor, seed: int, salt_gates: torch.Tensor, pepper_gates: torch.Tensor, ratio: int
+    x: torch.Tensor, seed: int, salt_gates: torch.Tensor, pepper_gates: torch.Tensor, ratio: int,
+    clip_offset: int = 0,
 ) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise TypeError(f"salt_pepper: expected float32, got {x.dtype}")
@@ -127,15 +134,15 @@ def _salt_pepper_cuda(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.salt_pepper_f32(
             x.data_ptr(), y.data_ptr(), salt.data_ptr(), pepper.data_ptr(),
-            b, length, seed & _MASK64, noise_threshold(ratio), stream,
+            b, length, clip_offset, seed & _MASK64, noise_threshold(ratio), stream,
         )
     check_launch("salt_pepper_f32", err)
-    salt_pepper.launches += 1
+    count_launch(salt_pepper)
     return y
 
 
 @_salt_pepper_op.register_fake
-def _salt_pepper_fake(x, seed, salt_gates, pepper_gates, ratio):
+def _salt_pepper_fake(x, seed, salt_gates, pepper_gates, ratio, clip_offset=0):
     return torch.empty(x.shape, dtype=x.dtype, device=x.device)
 
 
@@ -145,17 +152,21 @@ def salt_pepper(
     salt_gates: torch.Tensor,
     pepper_gates: torch.Tensor,
     ratio: int,
+    clip_offset: int = 0,
 ) -> torch.Tensor:
     """x (B, ...) float32, seed a 64-bit int, gates (B,) bool → x with each
     element of a gated clip set to 255 (salt) / 0 (pepper) with probability
-    ≈ 1/ratio.  CUDA tensors run the kernel; CPU tensors the plain version.
+    ≈ 1/ratio; clip b draws the noise of row clip_offset + b of the global
+    batch.  CUDA tensors run the kernel; CPU tensors the plain version.
     `.launches` counts kernel launches."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"salt_pepper: unsupported device {x.device}")
     if not 0 <= seed < 1 << 64:
         raise ValueError("salt_pepper: seed must fit 64 unsigned bits")
+    if not 0 <= clip_offset <= (1 << 32) - x.shape[0]:
+        raise ValueError(f"salt_pepper: clip_offset {clip_offset} + batch {x.shape[0]} must fit 32 bits")
     signed = seed - (1 << 64) if seed >= 1 << 63 else seed
-    return _salt_pepper_op(x, signed, salt_gates, pepper_gates, ratio)
+    return _salt_pepper_op(x, signed, salt_gates, pepper_gates, ratio, clip_offset)
 
 
 salt_pepper.launches = 0

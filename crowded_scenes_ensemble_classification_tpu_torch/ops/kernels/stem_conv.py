@@ -25,7 +25,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, load_library
 
 MAX_CHANNELS = 4  # input channels of the f32 kernel (4C = 16 s2d channels)
 BF16_MAX_CHANNELS = 3  # the bf16 kernel's weights and two slabs fit 227 KB up to 4C = 12
@@ -153,7 +153,7 @@ def stem_conv_s2d_bf16(xs: torch.Tensor, wp: torch.Tensor, width: int, features:
             xs.data_ptr(), wp.data_ptr(), y.data_ptr(), n, t, h2, w2p, c4, width // 2, features, stream
         )
     check_launch("stem_conv_s2d_bf16", err)
-    stem_conv_7x7x7_s2.launches += 1
+    count_launch(stem_conv_7x7x7_s2)
     return y
 
 
@@ -180,7 +180,7 @@ def _stem_cuda(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = load_library().stem_conv_s2d_f32(xs.data_ptr(), wk.data_ptr(), y.data_ptr(), *xs.shape, f, stream)
     check_launch("stem_conv_s2d_f32", err)
-    stem_conv_7x7x7_s2.launches += 1
+    count_launch(stem_conv_7x7x7_s2)
     return y
 
 

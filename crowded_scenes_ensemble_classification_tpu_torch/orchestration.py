@@ -20,13 +20,14 @@ here, with the same names string for string:
 The port's idiom: clip tables are `data.ClipTable`s, a module holds its
 weights (members are modules, checkpoints `train.checkpoints`'s state
 dicts), and every entry point runs on the card unless `device=` names
-another.  Inference takes a `mesh=` (`core.mesh`): the probability
-functions shard the members and batches over it
-(`ensemble.members.member_probabilities`).  Two arguments have no
-working form yet and raise: `mesh=` in training (data-parallel training
-over the mesh, ROADMAP Queue 1 item 9) and `fuse_1x1=True` (left out,
-item 8).  With a torch.distributed group up (`parallel.distributed`),
-the recovery list is divided over its processes.
+another.  Every stage takes a `mesh=` (`core.mesh`): training is then
+data-parallel over its data axis (`train.engine`, global-batch BatchNorm;
+a resident train split is sharded over it), and the probability functions
+shard the members and batches over it
+(`ensemble.members.member_probabilities`).  `fuse_1x1=True` has no working
+form and raises (left out, ROADMAP Queue 1 item 8).  With a
+torch.distributed group up (`parallel.distributed`), the recovery list is
+divided over its processes.
 """
 
 from __future__ import annotations
@@ -75,12 +76,6 @@ from .utils.metrics import MetricsLogger
 
 DEFAULT_STAGING_HW = (256, 256)
 CLI_MODULE = "crowded_scenes_ensemble_classification_tpu_torch"
-
-
-def _no_training_mesh(mesh) -> None:
-    if mesh is not None:
-        raise ValueError("mesh= in training is not ported yet: data-parallel training over the mesh, with "
-                         "global-batch BatchNorm, is ROADMAP Queue 1 item 9 (distribution, part 2)")
 
 
 def compute_dtype(config: ExperimentConfig) -> torch.dtype:
@@ -256,9 +251,10 @@ def train_member(
     with `optimizer`.  resident=True pins the train split on the bundle's
     device once (`data.resident.ResidentClips`), so every epoch gathers its
     batches there; val and test stream through the pipelines.
-    input_scale=None reads config.input_scale.  `mesh=` raises (ROADMAP
-    Queue 1 item 9)."""
-    _no_training_mesh(mesh)
+    input_scale=None reads config.input_scale.  `mesh` (a `core.mesh.Mesh`
+    whose data axis holds the bundle's device): the steps are
+    data-parallel over its data axis and a resident train split is
+    sharded over it (JAX orchestration.py:185-330)."""
     if input_scale is None:
         input_scale = config.input_scale
     member_seed = seed + 1000 * t + v
@@ -277,10 +273,10 @@ def train_member(
         from .data.resident import ResidentClips
 
         pipes["train"] = ResidentClips.from_pipeline(pipes["train"], preshuffle=seed, pad_to=resident_pad_to,
-                                                     device=bundle.device)
+                                                     device=None if mesh is not None else bundle.device, mesh=mesh)
     if eval_step is None:
         # one eval step for fit's epochs and the final test eval
-        eval_step = make_eval_step(bundle, out_hw, input_scale=input_scale, flow_params=flow_params)
+        eval_step = make_eval_step(bundle, out_hw, input_scale=input_scale, flow_params=flow_params, mesh=mesh)
     ckpt_dir = layout.checkpoint_dir(config, t, v)
     metrics_logger = MetricsLogger(os.path.join(layout.root, "metrics", f"{config.artifact_stem(t, v)}.jsonl"))
 
@@ -303,6 +299,7 @@ def train_member(
         eval_step=eval_step,
         flow_from_augmented=config.flow_from_augmented,
         flow_params=flow_params,
+        mesh=None if resident else mesh,  # a resident split carries its mesh
     )
 
     restore_best(ckpt_dir, bundle.module)
@@ -414,15 +411,15 @@ def launch_ensemble_training(
     (or emit commands for) only the members with no complete (checkpoint,
     history) pair; with `members` None and a torch.distributed group up,
     the pending list is divided round-robin over its processes
-    (`parallel.distributed.process_count_index`).  `mesh=` raises (ROADMAP
-    Queue 1 item 9).
+    (`parallel.distributed.process_count_index`).
     One trainable bundle and one train and one eval step are built and
     shared by every member (each member loads a seeded build's weights), unless the
-    caller passes `bundle` or `train_step`.  member_kwargs go to
-    `train_member`; `device` also to `prepare_ensemble`."""
+    caller passes `bundle`, `train_step` or a `mesh`: with a mesh each
+    member builds its own data-parallel steps, as JAX does
+    (orchestration.py:493-497).  member_kwargs go to `train_member`;
+    `device` also to `prepare_ensemble`."""
     if runner not in ("local", "commands"):
         raise ValueError(f"runner {runner!r} not in ('local', 'commands')")
-    _no_training_mesh(member_kwargs.get("mesh"))
     layout = prepare_ensemble(config, clip_table, work_dir, device=member_kwargs.get("device"))
     if runner == "commands":
         return member_cli_commands(
@@ -447,7 +444,8 @@ def launch_ensemble_training(
     if not pairs:
         return {}
 
-    if "train_step" not in member_kwargs and member_kwargs.get("bundle") is None:
+    if ("train_step" not in member_kwargs and member_kwargs.get("bundle") is None
+            and member_kwargs.get("mesh") is None):
         seed = member_kwargs.get("seed", 0)
         bundle, fresh = build_with_condition(
             config, seed=seed, rgb_h5=member_kwargs.get("rgb_h5"), flow_h5=member_kwargs.get("flow_h5"),

@@ -1,9 +1,10 @@
 """Parallel forms (JAX `parallel/__init__.py:1-33`): the device mesh
-(`core.mesh`), the processes that share an ensemble's members
-(`distributed`), streaming long-video windows (`streaming`), time-sharded
-long clips with halo exchange for inference (`temporal_halo`) and
-training (`halo_train`).  Data-parallel training over the mesh waits for
-ROADMAP Queue 1 item 9."""
+(`core.mesh`), the processes that share an ensemble's members and the sums
+of a data-parallel step across them (`distributed`), streaming long-video
+windows (`streaming`), time-sharded long clips with halo exchange for
+inference (`temporal_halo`) and training (`halo_train`).  Data-parallel
+training over a mesh is the train steps' `mesh=` (`train.engine`, on
+`core.lockstep`)."""
 
 from ..core.mesh import (  # noqa: F401
     data_parallel_mesh,
@@ -13,6 +14,7 @@ from ..core.mesh import (  # noqa: F401
     shard_batch,
 )
 from .distributed import (  # noqa: F401
+    ProcessSum,
     initialize_distributed,
     is_multi_process,
     my_member_assignments,

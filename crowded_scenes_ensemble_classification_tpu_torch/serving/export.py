@@ -1,7 +1,7 @@
 """Serving export: the fused ensemble forward as one `torch.export` artifact.
 
 Counterpart of `crowded_scenes_ensemble_classification_tpu/serving/export.py`
-(lines 39-194), single-card form.  The whole serving computation — uint8
+(lines 39-194).  The whole serving computation — uint8
 batch → float → resize → × input_scale → members' dtype → every member's
 forward → softmax → weighted SUM fusion → {"probs", "fused", "preds"} — is
 one `torch.export.ExportedProgram` with a static batch size, as the JAX
@@ -27,8 +27,18 @@ exported on, recorded in its metadata.
 Artifact = one zip: `module.pt2` (`torch.export.save`) + `metadata.json`.
 Static-int8 members baked into a program carry their packed weights and
 scales as constants (`models/common.QuantConv`).  The CLI's `export` and
-`serve` commands write and read these artifacts.  Not ported yet: the mesh
-form (ROADMAP Queue 1 item 9).
+`serve` commands write and read these artifacts.
+
+The mesh form (`mesh=`, a (member G, data N) mesh, JAX export.py:86-140)
+is lean: JAX records the SPMD shardings in its program, and a torch
+program records no placement, so the program is one position's work —
+(a member group's stacked params, a data shard of the batch) → that
+group's probabilities on those rows — and the metadata carries the mesh
+{"member": G, "data": N}.  `load_serving_artifact` builds the mesh over
+the visible cards (positions cycle over them, so one card holds them all)
+and its serve_fn(params, batch) runs the program at every position on its
+slice of the stacked params and its rows (`ensemble.members.grid_forward`),
+then fuses: the single-card artifact's result.
 """
 
 from __future__ import annotations
@@ -43,7 +53,15 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ensemble.members import check_member_form, member_softmax, stack_variables, stacked_member_softmax
+from ..core.mesh import Mesh, make_mesh
+from ..ensemble.members import (
+    check_member_form,
+    grid_forward,
+    member_grid,
+    member_softmax,
+    stack_variables,
+    stacked_member_softmax,
+)
 from ..models.quantize import quant_sites
 from ..models.registry import ModelBundle
 from ..utils.device import resolve_device
@@ -110,6 +128,20 @@ class _LeanServingEnsemble(nn.Module):
         return _fuse(stacked_member_softmax(self.template[0], params, batch, **self.forward_kw), self.weights)
 
 
+class _LeanGroupForward(nn.Module):
+    """The mesh form's program: a member group's softmax (M/G, B/N, C) on
+    its stacked params and a data shard; the fusion runs after the
+    groups' results are gathered."""
+
+    def __init__(self, template, **forward_kw):
+        super().__init__()
+        self.template = (template,)  # a tuple: not a submodule
+        self.forward_kw = forward_kw
+
+    def forward(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return stacked_member_softmax(self.template[0], params, batch, **self.forward_kw)
+
+
 def _meta_template(module: nn.Module) -> nn.Module:
     """A copy of `module` on the meta device, holding no static operands."""
     template = copy.deepcopy(module).to("meta")
@@ -128,6 +160,9 @@ def export_ensemble(
     flow_fast_warp: bool = False,
     flow_params: Optional[dict] = None,
     bake_params: bool = True,
+    mesh: Optional[Mesh] = None,
+    member_axis: str = "member",
+    data_axis: str = "data",
 ) -> torch.export.ExportedProgram:
     """Export the fused ensemble forward of `members` (one model type and
     clip geometry, on one device) for batches shaped like `batch_example`
@@ -139,7 +174,12 @@ def export_ensemble(
     SUM fusion, ones by default.  share_stem_staging=True needs
     `stem_prestaged` members.  bake_params=False exports the lean program
     `(params, batch)`, `params` being `stack_variables` of the members'
-    state dicts (JAX export.py:139-153)."""
+    state dicts (JAX export.py:139-153).  With a `mesh` (the members must
+    divide over its member axis, the example's batch over its data axis)
+    the program is the mesh form's one position (module docstring), always
+    lean; save it with metadata "mesh": {"member": G, "data": N} and the
+    fusion weights as "fusion_weights", which `load_serving_artifact`
+    reads."""
     first = members[0]
     if any(b.model_type != first.model_type or b.clip != first.clip for b in members):
         raise ValueError("export_ensemble: members must share model type and clip geometry")
@@ -148,7 +188,15 @@ def export_ensemble(
     w = torch.ones(len(members)) if weights is None else torch.as_tensor(weights, dtype=torch.float32)
     forward_kw = dict(out_hw=(first.clip.height, first.clip.width), share_stem_staging=share_stem_staging,
                       input_scale=input_scale, flow_fast_warp=flow_fast_warp, flow_params=flow_params)
-    if bake_params:
+    if mesh is not None:
+        groups, shards = member_grid(mesh, len(members), member_axis, data_axis).shape
+        batch = batch_example["rgb"].shape[0]
+        if batch % shards:
+            raise ValueError(f"a batch of {batch} does not divide over a {data_axis} axis of {shards}")
+        model = _LeanGroupForward(_meta_template(first.module), **forward_kw)
+        args = (stack_variables([m.state_dict() for m in modules[:len(modules) // groups]]),
+                {k: v[:batch // shards] for k, v in batch_example.items()})
+    elif bake_params:
         for site in (s for m in modules for s in quant_sites(m).values()):
             site.refresh_static_operands()  # a static site's packed weights enter the program as constants
         model, args = _ServingEnsemble(modules, w.to(first.device), **forward_kw), (batch_example,)
@@ -166,20 +214,63 @@ def save_serving_artifact(path: str, program: torch.export.ExportedProgram, meta
     the device type the program runs on is added."""
     buf = io.BytesIO()
     torch.export.save(program, buf)
-    device = program.state_dict["weights"].device.type
+    device = _program_device(program)
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED) as z:
         z.writestr(_MODULE_NAME, buf.getbuffer())
         z.writestr(_META_NAME, json.dumps({**metadata, "device": device}, indent=2, sort_keys=True))
     return path
 
 
+def _program_device(program: torch.export.ExportedProgram) -> str:
+    """The device type an exported program runs on: that of its fusion
+    weights, else (the mesh form, which holds none) of its example inputs'
+    placeholders."""
+    if "weights" in program.state_dict:
+        return program.state_dict["weights"].device.type
+    vals = [n.meta["val"] for n in program.graph.nodes if n.op == "placeholder" and "val" in n.meta]
+    return next(v.device.type for v in vals if isinstance(v, torch.Tensor))
+
+
+def _mesh_serve(module, metadata: Dict, device: torch.device):
+    """serve_fn(params, batch) of a mesh artifact: the program at every
+    position of a (member, data) mesh over `device`'s cards, each on its
+    member group's params and its rows, then the fusion."""
+    shape = metadata["mesh"]
+    n = shape["member"] * shape["data"]
+    cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
+             else [device])
+    mesh = make_mesh((("member", shape["member"]), ("data", shape["data"])),
+                     [cards[i % len(cards)] for i in range(n)])
+    weights = torch.tensor(metadata["fusion_weights"], dtype=torch.float32)
+
+    def serve(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        count = next(iter(params.values())).shape[0]
+        grid = member_grid(mesh, count)
+        per = count // grid.shape[0]
+        slices = {}  # a member group's params on a device, moved once a call
+
+        def run(g: int, d: int, rows: Dict) -> torch.Tensor:
+            dev = grid[g, d]
+            if (g, dev) not in slices:
+                slices[(g, dev)] = {k: v[g * per:(g + 1) * per].to(dev) for k, v in params.items()}
+            return module(slices[(g, dev)], {k: v.to(dev) for k, v in rows.items()})
+
+        with torch.no_grad():
+            probs = grid_forward(grid, batch, run)
+            return _fuse(probs, weights.to(probs.device))
+
+    return serve
+
+
 def load_serving_artifact(path: str, device=None):
     """→ (serve_fn, metadata) on `device`: the card when None, which raises
     without one.  serve_fn(batch) → {"probs", "fused", "preds"} for a baked
     artifact, serve_fn(params, batch) for a lean one (JAX export.py:
-    178-194).  The artifact must have been exported on that device type.
-    `serve_fn.module` is the loaded graph module.  Needs this package
-    imported (it is, by this module), which registers the kernels' ops."""
+    178-194) and for a mesh one, which runs over a mesh of metadata["mesh"]
+    on `device`'s cards (module docstring).  The artifact must have been
+    exported on that device type.  `serve_fn.module` is the loaded graph
+    module.  Needs this package imported (it is, by this module), which
+    registers the kernels' ops."""
     device = resolve_device(device)
     with zipfile.ZipFile(path) as z:
         metadata = json.loads(z.read(_META_NAME))
@@ -191,6 +282,9 @@ def load_serving_artifact(path: str, device=None):
     def serve(*args: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
             return module(*args)
+
+    if metadata.get("mesh"):
+        serve = _mesh_serve(module, metadata, device)
 
     serve.module = module  # the loaded graph module, for inspection
     return serve, metadata

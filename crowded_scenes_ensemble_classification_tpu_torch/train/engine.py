@@ -25,22 +25,37 @@ stop) runs on the host in `fit`, with the reference's callback semantics
 `fit` and `evaluate_model` read a `data.pipeline.BatchPipeline` through
 `prefetch_batches` (host decode of the next batch overlaps the step, JAX
 engine.py:542-544, :682-685), a `ResidentClips` through its `batches(epoch)`
-and the resident steps, or any other object with `batches(epoch)`.  Not
-ported: the wire-fed step (a TPU transfer workaround, left out: ROADMAP
-Queue 1 item 8) and data-parallel training over the mesh (item 9).
+and the resident steps, or any other object with `batches(epoch)`.
+
+Every step and `fit` take a `mesh` (`core.mesh`): the step is then
+data-parallel over its "data" axis, as JAX's GSPMD step is.  Each position
+runs its rows of the global batch on its device, the positions in lockstep
+(`core.lockstep`): train-mode BatchNorm takes the global batch's moments,
+the augment decisions and C3D's dropout mask are the global batch's rows,
+the gradients add up onto the one module, and one optimizer step runs, so
+the update equals the unsharded step's.  A resident dataset is sharded over
+the same mesh and each position gathers from its own rows.  With
+`processes` the data axis continues in other processes
+(`parallel.distributed.ProcessSum`).  Not ported: the wire-fed step (a TPU
+transfer workaround, left out: ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.lockstep import Lockstep, Shard, run_positions
+from ..core.mesh import Mesh, split_positions
 from ..data.pipeline import class_weights_balanced, iterate_batches
 from ..data.resident import ResidentClips
 from ..flow.farneback import gray_pair_flow
@@ -53,6 +68,7 @@ from ..ops.augment import (
     draw_decisions,
     identity_resize_batch,
 )
+from ..parallel.distributed import ProcessSum
 from .callbacks import EarlyStopping, LRPolicy, lr_policy_for
 from .checkpoints import best_exists, full_exists, restore_best, restore_full, save_best, save_full
 from .state import OptimizerFactory, TrainState, make_optimizer, set_learning_rate
@@ -96,6 +112,8 @@ def _preprocess(
     flow_fast_warp: bool = False,
     flow_params: Optional[dict] = None,
     flow_from_augmented: bool = False,
+    clip_offset: int = 0,
+    global_batch: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """uint8 staged batch → float32 model inputs, on its device (JAX
     engine.py:40-120).  `decisions` augments the rgb (None: a plain
@@ -109,10 +127,13 @@ def _preprocess(
     without gradients.  With `flow_from_augmented` and decisions the pairs
     first take the rgb stream's crop and flip and salt/pepper of their own
     (the reference's augmented-Farnebäck mode, train.py:176-184); otherwise
-    the flow is of the unaugmented pairs."""
+    the flow is of the unaugmented pairs.  A data-parallel position passes
+    its rows' decisions (`AugmentDecisions.rows`), its first row
+    `clip_offset` and the `global_batch` size, and draws the noise of those
+    rows of the global batch."""
     rgb = batch["rgb"]
     if decisions is not None:
-        rgb = crowd11_augment_from_decisions(rgb, out_hw, decisions)
+        rgb = crowd11_augment_from_decisions(rgb, out_hw, decisions, clip_offset)
     else:
         rgb = identity_resize_batch(rgb, out_hw)
     out = {"rgb": rgb * input_scale}
@@ -127,7 +148,8 @@ def _preprocess(
                 if gray.shape[2:4] != batch["rgb"].shape[2:4]:
                     raise ValueError(f"augmented gray pairs must be staged as the rgb is: {tuple(gray.shape[2:4])} "
                                      f"against {tuple(batch['rgb'].shape[2:4])}")
-                gray, gray_next = crowd11_augment_gray_pair_batch(gray, gray_next, decisions)
+                gray, gray_next = crowd11_augment_gray_pair_batch(gray, gray_next, decisions, clip_offset,
+                                                                  global_batch)
             out["flow"] = gray_pair_flow(gray, gray_next, out_hw, flow_fast_warp, flow_params)
     else:
         raise ValueError("a two-stream model needs batch['flow'] or the gray pairs batch['gray'] and "
@@ -153,7 +175,87 @@ def _check_tx(state: TrainState, tx: OptimizerFactory) -> None:
         raise ValueError("the train state's optimizer was not made from this step's tx")
 
 
-def _make_dense_train_body(
+# ----------------------------------------------------------------------
+# Data-parallel steps over a mesh (JAX engine.py:208-238, :320-460,
+# :492-516).  JAX shards the batch over the mesh's data axis and GSPMD
+# runs one program; here each position of the axis holds its rows on its
+# device and runs the unsharded model code on them, the positions in
+# lockstep on threads (`core.lockstep`), so that BatchNorm takes the
+# global batch's moments and every draw is the global batch's.
+# ----------------------------------------------------------------------
+
+
+def _data_devices(bundle: ModelBundle, mesh: Mesh, data_axis: str) -> List[torch.device]:
+    devices = mesh.axis_devices(data_axis)
+    if bundle.device not in devices:
+        raise ValueError(f"the module lies on {bundle.device}, which no position of the mesh's {data_axis!r} axis "
+                         f"holds ({[str(d) for d in devices]})")
+    return devices
+
+
+class _Replicas:
+    """The module on each device the positions hold: the bundle's own module
+    on its device, a copy on any other card, refreshed from it before every
+    step.  The copies' gradients are added onto the module's after the
+    backward pass, so one optimizer step updates one parameter set."""
+
+    def __init__(self, module: nn.Module, devices: Sequence[torch.device]):
+        home = next(module.parameters()).device
+        self.module = module
+        self.copies = {d: copy.deepcopy(module).to(d) for d in dict.fromkeys(devices) if d != home}
+
+    def on(self, device: torch.device) -> nn.Module:
+        return self.copies.get(device, self.module)
+
+    def refresh(self) -> None:
+        if not self.copies:
+            return
+        state = self.module.state_dict()
+        with torch.no_grad():
+            for replica in self.copies.values():
+                for k, v in replica.state_dict().items():
+                    v.copy_(state[k])
+                replica.train(self.module.training)
+
+    def add_grads(self) -> None:
+        for replica in self.copies.values():
+            for p, q in zip(self.module.parameters(), replica.parameters()):
+                if q.grad is not None:
+                    g = q.grad.to(p.device)
+                    p.grad = g if p.grad is None else p.grad + g
+                    q.grad = None
+
+
+def _split_batch(batch: Dict[str, Any], devices: Sequence[torch.device]) -> List[Dict[str, torch.Tensor]]:
+    """A global dense batch → one dense batch a position, its rows on its
+    device (JAX `with_sharding_constraint(v, P(data_axis))`)."""
+    parts = {k: split_positions(torch.as_tensor(v), devices) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(len(devices))]
+
+
+def _gather_shards(batch: Dict[str, Any], devices: Sequence[torch.device]) -> List[Dict[str, torch.Tensor]]:
+    """A sharded resident batch → one dense batch a position, each gathered
+    from that position's own resident rows by its block of the
+    shard-block-major local indices (JAX `_make_resident_gather`,
+    engine.py:320-365): no resident bytes cross positions."""
+    n = len(devices)
+    resident = batch["resident"]
+    for k, v in resident.items():
+        if not isinstance(v, (list, tuple)) or len(v) != n or any(t.device != d for t, d in zip(v, devices)):
+            raise ValueError(f"resident {k!r} is not sharded over this step's {n} positions: build the "
+                             "ResidentClips with the step's mesh")
+    indices = torch.as_tensor(batch["indices"]).chunk(n)
+    valid = torch.as_tensor(batch["valid"]).chunk(n)
+    out = []
+    for i, d in enumerate(devices):
+        local = indices[i].to(d, non_blocking=True)
+        dense = {k: v[i].index_select(0, local) for k, v in resident.items()}
+        dense["valid"] = valid[i].to(d, non_blocking=True)
+        out.append(dense)
+    return out
+
+
+def _make_train_body(
     bundle: ModelBundle,
     out_hw: Tuple[int, int],
     augment: bool,
@@ -164,40 +266,153 @@ def _make_dense_train_body(
     flow_params: Optional[dict] = None,
     flow_from_augmented: bool = False,
     weight_normalized: bool = False,
+    *,
+    mesh: Optional[Mesh] = None,
+    data_axis: str = "data",
+    processes: Optional[ProcessSum] = None,
 ):
-    """The train body of every step: fn(state, batch, class_weights) with
-    batch = {"rgb" uint8 [+ "flow" | "gray", "gray_next"], "label",
-    "valid"} tensors on the module's device → (state, {"loss",
-    "accuracy"} device scalars).  The loss is Keras's class_weight mean:
-    Σ ce·mask·w[label] / max(Σ mask, 1) (JAX engine.py:123-172), or over
-    max(Σ mask·w[label], 1) with `weight_normalized` (the JAX multi-member
-    step's, multi_member.py:77), + l2 for R3D."""
-    module = bundle.module
+    """The train body of every step: fn(state, parts, class_weights) with
+    `parts` the batch's dense parts {"rgb" uint8 [+ "flow" | "gray",
+    "gray_next"], "label", "valid"}, tensors on their devices: the whole
+    batch on the module's device, or with a `mesh` one part a position of
+    `data_axis`, on its device → (state, {"loss", "accuracy"} device
+    scalars).  The loss is Keras's class_weight mean: Σ ce·mask·w[label] /
+    max(Σ mask, 1) (JAX engine.py:123-172), or over max(Σ mask·w[label], 1)
+    with `weight_normalized` (the JAX multi-member step's,
+    multi_member.py:77), + l2 for R3D.
 
-    def train_step(state: TrainState, batch, class_weights):
-        decisions = None
-        if augment:
-            b, _, h, w, _ = batch["rgb"].shape
-            decisions = draw_decisions(_augment_generator(state.seed, state.step), b, (h, w), augment_p)
+    - The augment decisions are drawn once for the global batch, from
+      (state.seed, state.step); each part applies its rows of them, the
+      noise kernel at its clip offset; TwoStream flow is computed from each
+      part's rows.
+    - `_rows_sums` runs the forward of one part.  Unsharded it runs inline
+      (native BatchNorm); with a mesh it runs at every position at once
+      (`core.lockstep`), BatchNorm taking the global moments and C3D's
+      dropout the global mask's rows.
+    - Then one loss over the summed parts, l2 once, one backward (the
+      positions' gradients add up onto the module's parameters) and one
+      optimizer step.  Metrics are global.
+
+    `processes` (a `parallel.distributed.ProcessSum`, with a mesh): the data
+    axis goes on in the other processes of its group, each holding its rows
+    of the global batch (in rank order) on a mesh of its own; the BatchNorm
+    sums, the normaliser, the metrics and the gradients are summed over
+    them, so every process takes the same optimizer step."""
+    if mesh is None and processes is not None:
+        raise ValueError("processes= needs a mesh: the positions of this process")
+    if mesh is not None:
+        devices = _data_devices(bundle, mesh, data_axis)
+        replicas = _Replicas(bundle.module, devices)
+        master = devices.index(bundle.device)
+
+    def rows_sums(module: nn.Module, batch, decisions, start: int, total: int, class_weights, generator):
+        """(Σ ce·w, [Σ mask, Σ w, correct]) of one part's rows [start, start + rows)."""
         inputs = _preprocess(batch, decisions, out_hw, bundle.two_stream, input_scale, flow_fast_warp, flow_params,
-                             flow_from_augmented)
+                             flow_from_augmented, start, total)
         labels = batch["label"].long()
         mask = batch["valid"].float()
-        weights = mask * class_weights[labels]
-        count = (weights.sum() if weight_normalized else mask.sum()).clamp_min(1.0)
-        state.optimizer.zero_grad(set_to_none=True)
-        logits = bundle.apply(inputs, train=True, generator=_dropout_generator(state.seed, state.step, bundle.device))
+        weights = mask * class_weights.to(mask.device)[labels]
+        logits = dataclasses.replace(bundle, module=module).apply(inputs, train=True, generator=generator)
         ce = F.cross_entropy(logits, labels, reduction="none")
-        loss = (ce * weights).sum() / count
-        if l2_weight > 0.0:
-            loss = loss + l2_param_penalty(module, l2_weight)
+        correct = ((logits.detach().argmax(-1) == labels) * mask).sum()
+        return (ce * weights).sum(), torch.stack([mask.sum(), weights.sum(), correct])
+
+    def train_step(state: TrainState, parts: Sequence[Dict[str, torch.Tensor]], class_weights):
+        rows = [int(part["label"].shape[0]) for part in parts]
+        first, total = (0, sum(rows)) if processes is None else processes.row_span(sum(rows))
+        decisions = None
+        if augment:
+            _, _, h, w, _ = parts[0]["rgb"].shape
+            decisions = draw_decisions(_augment_generator(state.seed, state.step), total, (h, w), augment_p)
+        state.optimizer.zero_grad(set_to_none=True)
+        if mesh is None:
+            numerator, sums = rows_sums(bundle.module, parts[0], decisions, 0, total, class_weights,
+                                        _dropout_generator(state.seed, state.step, bundle.device))
+        else:
+            bundle.module.train()
+            replicas.refresh()
+            starts = np.cumsum([first] + rows[:-1]).tolist()
+            lockstep = Lockstep(len(devices), processes)
+
+            def position(shard: Shard):
+                mine = None if decisions is None else decisions.rows(shard.start, shard.start + shard.rows)
+                return rows_sums(replicas.on(shard.device), parts[shard.position], mine, shard.start, total,
+                                 class_weights, _dropout_generator(state.seed, state.step, shard.device))
+
+            outs = run_positions(position, [Shard(i, d, starts[i], rows[i], total, lockstep, i == master)
+                                            for i, d in enumerate(devices)])
+            numerator = sum(o[0].to(bundle.device) for o in outs)
+            sums = sum(o[1].to(bundle.device) for o in outs)
+            if processes is not None:
+                sums = processes.values(sums)
+        mask_sum, weight_sum, correct = sums
+        loss = numerator / (weight_sum if weight_normalized else mask_sum).clamp_min(1.0)
+        if l2_weight > 0.0 and (processes is None or processes.rank == 0):
+            loss = loss + l2_param_penalty(bundle.module, l2_weight)
         loss.backward()
+        if mesh is not None:
+            replicas.add_grads()
+        loss = loss.detach()
+        if processes is not None:
+            processes.grads(bundle.module.parameters())
+            loss = processes.values(loss)
         state.optimizer.step()
         state.step += 1
-        accuracy = ((logits.detach().argmax(-1) == labels) * mask).sum() / mask.sum().clamp_min(1.0)
-        return state, {"loss": loss.detach(), "accuracy": accuracy}
+        return state, {"loss": loss, "accuracy": (correct / mask_sum.clamp_min(1.0)).float()}
 
     return train_step
+
+
+def _make_eval_body(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float,
+                    flow_fast_warp: bool = False, flow_params: Optional[dict] = None, *, mesh: Optional[Mesh] = None,
+                    data_axis: str = "data"):
+    """The eval body of every eval step (JAX engine.py:459-489): fn(parts),
+    the parts as `_make_train_body` takes them → the UNWEIGHTED masked loss
+    sum, correct count and valid count over every part, and the softmax in
+    part order, on the module's device.  Flow from gray pairs is of the
+    unaugmented pairs.  Eval-mode BatchNorm reads the running statistics,
+    so the positions of a mesh need no lockstep."""
+    devices = [bundle.device] if mesh is None else _data_devices(bundle, mesh, data_axis)
+    replicas = _Replicas(bundle.module, devices)
+
+    def part_eval(module: nn.Module, batch):
+        inputs = _preprocess(batch, None, out_hw, bundle.two_stream, input_scale, flow_fast_warp, flow_params)
+        labels = batch["label"].long()
+        mask = batch["valid"].float()
+        logits = dataclasses.replace(bundle, module=module).apply(inputs, train=False)
+        ce = F.cross_entropy(logits, labels, reduction="none")
+        return {
+            "loss_sum": (ce * mask).sum(),
+            "correct": ((logits.argmax(-1) == labels) * mask).sum(),
+            "count": mask.sum(),
+            "probs": torch.softmax(logits, -1),
+        }
+
+    def eval_step(parts: Sequence[Dict[str, torch.Tensor]]):
+        replicas.refresh()
+        with torch.no_grad():
+            outs = [part_eval(replicas.on(d), part) for d, part in zip(devices, parts)]
+        if len(outs) == 1:
+            return outs[0]
+        home = bundle.device
+        res = {k: sum(o[k].to(home) for o in outs) for k in ("loss_sum", "correct", "count")}
+        res["probs"] = torch.cat([o["probs"].to(home) for o in outs])
+        return res
+
+    return eval_step
+
+
+def _parts_of(bundle: ModelBundle, mesh: Optional[Mesh], data_axis: str, resident: bool):
+    """fn(batch) → the dense parts the bodies take: the whole batch on the
+    module's device, or one part a position of the mesh's `data_axis`; a
+    resident batch gathered from its rows (with a mesh, each position from
+    its own shard)."""
+    if mesh is None:
+        place = _gather if resident else _on_device
+        return lambda batch: [place(batch, bundle.device)]
+    devices = _data_devices(bundle, mesh, data_axis)
+    split = _gather_shards if resident else _split_batch
+    return lambda batch: split(batch, devices)
 
 
 def make_train_step(
@@ -211,19 +426,32 @@ def make_train_step(
     flow_fast_warp: bool = False,
     flow_params: Optional[dict] = None,
     flow_from_augmented: bool = False,
+    mesh: Optional[Mesh] = None,
+    data_axis: str = "data",
+    processes: Optional[ProcessSum] = None,
 ):
     """fn(state, batch, class_weights) → (state, metrics) over a dense batch
     {"rgb": (B, T, H, W, 3) uint8, "label": (B,), "valid": (B,) bool} (for
     TwoStream also "flow" (B, T, H, W, 2), or "gray" and "gray_next" (B, T,
     H, W, 1) from which Farnebäck computes the flow with `flow_params` and
     `flow_fast_warp`), tensors or numpy arrays.  `state` must come from
-    `TrainState.create(bundle.module, tx, seed)`."""
-    body = _make_dense_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale, flow_fast_warp,
-                                  flow_params, flow_from_augmented)
+    `TrainState.create(bundle.module, tx, seed)`.
+
+    With a `mesh` the batch is split over its `data_axis` (B must divide)
+    and the step is data-parallel (JAX engine.py:208-238): every position
+    runs its rows, BatchNorm takes the global batch's moments, and the
+    update equals the unsharded step's on the same batch.  The module must
+    lie on one of the axis's devices.  With `processes` (a
+    `parallel.distributed.ProcessSum`) the batch is this process's rows of
+    a global batch whose other rows the group's other processes hold, and
+    every process takes the same step."""
+    body = _make_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale, flow_fast_warp, flow_params,
+                            flow_from_augmented, mesh=mesh, data_axis=data_axis, processes=processes)
+    parts = _parts_of(bundle, mesh, data_axis, resident=False)
 
     def train_step(state: TrainState, batch, class_weights):
         _check_tx(state, tx)
-        return body(state, _on_device(batch, bundle.device), class_weights)
+        return body(state, parts(batch), class_weights)
 
     return train_step
 
@@ -239,6 +467,8 @@ def make_resident_train_step(
     flow_fast_warp: bool = False,
     flow_params: Optional[dict] = None,
     flow_from_augmented: bool = False,
+    mesh: Optional[Mesh] = None,
+    data_axis: str = "data",
 ):
     """Train step over a device-resident dataset (`data.resident.ResidentClips`):
     fn(state, batch, class_weights) with batch = {"resident": {name → (N, …)
@@ -246,54 +476,56 @@ def make_resident_train_step(
     bool}.  Each step gathers its rows on the device and runs the same body
     as `make_train_step`, so it equals that step on the gathered batch; the
     host ships only the indices and the mask.  Every input mode of the
-    dense step works: rgb, precomputed flow, and gray pairs."""
-    body = _make_dense_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale, flow_fast_warp,
-                                  flow_params, flow_from_augmented)
+    dense step works: rgb, precomputed flow, and gray pairs.
+
+    With a `mesh`, the ResidentClips is sharded over the same mesh: each
+    position gathers its block of the shard-block-major local indices from
+    its own resident rows (JAX engine.py:320-419) and the step is
+    `make_train_step(mesh=)`'s on the gathered rows."""
+    body = _make_train_body(bundle, out_hw, augment, augment_p, l2_weight, input_scale, flow_fast_warp, flow_params,
+                            flow_from_augmented, mesh=mesh, data_axis=data_axis)
+    parts = _parts_of(bundle, mesh, data_axis, resident=True)
 
     def train_step(state: TrainState, batch, class_weights):
         _check_tx(state, tx)
-        return body(state, _gather(batch, bundle.device), class_weights)
+        return body(state, parts(batch), class_weights)
 
     return train_step
 
 
-def _make_dense_eval_body(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float,
-                          flow_fast_warp: bool = False, flow_params: Optional[dict] = None):
-    """The eval body of both eval steps (JAX engine.py:459-489): the
-    UNWEIGHTED masked loss sum, correct count, valid count and softmax.
-    Flow from gray pairs is of the unaugmented pairs."""
-
-    def eval_step(batch):
-        with torch.no_grad():
-            inputs = _preprocess(batch, None, out_hw, bundle.two_stream, input_scale, flow_fast_warp, flow_params)
-            labels = batch["label"].long()
-            mask = batch["valid"].float()
-            logits = bundle.apply(inputs, train=False)
-            ce = F.cross_entropy(logits, labels, reduction="none")
-            return {
-                "loss_sum": (ce * mask).sum(),
-                "correct": ((logits.argmax(-1) == labels) * mask).sum(),
-                "count": mask.sum(),
-                "probs": torch.softmax(logits, -1),
-            }
-
-    return eval_step
-
-
 def make_eval_step(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float = 1.0,
-                   flow_fast_warp: bool = False, flow_params: Optional[dict] = None):
+                   flow_fast_warp: bool = False, flow_params: Optional[dict] = None, mesh: Optional[Mesh] = None,
+                   data_axis: str = "data"):
     """fn(batch) → {"loss_sum", "correct", "count", "probs"} over a dense
-    batch, with the module in eval mode and no gradients."""
-    body = _make_dense_eval_body(bundle, out_hw, input_scale, flow_fast_warp, flow_params)
-    return lambda batch: body(_on_device(batch, bundle.device))
+    batch, with the module in eval mode and no gradients.  With a `mesh`
+    the batch is split over its `data_axis` and each position evaluates
+    its rows (JAX engine.py:492-516); the probabilities come back in batch
+    order."""
+    body = _make_eval_body(bundle, out_hw, input_scale, flow_fast_warp, flow_params, mesh=mesh, data_axis=data_axis)
+    parts = _parts_of(bundle, mesh, data_axis, resident=False)
+    return lambda batch: body(parts(batch))
 
 
 def make_resident_eval_step(bundle: ModelBundle, out_hw: Tuple[int, int], input_scale: float = 1.0,
-                            flow_fast_warp: bool = False, flow_params: Optional[dict] = None):
+                            flow_fast_warp: bool = False, flow_params: Optional[dict] = None,
+                            mesh: Optional[Mesh] = None, data_axis: str = "data"):
     """Eval twin of `make_resident_train_step`: the device-side gather, then
-    the same body as `make_eval_step`."""
-    body = _make_dense_eval_body(bundle, out_hw, input_scale, flow_fast_warp, flow_params)
-    return lambda batch: body(_gather(batch, bundle.device))
+    the same body as `make_eval_step`; with a `mesh`, each position's gather
+    from its own shard (JAX engine.py:421-460)."""
+    body = _make_eval_body(bundle, out_hw, input_scale, flow_fast_warp, flow_params, mesh=mesh, data_axis=data_axis)
+    parts = _parts_of(bundle, mesh, data_axis, resident=True)
+    return lambda batch: body(parts(batch))
+
+
+def _eval_step_for(bundle: ModelBundle, pipeline, out_hw, input_scale: float, flow_fast_warp: bool,
+                   flow_params: Optional[dict], mesh: Optional[Mesh]):
+    """The eval step `pipeline` takes: the resident one (over the
+    ResidentClips's own mesh) or the dense one (over `mesh`)."""
+    if isinstance(pipeline, ResidentClips):
+        return make_resident_eval_step(bundle, out_hw, input_scale=input_scale, flow_fast_warp=flow_fast_warp,
+                                       flow_params=flow_params, mesh=pipeline.mesh, data_axis=pipeline.data_axis)
+    return make_eval_step(bundle, out_hw, input_scale=input_scale, flow_fast_warp=flow_fast_warp,
+                          flow_params=flow_params, mesh=mesh)
 
 
 def evaluate_model(
@@ -305,19 +537,20 @@ def evaluate_model(
     flow_fast_warp: bool = False,
     flow_params: Optional[dict] = None,
     eval_step=None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Any]:
     """Masked eval over epoch 0 of `pipeline` (reference evaluate(),
     train.py:1925-1971, batched): {"loss", "accuracy", "count"} and, with
-    `collect_probs`, the valid rows' probabilities in clip-id order.  The
-    module holds the weights, so no variables are passed.  The step is
-    `eval_step` when given (one step shared across calls, JAX
-    engine.py:518-536), else the resident one for a `ResidentClips` and
-    the dense one otherwise; TwoStream gray pairs turn into flow with
+    `collect_probs`, the valid rows' probabilities in clip-id order (a
+    mesh-sharded ResidentClips yields its rows shard-interleaved, and they
+    are put back in dataset order, JAX engine.py:560-566).  The module
+    holds the weights, so no variables are passed.  The step is `eval_step`
+    when given (one step shared across calls, JAX engine.py:518-536), else
+    the resident one for a `ResidentClips` (over its mesh) and the dense
+    one otherwise (over `mesh`); TwoStream gray pairs turn into flow with
     `flow_params` and `flow_fast_warp`."""
     if eval_step is None:
-        make = make_resident_eval_step if isinstance(pipeline, ResidentClips) else make_eval_step
-        eval_step = make(bundle, out_hw, input_scale=input_scale, flow_fast_warp=flow_fast_warp,
-                         flow_params=flow_params)
+        eval_step = _eval_step_for(bundle, pipeline, out_hw, input_scale, flow_fast_warp, flow_params, mesh)
     sums = torch.zeros(3, dtype=torch.float64, device=bundle.device)  # loss_sum, correct, count
     probs_all, ids_all = [], []
     with iterate_batches(pipeline, 0) as batches:
@@ -363,6 +596,7 @@ def fit(
     flow_params: Optional[dict] = None,
     train_step=None,
     eval_step=None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Any]:
     """Epoch loop with the reference's callback semantics (JAX
     engine.py:569-744).  Trains `bundle` (a trainable one) in place from its
@@ -376,6 +610,10 @@ def fit(
       dense ones, with the family's optimizer and l2 rule (`train_policy`).
     - TwoStream gray pairs turn into flow with `flow_params`, in training
       from the augmented pairs with `flow_from_augmented`.
+    - `mesh`, for a dense train pipeline: the steps are data-parallel over
+      its "data" axis (`make_train_step(mesh=)`).  A ResidentClips brings
+      the mesh it is sharded over (`ResidentClips(mesh=)`), and the steps
+      are data-parallel over that one.
     - `train_step`/`eval_step`: steps built once and shared across fits
       (JAX engine.py:594-603), closing over this bundle; a train step must
       have been built with the same optimizer factory as `optimizer`."""
@@ -394,10 +632,18 @@ def fit(
     else:
         cw = torch.ones(bundle.num_classes, device=bundle.device)
 
+    resident = isinstance(train_pipeline, ResidentClips)
+    if resident:
+        if mesh is not None:
+            raise ValueError("a ResidentClips brings its own mesh (ResidentClips(mesh=)); fit's mesh= is for "
+                             "dense pipelines")
+        mesh = train_pipeline.mesh
     if train_step is None:
-        make = make_resident_train_step if isinstance(train_pipeline, ResidentClips) else make_train_step
+        make = make_resident_train_step if resident else make_train_step
         train_step = make(bundle, tx, out_hw, augment, augment_p, l2w, input_scale=input_scale,
-                          flow_params=flow_params, flow_from_augmented=flow_from_augmented)
+                          flow_params=flow_params, flow_from_augmented=flow_from_augmented, mesh=mesh)
+    if eval_step is None:  # one eval step for every epoch
+        eval_step = _eval_step_for(bundle, val_pipeline, out_hw, input_scale, False, flow_params, mesh)
     early = EarlyStopping(patience=early_stopping_patience)
     history = {"loss": [], "accuracy": [], "val_loss": [], "val_accuracy": []}
     best_val = math.inf

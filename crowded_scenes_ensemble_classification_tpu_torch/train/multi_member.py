@@ -13,21 +13,25 @@ Why a loop and not `torch.func.vmap`: BatchNorm's running-statistic updates
 are in-place writes to buffers, and the `csec::` custom ops (the max pool,
 its gradient, the noise) have no vmap rule.
 
-The member-sharded mesh form, which puts members on different devices,
-is part 2 of the port's distribution (ROADMAP Queue 1 item 9); the mesh
-itself is `core.mesh`.
+On a (member, data) mesh (`core.mesh`, JAX multi_member.py:104-118) the
+members split over the member axis, group g taking members [g·M/G,
+(g+1)·M/G), and each member's batch splits over its group's data
+positions: its step is the data-parallel step (`train.engine`, BatchNorm
+over the member's global batch) on those positions.  Members never
+exchange anything, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core.mesh import Mesh
 from ..models.registry import ModelBundle
-from .engine import _check_tx, _make_dense_train_body, _on_device
+from .engine import _check_tx, _make_train_body, _on_device, _split_batch
 from .state import OptimizerFactory, TrainState
 
 
@@ -51,6 +55,9 @@ def make_multi_member_train_step(
     augment_p: float = 0.75,
     l2_weight: float = 0.0,
     input_scale: float = 1.0,
+    mesh: Optional[Mesh] = None,
+    member_axis: str = "member",
+    data_axis: str = "data",
 ):
     """step(stacked_states, stacked_batch, class_weights) → (stacked_states,
     {"loss": (M,), "accuracy": (M,)}).  `bundle` gives the architecture; each
@@ -59,18 +66,45 @@ def make_multi_member_train_step(
     (M, B), tensors or numpy arrays.  Each member's update is the dense
     train step's, with its augment and dropout draws from its own (seed,
     step), and the loss normalised by Σ mask·w[label] as JAX's multi-member
-    step does (multi_member.py:77), not by the valid count."""
+    step does (multi_member.py:77), not by the valid count.
+
+    With a `mesh`, member m trains data-parallel over the data positions of
+    its member group (the member axis must divide M, the data axis B, and
+    the member's module must lie on one of its group's devices); the
+    metrics come back on the first member's device."""
+    grid = None if mesh is None else mesh.grid(member_axis, data_axis)
+    bodies = {}  # a member's data-parallel body, by its module
+
+    def group_body(m: int, count: int, member: ModelBundle):
+        groups = grid.shape[0]
+        if count % groups:
+            raise ValueError(f"{count} members do not divide over a {member_axis} axis of {groups}")
+        row = grid[m // (count // groups)]
+        devices = np.empty(len(row), dtype=object)
+        devices[:] = list(row)
+        key = id(member.module)
+        if key not in bodies:
+            bodies[key] = (_make_train_body(member, out_hw, augment, augment_p, l2_weight, input_scale,
+                                            weight_normalized=True, mesh=Mesh(devices, ("data",))),
+                           list(row))
+        return bodies[key]
 
     def step(states: Sequence[TrainState], batch, class_weights):
         losses, accuracies = [], []
         for m, state in enumerate(states):
             _check_tx(state, tx)
             member = dataclasses.replace(bundle, module=state.module)
-            body = _make_dense_train_body(member, out_hw, augment, augment_p, l2_weight, input_scale,
-                                          weight_normalized=True)
-            _, metrics = body(state, _on_device({k: v[m] for k, v in batch.items()}, member.device), class_weights)
-            losses.append(metrics["loss"])
-            accuracies.append(metrics["accuracy"])
+            rows = {k: v[m] for k, v in batch.items()}
+            if grid is None:
+                body = _make_train_body(member, out_hw, augment, augment_p, l2_weight, input_scale,
+                                        weight_normalized=True)
+                _, metrics = body(state, [_on_device(rows, member.device)], class_weights)
+            else:
+                body, devices = group_body(m, len(states), member)
+                _, metrics = body(state, _split_batch(rows, devices), class_weights)
+            home = losses[0].device if losses else metrics["loss"].device
+            losses.append(metrics["loss"].to(home))
+            accuracies.append(metrics["accuracy"].to(home))
         return list(states), {"loss": torch.stack(losses), "accuracy": torch.stack(accuracies)}
 
     return step

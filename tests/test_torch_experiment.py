@@ -416,7 +416,8 @@ def test_launch_local_shares_one_train_and_eval_step(torch, orch, workspace, mon
     """launch_ensemble_training (local) builds one train step and one eval
     step for all its members, and each member starts from the weights that
     `train_member(bundle=None)` would build: a seeded build from
-    `seed + 1000·t + v`, weight for weight."""
+    `seed + 1000·t + v`, weight for weight; with a data mesh, each member
+    builds its own steps and trains as without one."""
     pcfg, _ = workspace["port"]
     work = str(tmp_path / "work")
     shutil.copytree(os.path.join(workspace["port"][1].root, "Folds"), os.path.join(work, "Folds"))
@@ -442,8 +443,25 @@ def test_launch_local_shares_one_train_and_eval_step(torch, orch, workspace, mon
         assert start.keys() == want.keys() and all(torch.equal(start[k], want[k]) for k in want)
     assert not torch.equal(starts[0][1]["conv1.weight"], starts[1][1]["conv1.weight"])
     assert orch.launch_ensemble_training(pcfg, None, work, members=[(2, 0)], recover=True) == {}
-    with pytest.raises(ValueError, match="item 9"):
-        orch.launch_ensemble_training(pcfg, None, work, mesh=object())
+    # Over a data mesh of 2 CPU positions each member builds its own
+    # data-parallel steps (JAX orchestration.py:493-497) from the same seeded
+    # start, and trains as the shared unsharded steps did (f32, no
+    # BatchNorm: equal to rounding).
+    mesh_work = str(tmp_path / "mesh")
+    shutil.copytree(os.path.join(workspace["port"][1].root, "Folds"), os.path.join(mesh_work, "Folds"))
+    mesh = _port("core.mesh").make_mesh((("data", 2),), [torch.device("cpu")] * 2)
+    calls.update(train=0, eval=0)
+    builds.clear()
+    meshed = orch.launch_ensemble_training(pcfg, None, mesh_work, members=[(2, 0)], epochs=1, staging_hw=STAGING,
+                                           num_workers=2, device="cpu", mesh=mesh)
+    assert sorted(meshed) == [(2, 0)] and calls == {"train": 0, "eval": 1}
+    assert [kw["seed"] for kw in builds] == [2000]
+    assert meshed[(2, 0)]["test_loss"] == pytest.approx(results[(2, 0)]["test_loss"], rel=1e-5)
+    assert meshed[(2, 0)]["history"]["val_loss"] == pytest.approx(results[(2, 0)]["history"]["val_loss"], rel=1e-5)
+    ckpt = _port("train.checkpoints")
+    got, want = (ckpt.restore_best(orch.WorkLayout(w).checkpoint_dir(pcfg, 2, 0)) for w in (mesh_work, work))
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-7)
 
 
 # ----------------------------------------------------------------------
