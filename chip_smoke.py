@@ -317,6 +317,34 @@ Phases, each of which raises on failure (exit code 1):
    recovery retrains exactly the pending members and touches no finished
    one, and a second finds nothing.  Prints seconds by part and the
    phase's launches by kernel.
+26. leftouts (`--only leftouts` runs the kernels' own phases and
+   this one alone): the JAX package's features the earlier slices left
+   out, at 20×224², B=16.  (a) 4 bf16 prestaged I3D members and their
+   `fuse_1x1` twins (the same state dicts) on the main path's step from
+   the same rows and decisions: probabilities within 1e-2 and the fused
+   argmax agreeing, busy ms of both (profiler); one unshared member on the
+   stem kernel against its twin.  (b) the same members calibrated by
+   `calibrate_members` on 2 batches of main-path clips and baked, and
+   fused static twins loaded from them: probabilities equal bit for bit,
+   228/228 against 156/156 int8-conv/quantize launches a step (36 max
+   pools, 1 noise), busy ms of both; the 9 fused 1³ convs of member 0's
+   forward each `torch.equal` to its plain version, with its route, tile,
+   splits, warm time and bound beside the 3 unfused convs it replaces.
+   (c) the fused static member exported, served and `torch.equal` to
+   eager, 39/39 launches.  (d) rematerialised I3D training, f32, TF32 off,
+   cuDNN deterministic, remat off, ("Mixed_3b", "Mixed_3c") and all nine:
+   loss within 1e-6, the update within 1e-3 relative and the running
+   statistics equal to the plain step's; peak memory, ms a step, and the
+   pool's 9 + remats forward and 9 gradient launches.  (e) the wire-fed
+   ensemble step (staging 256², rgb and yuv420, 2 steps) against the
+   dense step on the same clips and decisions (cropped clips' augmented
+   inputs within 2e-3, mean |dprob| within 1e-2, the fused argmax
+   agreeing), MB a clip on the wire, the copy's and the step's ms; the
+   wire-fed train step (f32, staging = 224², rgb and yuv420) against the
+   dense train step on the same pixels (loss within 1e-4, the update
+   within the data-parallel gate's 0.08 relative: ulp-level tap
+   differences flip max-pool near-ties).  Prints seconds by part and the phase's
+   launches by kernel (`launches_leftouts`).
 
 Bounds use the H100 SXM data sheet: 989 TFLOP/s dense bf16, 1,979 TOPS
 dense int8, 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s.  The line
@@ -336,7 +364,8 @@ each, and every record carries their count as `launches_cli`; phase 24's
 (the max pool's and its gradient's, the fan-out workers' included) add
 too, under `launches_distribution`, and phase 25's (the max pool's, its
 gradient's and the noise's, the worker processes' of (f) included, those
-of (g)'s drill workers not) under `launches_data_parallel`; each record keeps a phase's own count
+of (g)'s drill workers not) under `launches_data_parallel`, and phase 26's
+under `launches_leftouts`; each record keeps a phase's own count
 under `launches_<phase>`); the last line is
 `{"ok": true, "device":
 {...}}`.  Needs one card and no network.
@@ -2364,11 +2393,11 @@ def check_int8_kernels(torch, dev, member, xs2, xs16) -> list:
     ]
 
 
-def check_int8_export(torch, dev, bundle) -> None:
+def check_int8_export(torch, dev, bundle, convs: int = I3D_CONVS, what: str = "") -> None:
     """One baked static-int8 member at full width through the serving export
     (shared staging, B=2): exported, saved and loaded, its probabilities
     equal the eager `make_member_forward`'s exactly, and the loaded program
-    launches one int8 conv and one quantize pass a conv."""
+    launches one int8 conv and one quantize pass a conv, `convs` of each."""
     from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import make_member_forward
     from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels.int8_conv import int8_conv3d, quantize_int8
     from crowded_scenes_ensemble_classification_tpu_torch.serving import (
@@ -2393,9 +2422,10 @@ def check_int8_export(torch, dev, bundle) -> None:
     torch.cuda.synchronize()
     launched = (int8_conv3d.launches - before[0], quantize_int8.launches - before[1])
     same = torch.equal(out["probs"], eager)
-    print(f"int8 serving export: one baked static I3D member, full width, B=2, shared staging: export {export_s:.1f} s; "
-          f"loaded artifact == eager make_member_forward: {same}; int8 conv / quantize launches {launched}")
-    check(launched == (I3D_CONVS, I3D_CONVS), f"the loaded static program launched {launched}")
+    print(f"int8 serving export: one baked {what}static I3D member, full width, B=2, shared staging: export "
+          f"{export_s:.1f} s; loaded artifact == eager make_member_forward: {same}; int8 conv / quantize launches "
+          f"{launched}")
+    check(launched == (convs, convs), f"the loaded static program launched {launched}")
     check(same, "the loaded static-int8 artifact differs from the eager forward")
 
 
@@ -4349,6 +4379,456 @@ def drill_finish(torch, drill: dict) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase 26, `leftouts`: the JAX package's features the earlier slices left
+# out, at full width (20×224², B=16): fused 1³ convs in bf16 and static
+# int8, the fused static artifact, rematerialised training and the
+# wire-fed ensemble and train steps.
+# ----------------------------------------------------------------------
+
+FUSED_STATIC_CONVS = 3 + 9 * 4  # a fused block runs one int8 conv for its three input 1³ convs
+LEFTOUT_NAMES = ("max_pool_3x3x3_same", "max_pool_3x3x3_same_backward", "salt_pepper", "stem_conv_7x7x7_s2",
+                 "int8_conv3d", "quantize_int8")
+REMAT_FORMS = (("off", {}), ("Mixed_3b,Mixed_3c", {"remat_blocks": ("Mixed_3b", "Mixed_3c")}),
+               ("all", {"remat": True}))
+WIRE_STEPS = 2
+REMAT_TIMED_STEPS = 2
+
+
+def leftout_counted(torch, fn):
+    """fn() with every kernel's count zeroed first → (its value, the
+    launches it made, by kernel)."""
+    zero_int8_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, int8_launches()
+
+
+def busy_ms(torch, fn) -> float:
+    """The card's busy milliseconds (the union of its intervals in a
+    profile) of one fn() after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof)
+
+
+def fused_twins(torch, members, **kw) -> list:
+    """A fuse_1x1 twin of each member from `build_model`, its state dict
+    loaded strictly (the fused model's keys are the unfused one's)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+
+    twins = []
+    for m in members:
+        twin = build_model("I3D", dtype=torch.bfloat16, fuse_1x1=True, **kw).module
+        check(list(twin.state_dict()) == list(m.state_dict()), "fused and unfused state dicts differ in keys")
+        twin.load_state_dict(m.state_dict())
+        twins.append(twin)
+    return twins
+
+
+def leftout_batches(torch, resident, seed: int) -> list:
+    """(rows, decisions) of two batches of the resident rows, the decisions
+    drawn as the main path draws them."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import _resident_batch
+
+    gen = torch.Generator().manual_seed(seed)
+    return [_resident_batch(resident, i, gen, BATCH, STAGING) for i in range(2)]
+
+
+def leftout_fused_bf16(torch, np, dev, resident, batches) -> dict:
+    """(a) 4 bf16 members and their fuse_1x1 twins on the main path's step,
+    and one unshared member on the stem kernel against its twin."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import make_member_forward
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import ensemble_step_from_decisions
+
+    members = [b.module for b in seeded_members(torch, "I3D", MEMBERS, 2600, stem_prestaged=True)]
+    fused = fused_twins(torch, members, stem_prestaged=True)
+    step = lambda ms, rd: ensemble_step_from_decisions(ms, rd[0], rd[1], FRAMES, STAGING, (SIZE, SIZE))  # noqa: E731
+    dprob, agrees, dfused = 0.0, True, 0.0
+    for rd in batches:
+        (pu, _), ((pf, _), counts) = step(members, rd), leftout_counted(torch, lambda: step(fused, rd))
+        check_probs(torch, pf, (MEMBERS, BATCH, CLASSES), "fused bf16 main path")
+        ok, df = fused_argmax_agrees(pu, pf, torch)
+        dprob, agrees, dfused = max(dprob, (pu - pf).abs().max().item()), agrees and ok, max(dfused, df)
+    ms = {name: busy_ms(torch, lambda g=group: step(g, batches[0])) for name, group in (("unfused", members),
+                                                                                         ("fused", fused))}
+    print(f"fused bf16 main path, {MEMBERS} members, B={BATCH}, 2 batches: max |dprob| {dprob:.3g} (limit 1e-2), "
+          f"max |dfused| {dfused:.3g}, fused argmax agrees {agrees}; busy ms a step unfused {ms['unfused']:.3f}, "
+          f"fused {ms['fused']:.3f}; launches a fused step {counts}")
+    check(dprob <= 1e-2 and agrees, f"fused bf16 members differ from unfused: {dprob}, argmax {agrees}")
+    check(counts["max_pool_3x3x3_same"] == 9 * MEMBERS and counts["salt_pepper"] == 1, f"fused launches {counts}")
+
+    (unshared,) = [b.module for b in seeded_members(torch, "I3D", 1, 2610, stem_impl="pallas")]
+    (twin,) = fused_twins(torch, [unshared], stem_impl="pallas")
+    clips = {"rgb": seeded_clips(torch, dev, (BATCH, FRAMES, SIZE, SIZE, 3), 2611)}
+    pu = make_member_forward([unshared], (SIZE, SIZE), input_scale=INPUT_SCALE)(clips)
+    pf, stem_counts = leftout_counted(torch, lambda: make_member_forward([twin], (SIZE, SIZE),
+                                                                         input_scale=INPUT_SCALE)(clips))
+    d1 = (pu - pf).abs().max().item()
+    print(f"fused bf16 unshared member on the stem kernel, B={BATCH}: max |dprob| {d1:.3g} (limit 1e-2); launches "
+          f"{stem_counts}")
+    check(d1 <= 1e-2, f"fused unshared member differs from unfused: {d1}")
+    check(stem_counts["stem_conv_7x7x7_s2"] == 1, f"fused unshared member's launches {stem_counts}")
+    totals = {n: counts[n] + stem_counts[n] for n in LEFTOUT_NAMES}
+    return {"members": members, "totals": totals}
+
+
+def leftout_fused_static(torch, np, dev, resident, batches, members) -> tuple:
+    """(b) the same 4 members calibrated on the main path's clips and baked,
+    static unfused against static fused on the same rows and decisions, the
+    9 fused 1³ convs against the 27 they replace; (c) the fused static
+    artifact served against eager.  Returns (fused static members, launches)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import calibrate_members
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import ensemble_step_from_decisions
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import s2d_stem_stage
+    from crowded_scenes_ensemble_classification_tpu_torch.models.registry import ModelBundle
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.kernels import int8_conv as ic
+
+    calib = []
+    for m in members:
+        c = build_model("I3D", dtype=torch.bfloat16, stem_prestaged=True, quant="calib").module
+        c.load_state_dict(m.state_dict())
+        calib.append(c)
+    calib_clips = int8_main_clips(torch, resident, 2620, 2)
+    static = calibrate_members(calib, calib_clips, (SIZE, SIZE), num_batches=2)
+    fused = []
+    for m in static:
+        f = build_model("I3D", dtype=torch.bfloat16, stem_prestaged=True, quant="static", fuse_1x1=True).module
+        f.load_state_dict(m.state_dict())
+        fused.append(f)
+    step = lambda ms, rd: ensemble_step_from_decisions(ms, rd[0], rd[1], FRAMES, STAGING, (SIZE, SIZE))  # noqa: E731
+    equal, dprob = True, 0.0
+    for rd in batches:
+        (pu, _), uc = leftout_counted(torch, lambda: step(static, rd))
+        (pf, _), fc = leftout_counted(torch, lambda: step(fused, rd))
+        check_probs(torch, pf, (MEMBERS, BATCH, CLASSES), "fused static main path")
+        equal, dprob = equal and torch.equal(pu, pf), max(dprob, (pu - pf).abs().max().item())
+    ms = {name: busy_ms(torch, lambda g=group: step(g, batches[0])) for name, group in (("unfused", static),
+                                                                                         ("fused", fused))}
+    print(f"fused static int8 main path, {MEMBERS} members, B={BATCH}: probabilities equal to unfused bit for bit: "
+          f"{equal} (max |dprob| {dprob:.3g}); launches a step unfused {uc}, fused {fc}; busy ms a step unfused "
+          f"{ms['unfused']:.3f}, fused {ms['fused']:.3f}")
+    check(equal, f"fused static members differ from unfused: max |dprob| {dprob}")
+    want = lambda convs: {"int8_conv3d": convs * MEMBERS, "quantize_int8": convs * MEMBERS,  # noqa: E731
+                          "max_pool_3x3x3_same": 9 * MEMBERS, "max_pool_3x3x3_same_backward": 0,
+                          "salt_pepper": 1, "stem_conv_7x7x7_s2": 0}
+    check(uc == want(I3D_CONVS) and fc == want(FUSED_STATIC_CONVS), f"static launches unfused {uc}, fused {fc}")
+
+    # the 9 fused convs beside the 27 they replace, on member 0's forward
+    xs = s2d_stem_stage(calib_clips[0]["rgb"].to(torch.bfloat16))
+    with torch.inference_mode():
+        u_convs, _ = captured_int8_calls(lambda: static[0](xs))
+        f_convs, _ = captured_int8_calls(lambda: fused[0](xs))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tot = {}
+    for blk in range(9):
+        call = f_convs[3 + 4 * blk]
+        got, ref = ic.int8_conv3d(*call), int8_plain(call)
+        check(torch.equal(got, ref), f"fused 1x1 conv of block {blk} != its plain version")
+        route = ic.int8_conv_route(call[0], call[1], call[2].shape[0], call[4], call[5], call[6], sms)
+        fms = cuda_ms(lambda call=call: ic.int8_conv3d(*call))
+        parts = [u_convs[3 + 6 * blk + j] for j in (0, 1, 3)]
+        ums = [cuda_ms(lambda c=c: ic.int8_conv3d(*c)) for c in parts]
+        m, f, cin = got.numel() // got.shape[-1], got.shape[-1], call[0].shape[-1]
+        b_ms, by = bound(m * cin + f * cin + m * f * 4 + f * 4, 2 * m * f * cin, INT8_OPS)
+        k8 = ic.unpack_int8_weights(call[1], f, (1, 1, 1), cin)
+        x2, w2 = call[0].reshape(-1, cin), k8.reshape(f, cin).contiguous().t()  # (C, F) column-major
+        mm = lambda x2=x2, w2=w2, s=call[2]: torch._int_mm(x2, w2).float() * s  # noqa: E731
+        check(torch.equal(mm().view(got.shape), got), f"torch._int_mm + dequantize != the fused conv of block {blk}")
+        mm_ms = cuda_ms(mm)
+        for k, v in (("fused", fms), ("unfused", sum(ums)), ("mm", mm_ms), ("bound", b_ms)):
+            tot[k] = tot.get(k, 0.0) + v
+        print(f"fused 1x1 conv, block {blk}: M={m} Cin={cin} F={f} [{route['tile']} tile, split K {route['splits']}, "
+              f"A by {route['a_copy']}]: {fms:.4f} ms warm (bound {b_ms:.4f} ms by {by}); torch._int_mm + dequantize "
+              f"{mm_ms:.4f} ms; the 3 unfused convs (F={[c[2].shape[0] for c in parts]}) "
+              f"{' + '.join(f'{t:.4f}' for t in ums)} = {sum(ums):.4f} ms")
+    print(f"fused 1x1 convs of one member at B={BATCH}: 9 convs {tot['fused']:.4f} ms warm (bound {tot['bound']:.4f} "
+          f"ms; torch._int_mm + dequantize {tot['mm']:.4f} ms) against the 27 unfused {tot['unfused']:.4f} ms")
+    bundle = ModelBundle("I3D", fused[0], CLIP_SPECS["I3D"], CLASSES, two_stream=False)
+    check_int8_export(torch, dev, bundle, FUSED_STATIC_CONVS, "fused ")
+    check_lean_fused_export(torch, dev, bundle)
+    return {n: uc[n] + fc[n] for n in LEFTOUT_NAMES}
+
+
+def check_lean_fused_export(torch, dev, bundle) -> None:
+    """The fused static member as a lean program (`bake_params=False`: the
+    fused operands computed in the graph from the stacked state), saved,
+    loaded and served on the member's state dict: equal to eager."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import make_member_forward, stack_variables
+    from crowded_scenes_ensemble_classification_tpu_torch.serving import (
+        export_ensemble,
+        load_serving_artifact,
+        save_serving_artifact,
+        serving_batch_example,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    batch = {"rgb": torch.randint(0, 256, (2, FRAMES, SIZE, SIZE, 3), generator=gen, device=dev, dtype=torch.uint8)}
+    eager = make_member_forward([bundle.module], (SIZE, SIZE), share_stem_staging=True)(batch)
+    t0 = time.perf_counter()
+    program = export_ensemble([bundle], serving_batch_example(bundle, 2), share_stem_staging=True, bake_params=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        serve, _ = load_serving_artifact(save_serving_artifact(os.path.join(tmp, "lean.zip"), program, {}))
+    out = serve(stack_variables([bundle.module.state_dict()]), batch)
+    same = torch.equal(out["probs"], eager)
+    print(f"lean fused static artifact, B=2: export + load {time.perf_counter() - t0:.1f} s; served on the stacked "
+          f"state == eager: {same}")
+    check(same, "the lean fused static artifact differs from the eager forward")
+
+
+def leftout_remat(torch, np, dev) -> dict:
+    """(d) rematerialised I3D training, f32 at B=16 (TF32 off, cuDNN
+    deterministic): remat off, Mixed_3b/3c, all nine; loss, update and
+    running statistics against the plain step's, peak memory, ms a step and
+    the max-pool launches."""
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    rng = np.random.default_rng(2640)
+    batch = {"rgb": torch.from_numpy(rng.integers(0, 256, (BATCH, FRAMES, STAGING, STAGING, 3), dtype=np.uint8)).to(dev),
+             "label": torch.from_numpy(rng.integers(0, CLASSES, BATCH)).to(dev),
+             "valid": torch.ones(BATCH, dtype=torch.bool, device=dev)}
+    cw = torch.ones(CLASSES, device=dev)
+    tx = make_optimizer("I3D", 0.003)
+    dp_deterministic(torch, True)
+    res, totals = {}, dict.fromkeys(LEFTOUT_NAMES, 0)
+    try:
+        for name, kw in REMAT_FORMS:
+            bundle = build_model("I3D", dtype=torch.float32, generator=torch.Generator().manual_seed(2641),
+                                 trainable=True, **kw)
+            before = {k: v.detach().clone() for k, v in bundle.module.state_dict().items()}
+            step = make_train_step(bundle, tx, (SIZE, SIZE), augment=True, input_scale=INPUT_SCALE)
+            state = TrainState.create(bundle.module, tx, seed=3)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            (state, metrics), counts = leftout_counted(torch, lambda: step(state, batch, cw))
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            after = {k: v.detach().clone() for k, v in bundle.module.state_dict().items()}
+            t0 = time.perf_counter()
+            for _ in range(REMAT_TIMED_STEPS):  # after the compared step: plans and allocator warm
+                state, _ = step(state, batch, cw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / REMAT_TIMED_STEPS
+            res[name] = dict(loss=float(metrics["loss"]), before=before, after=after, peak=peak, ms=ms,
+                             counts=counts)
+            for n in LEFTOUT_NAMES:
+                totals[n] += counts[n]
+            del bundle, step, state
+    finally:
+        dp_deterministic(torch, False)
+    plain = res["off"]
+    for name, r in res.items():
+        upd = [((r["after"][k] - r["before"][k]) - (plain["after"][k] - plain["before"][k])).abs().max().item()
+               for k in plain["after"] if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
+        stats = [(r["after"][k] - plain["after"][k]).abs().max().item()
+                 for k in plain["after"] if k.endswith(("running_mean", "running_var"))]
+        remats = 9 if name == "all" else 2 if name != "off" else 0
+        print(f"remat {name}: f32 train step B={BATCH}: loss {r['loss']:.6f} (plain {plain['loss']:.6f}), max |dupdate| "
+              f"{max(upd):.3g}, max |drunning stats| {max(stats):.3g}; peak memory above the weights "
+              f"{r['peak']:.2f} GB; {r['ms']:.1f} ms a step ({REMAT_TIMED_STEPS} more steps, host clock); launches "
+              f"{r['counts']}")
+        rel_upd = max(((r["after"][k] - r["before"][k]) - (plain["after"][k] - plain["before"][k])).norm().item()
+                      / max((plain["after"][k] - plain["before"][k]).norm().item(), 1e-30)
+                      for k in plain["after"] if k.endswith("weight") and plain["after"][k].dtype.is_floating_point)
+        print(f"remat {name}: equal to the plain step bit for bit: "
+              f"{r['loss'] == plain['loss'] and max(upd) == 0.0 and max(stats) == 0.0}; largest relative update "
+              f"difference of a weight {rel_upd:.3g} (limit 1e-3)")
+        check(abs(r["loss"] - plain["loss"]) <= 1e-6 * abs(plain["loss"]) and rel_upd <= 1e-3 and max(stats) == 0.0,
+              f"remat {name} differs from the plain step: loss {r['loss']} vs {plain['loss']}, update {rel_upd}, "
+              f"running stats {max(stats)}")
+        check(r["counts"]["max_pool_3x3x3_same"] == 9 + remats and r["counts"]["max_pool_3x3x3_same_backward"] == 9,
+              f"remat {name} launches {r['counts']}")
+    return totals
+
+
+def wire_clips(np, seed: int, size: int):
+    """BATCH smooth BGR clips at `size`² (periodic textures drifting frame
+    to frame) as u8 staging, and labels."""
+    rng = np.random.default_rng(seed)
+    base = np.stack([periodic_texture(np, rng, size + 2 * FRAMES) for _ in range(3)], -1)
+    clips = np.stack([np.stack([np.roll(base, (t + b, 2 * t), (0, 1))[:size, :size] for t in range(FRAMES)])
+                      for b in range(BATCH)])
+    lo, hi = clips.min(), clips.max()
+    return ((clips - lo) / (hi - lo) * 255).astype(np.uint8), rng.integers(0, CLASSES, BATCH)
+
+
+def wire_pack(np, plan, step: int, clips):
+    """The plan's wire of step `step` over `clips`, packed into pinned host
+    memory → (wire, offsets, bytes on the wire)."""
+    from crowded_scenes_ensemble_classification_tpu_torch.data.wire_format import pack_ragged_windows, pinned_wire
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.augment import decode_time_eval_resize_u8
+
+    do_crop = plan.steps[step][0]
+    eval_u8 = np.zeros((0, FRAMES, *plan.out_hw, 3), np.uint8)
+    if not do_crop.all():
+        eval_u8 = np.stack([decode_time_eval_resize_u8(c, plan.out_hw) for c in clips[~do_crop]])
+    wire = pinned_wire((plan.cap,))
+    _, offsets = pack_ragged_windows(plan, step, clips[do_crop], eval_u8, out=wire.numpy())
+    used = int(np.where(do_crop, plan.crop_bytes, plan.full_bytes).sum())
+    return wire, offsets, used
+
+
+def i420_clips(np, clips):
+    """The clips through cv2's I420 and back on the card's decoder: what a
+    yuv420 wire's pixels are."""
+    import torch
+
+    from crowded_scenes_ensemble_classification_tpu_torch.data.wire_format import (
+        bgr_clips_to_i420_batch,
+        i420_to_bgr_u8,
+    )
+
+    b, t, h, w, _ = clips.shape
+    return i420_to_bgr_u8(torch.from_numpy(bgr_clips_to_i420_batch(clips)), t, h, w).numpy()
+
+
+def leftout_wire(torch, np, dev, members) -> dict:
+    """(e) the wire-fed ensemble step (staging 256², the main path's) and
+    train step (staging 224²: every clip's pixels are the dense step's) in
+    rgb and yuv420, each against the dense step of the same clips and
+    decisions."""
+    from crowded_scenes_ensemble_classification_tpu_torch.data.wire_format import make_wire_unpack, plan_wire_steps
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.members import shared_stem_probabilities
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.pipeline import (
+        AUGMENT_P,
+        wire_ensemble_step,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.models import build_model
+    from crowded_scenes_ensemble_classification_tpu_torch.models.common import s2d_stem_stage
+    from crowded_scenes_ensemble_classification_tpu_torch.ops.augment import (
+        crowd11_augment_from_decisions,
+        crowd11_augment_windowed_from_decisions,
+    )
+    from crowded_scenes_ensemble_classification_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+        make_wire_train_step,
+    )
+
+    totals = dict.fromkeys(LEFTOUT_NAMES, 0)
+    staged, labels = wire_clips(np, 2650, STAGING)
+    for cs in ("rgb", "yuv420"):
+        plan = plan_wire_steps(2651, WIRE_STEPS, BATCH, FRAMES, (STAGING, STAGING), (SIZE, SIZE), AUGMENT_P,
+                               colorspace=cs)
+        pixels = staged if cs == "rgb" else i420_clips(np, staged)
+        dprob, agrees, counts_all = 0.0, True, dict.fromkeys(LEFTOUT_NAMES, 0)
+        dx_crop = dx_full = dlogit = 0.0
+        for s in range(WIRE_STEPS):
+            wire, offsets, used = wire_pack(np, plan, s, staged)
+            (probs, fused), counts = leftout_counted(torch, lambda: wire_ensemble_step(members, wire, offsets, plan, s))
+            check_probs(torch, probs, (MEMBERS, BATCH, CLASSES), f"wire ensemble step {cs}")
+            x = crowd11_augment_from_decisions(torch.from_numpy(pixels).to(dev), (SIZE, SIZE), plan.decisions[s])
+            dense = shared_stem_probabilities(members, x.to(members[0].dtype))
+            ok, _ = fused_argmax_agrees(dense, probs, torch)
+            dprob, agrees = max(dprob, (dense - probs).abs().mean().item()), agrees and ok
+            xw = crowd11_augment_windowed_from_decisions(
+                make_wire_unpack(plan)(wire.to(dev), offsets, s), (SIZE, SIZE), (STAGING, STAGING), plan.decisions[s])
+            crop = torch.from_numpy(plan.steps[s][0]).to(dev)
+            dx_crop = max(dx_crop, (xw - x)[crop].abs().max().item())
+            dx_full = max(dx_full, (xw - x)[~crop].abs().max().item() if (~crop).any() else 0.0)
+            with torch.inference_mode():
+                lw, ld = (members[0](s2d_stem_stage(v.to(members[0].dtype))) for v in (xw, x))
+            dlogit = max(dlogit, ((lw - ld).norm() / ld.norm()).item())
+            counts_all = {n: counts_all[n] + counts[n] for n in LEFTOUT_NAMES}
+        copy_ms = cuda_ms(lambda: wire.to(dev, non_blocking=True), iters=10, queue_ahead=False)
+        step_ms = busy_ms(torch, lambda: wire_ensemble_step(members, wire, offsets, plan, WIRE_STEPS - 1))
+        print(f"wire ensemble step {cs}, {MEMBERS} bf16 members, B={BATCH}, staging {STAGING}²: "
+              f"{used / BATCH / 1e6:.3f} MB a clip on the wire (cap {plan.cap / 1e6:.2f} MB; dense u8 staging "
+              f"{FRAMES * STAGING * STAGING * 3 / 1e6:.3f} MB a clip), copy {copy_ms:.3f} ms, busy {step_ms:.3f} ms "
+              f"a step; against the dense step on the same clips and decisions: augmented inputs of cropped clips max "
+              f"|dx| {dx_crop:.3g} (limit 2e-3, 0-255 scale), of uncropped clips (decode-time u8 resize{'' if cs == 'rgb' else ', I420 of the resize'}) "
+              f"{dx_full:.3g}; member 0's logits rel err {dlogit:.3g}; mean |dprob| {dprob:.3g} (limit 1e-2), fused "
+              f"argmax agrees {agrees}; launches in {WIRE_STEPS} steps {counts_all}")
+        check(dprob <= 1e-2 and agrees and dx_crop <= 2e-3,
+              f"wire ensemble step {cs} differs from the dense step: {dprob}, {agrees}, {dx_crop}")
+        check(counts_all["salt_pepper"] == WIRE_STEPS and counts_all["max_pool_3x3x3_same"] == 9 * MEMBERS * WIRE_STEPS,
+              f"wire ensemble launches {counts_all}")
+        totals = {n: totals[n] + counts_all[n] for n in LEFTOUT_NAMES}
+
+    # the train step, f32, staging = the model size: the wire's pixels are the dense step's
+    small, _ = wire_clips(np, 2652, SIZE)
+    cw = torch.ones(CLASSES, device=dev)
+    tx = make_optimizer("I3D", 0.003)
+    dp_deterministic(torch, True)
+    try:
+        for cs in ("rgb", "yuv420"):
+            pixels = small if cs == "rgb" else i420_clips(np, small)
+            plan = plan_wire_steps(3, 1, BATCH, FRAMES, (SIZE, SIZE), (SIZE, SIZE), AUGMENT_P, colorspace=cs)
+            wire, offsets, used = wire_pack(np, plan, 0, small)
+            out = {}
+            for form in ("dense", "wire"):
+                bundle = build_model("I3D", dtype=torch.float32, generator=torch.Generator().manual_seed(2653),
+                                     trainable=True)
+                before = [p.detach().clone() for p in bundle.module.parameters()]
+                state = TrainState.create(bundle.module, tx, seed=3)
+                if form == "dense":
+                    step = make_train_step(bundle, tx, (SIZE, SIZE), augment=True, input_scale=INPUT_SCALE)
+                    batch = {"rgb": torch.from_numpy(pixels).to(dev), "label": torch.from_numpy(labels).to(dev),
+                             "valid": torch.ones(BATCH, dtype=torch.bool, device=dev)}
+                    (state, metrics), counts = leftout_counted(torch, lambda: step(state, batch, cw))
+                else:
+                    step = make_wire_train_step(bundle, tx, plan, 3, input_scale=INPUT_SCALE)
+                    (state, metrics), counts = leftout_counted(torch, lambda: step(
+                        state, wire, offsets, 0, labels, np.ones(BATCH, bool), cw))
+                    totals = {n: totals[n] + counts[n] for n in LEFTOUT_NAMES}
+                out[form] = (float(metrics["loss"]), [p.detach() - b for p, b in zip(bundle.module.parameters(),
+                                                                                    before)], counts)
+                del bundle, state, step
+            (ld, ud, _), (lw, uw, cwire) = out["dense"], out["wire"]
+            rel = (sum((a - b).square().sum() for a, b in zip(uw, ud)).sqrt()
+                   / sum(b.square().sum() for b in ud).sqrt()).item()
+            worst = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(uw, ud))
+            print(f"wire train step {cs}, f32, B={BATCH}, staging {SIZE}²: loss {lw:.6f} against the dense step's "
+                  f"{ld:.6f} (rel {abs(lw - ld) / abs(ld):.3g}, limit 1e-4), update difference ||du|| / ||u|| "
+                  f"{rel:.3g} over all weights (limit {DP_LIMITS['update']}, the data-parallel gate's: the "
+                  f"windowed taps move cropped pixels by ulps, which flip max-pool near-ties; the worst single "
+                  f"tensor {worst:.3g}); {used / BATCH / 1e6:.3f} MB a clip on the wire; launches {cwire}")
+            check(abs(lw - ld) <= 1e-4 * abs(ld) and rel <= DP_LIMITS["update"],
+                  f"wire train step {cs} differs from dense: loss {lw} vs {ld}, update {rel}")
+            check(cwire["salt_pepper"] == 1 and cwire["max_pool_3x3x3_same_backward"] == 9,
+                  f"wire train launches {cwire}")
+    finally:
+        dp_deterministic(torch, False)
+    return totals
+
+
+def check_leftouts(torch, np, dev, kernels) -> None:
+    """Phase 26 (module docstring): (a) fused bf16, (b, c) fused static int8
+    and its artifact, (d) remat training, (e) the wire-fed steps; launches
+    by kernel over the phase."""
+    ibytes = FRAMES * STAGING * STAGING * 3 // 2
+    rows = np.random.default_rng(2601).integers(0, 256, (2 * BATCH, ibytes), dtype=np.uint8)
+    resident = torch.from_numpy(rows).to(dev)
+    batches = leftout_batches(torch, resident, 2602)
+    secs, totals = {}, dict.fromkeys(LEFTOUT_NAMES, 0)
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, np, dev, *args)
+        torch.cuda.empty_cache()
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    bf16 = part("fused_bf16", leftout_fused_bf16, resident, batches)
+    static = part("fused_static", leftout_fused_static, resident, batches, bf16["members"])
+    remat = part("remat", leftout_remat)
+    wire = part("wire", leftout_wire, bf16["members"])
+    for counts in (bf16["totals"], static, remat, wire):
+        totals = {n: totals[n] + counts[n] for n in LEFTOUT_NAMES}
+    print(f"leftouts seconds by part {secs}; launches in the phase {totals}")
+    check(all(totals[n] > 0 for n in LEFTOUT_NAMES), f"a kernel of the phase never launched: {totals}")
+    for k in kernels:
+        if k["name"] in totals:
+            k["launches_leftouts"] = totals[k["name"]]
+            k["launches"] += totals[k["name"]]
+
+
 def ingest_dependencies() -> str:
     """Whether cv2 (video decode, phase 21) and h5py (the Keras h5 reader)
     import on this machine, and their versions."""
@@ -4363,7 +4843,9 @@ def ingest_dependencies() -> str:
     return "ingest dependencies: " + ", ".join(found)
 
 
-def main() -> int:
+def main(only=None) -> int:
+    """Every phase; with `only` (`--only leftouts` on the command line, for
+    a quick loop on one phase) the kernels' own phases and `leftouts`."""
     import numpy as np
     import torch
 
@@ -4395,40 +4877,43 @@ def main() -> int:
 
     kernels = [phase("maxpool", check_maxpool, torch, dev), phase("noise", check_noise, torch, dev),
                phase("stem", check_stem, torch, dev), phase("maxpool_backward", check_maxpool_backward, torch, dev)]
-    phase("small_model", check_small_model, torch, dev)
-    phase("main_path", check_main_path, torch, np, dev, kernels)
-    bundles, batches, eager, eager_cps = phase("member_path", check_member_path, torch, np, dev, kernels)
-    phase("serving", check_serving, torch, bundles, batches, eager, eager_cps)
-    del bundles, batches, eager
-    torch.cuda.empty_cache()
-    phase("serving_forms", check_serving_forms, torch, np, dev)
-    torch.cuda.empty_cache()
-    phase("stem_backward", check_stem_backward, torch, dev)
-    phase("training", check_training, torch, np, dev, kernels)
-    phase("zoo", check_zoo, torch, dev)
-    families = phase("hetero_members", hetero_families, torch)
-    phase("hetero", check_hetero, torch, dev, families, kernels, False)
-    phase("evaluation", check_evaluation, torch, np, dev, families)
-    phase("flow", check_flow, torch, np, dev)
-    phase("hetero_flow", check_hetero, torch, dev, families, kernels, True)
-    del families
-    torch.cuda.empty_cache()
-    phase("twostream", check_twostream, torch, np, dev, kernels)
-    torch.cuda.empty_cache()
-    phase("train_zoo", check_train_zoo, torch, np, dev, kernels)
-    torch.cuda.empty_cache()
-    phase("int8", check_int8, torch, np, dev, kernels)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        phase("ingest", check_ingest, torch, np, dev, kernels, tmp)
+    if only is None:
+        phase("small_model", check_small_model, torch, dev)
+        phase("main_path", check_main_path, torch, np, dev, kernels)
+        bundles, batches, eager, eager_cps = phase("member_path", check_member_path, torch, np, dev, kernels)
+        phase("serving", check_serving, torch, bundles, batches, eager, eager_cps)
+        del bundles, batches, eager
         torch.cuda.empty_cache()
-        experiment = phase("experiment", check_experiment, torch, np, dev, kernels, tmp)
+        phase("serving_forms", check_serving_forms, torch, np, dev)
         torch.cuda.empty_cache()
-        phase("cli", check_cli, torch, np, dev, kernels, *experiment)
+        phase("stem_backward", check_stem_backward, torch, dev)
+        phase("training", check_training, torch, np, dev, kernels)
+        phase("zoo", check_zoo, torch, dev)
+        families = phase("hetero_members", hetero_families, torch)
+        phase("hetero", check_hetero, torch, dev, families, kernels, False)
+        phase("evaluation", check_evaluation, torch, np, dev, families)
+        phase("flow", check_flow, torch, np, dev)
+        phase("hetero_flow", check_hetero, torch, dev, families, kernels, True)
+        del families
         torch.cuda.empty_cache()
-        phase("distribution", check_distribution, torch, np, dev, kernels, tmp)
+        phase("twostream", check_twostream, torch, np, dev, kernels)
         torch.cuda.empty_cache()
-        phase("data_parallel", check_data_parallel, torch, np, dev, kernels, tmp)
+        phase("train_zoo", check_train_zoo, torch, np, dev, kernels)
+        torch.cuda.empty_cache()
+        phase("int8", check_int8, torch, np, dev, kernels)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase("ingest", check_ingest, torch, np, dev, kernels, tmp)
+            torch.cuda.empty_cache()
+            experiment = phase("experiment", check_experiment, torch, np, dev, kernels, tmp)
+            torch.cuda.empty_cache()
+            phase("cli", check_cli, torch, np, dev, kernels, *experiment)
+            torch.cuda.empty_cache()
+            phase("distribution", check_distribution, torch, np, dev, kernels, tmp)
+            torch.cuda.empty_cache()
+            phase("data_parallel", check_data_parallel, torch, np, dev, kernels, tmp)
+    phase("leftouts", check_leftouts, torch, np, dev, kernels)
+    torch.cuda.empty_cache()
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; seconds by phase {phase_s}")
     print(json.dumps({"kernels": kernels}))
@@ -4444,4 +4929,6 @@ if __name__ == "__main__":
         sys.exit(data_parallel_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     if sys.argv[1:2] == ["--recover-worker"]:
         sys.exit(recover_worker(sys.argv[2], sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--only"]:
+        sys.exit(main(set(sys.argv[2].split(","))))
     sys.exit(main())

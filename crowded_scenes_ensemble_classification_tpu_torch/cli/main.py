@@ -25,9 +25,9 @@ without one.  Its `device` keyword, which no flag sets, lets tests name
 visible cards (`core.mesh`; on one card all N sit on `cuda:0`): `train`
 and `launch` train data-parallel over it (global-batch BatchNorm, a
 resident split sharded over it) and `probs` shards the probabilities.
-`--fuse-1x1`, which the port has no counterpart for, is still parsed, so
-the parser equals the reference's, and raises a ValueError naming its
-ROADMAP item (README, "Left out of the port").
+`--fuse-1x1` (I3D family) runs `probs`, `ensemble` and `export` with each
+Inception block's input 1³ convs fused into one (`models.i3d.
+InceptionBlock`), as the reference's does.
 """
 
 from __future__ import annotations
@@ -230,8 +230,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "checkpoints; the int8 conv and quantize kernels run "
                         "in the program)")
     p.add_argument("--fuse-1x1", action="store_true",
-                   help="not ported: the fused 1x1x1 convs are left out; "
-                        "giving it raises (ROADMAP Queue 1 item 8)")
+                   help="I3D family: export with fused inception "
+                        "block-input 1x1 convs (exact rewrite, same "
+                        "checkpoints; with --quant the members are dynamic "
+                        "int8, which runs unfused)")
     p.add_argument("--mesh-member", type=int, default=None, metavar="M",
                    help="with --mesh-data: export a mesh artifact over a "
                         "(member M, data N) mesh: a lean program of one "
@@ -293,8 +295,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "list, e.g. 'Conv3d_1a_7x7,Mixed_5b,Mixed_5c'. "
                         "Caches at a policy-qualified npz path")
     p.add_argument("--fuse-1x1", action="store_true",
-                   help="not ported: the fused 1x1x1 convs are left out; "
-                        "giving it raises (ROADMAP Queue 1 item 8)")
+                   help="I3D family: run each inception block's three "
+                        "block-input 1x1x1 convs as ONE conv (exact "
+                        "rewrite, same checkpoints).  Composes with --quant "
+                        "static (one int8 conv, bit-identical there)")
 
     p = sub.add_parser("ensemble", help="ensemble evaluation")
     _add_config_flags(p)
@@ -318,7 +322,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 block policy for compute-on-miss — see "
                         "`probs --quant-blocks`")
     p.add_argument("--fuse-1x1", action="store_true",
-                   help="not ported; giving it raises (ROADMAP Queue 1 item 8)")
+                   help="compute-on-miss with fused inception 1x1 convs "
+                        "— see `probs --fuse-1x1`")
     p.add_argument(
         "--models", "-ml", nargs="*", default=None,
         help="model specs for global/combine ops, e.g. C3D_SCRATCH "
@@ -401,13 +406,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported(args) -> None:
-    """Raise for a flag the port parses but has no counterpart for."""
-    if getattr(args, "fuse_1x1", False):
-        raise ValueError("--fuse-1x1 is not ported: the fused 1x1x1 convs are left out "
-                         "(ROADMAP Queue 1 item 8; README, 'Left out of the port')")
-
-
 def _positions(device, n: int) -> list:
     """n positions cycling over the visible cards, or over `device` when it
     is not a card; -1 takes one position a card."""
@@ -430,15 +428,17 @@ def _mesh_from_args(args, device):
     return make_mesh((("data", len(positions)),), positions)
 
 
-def _fold_members(config: ExperimentConfig, layout, t: int, device, quant=False):
+def _fold_members(config: ExperimentConfig, layout, t: int, device, quant=False, fuse_1x1=False):
     """Test fold t's members as inference bundles of the config's model in
     its compute dtype on `device` (I3D-family ones `stem_prestaged`, for
-    the shared stem staging), each loaded from its best checkpoint, and
-    their artifact stems."""
+    the shared stem staging, and with `fuse_1x1` their block-input 1³
+    convs fused), each loaded from its best checkpoint, and their artifact
+    stems."""
     from ..models.registry import build_model
     from ..orchestration import _member_variables, compute_dtype
 
-    kw = {"stem_prestaged": True} if config.model_type in ("I3D", "TWOSTREAM_I3D") else {}
+    kw = ({"stem_prestaged": True, "fuse_1x1": fuse_1x1} if config.model_type in ("I3D", "TWOSTREAM_I3D")
+          else {})
     build = lambda: build_model(config.model_type, config.num_classes, dtype=compute_dtype(config),  # noqa: E731
                                 device=device, quant=quant, **kw)
     bundles = [build()]
@@ -540,7 +540,9 @@ def _export(args, device) -> int:
 
         mesh = make_mesh((("member", args.mesh_member), ("data", args.mesh_data)),
                          _positions(device, args.mesh_member * args.mesh_data))
-    bundles, names = _fold_members(config, WorkLayout(args.work_dir), args.test_index, device, args.quant)
+    fuse_1x1 = args.fuse_1x1 and "I3D" in config.model_type
+    bundles, names = _fold_members(config, WorkLayout(args.work_dir), args.test_index, device, args.quant,
+                                   fuse_1x1)
     weights = np.load(args.weights_npy) if args.weights_npy else None
     example = serving_batch_example(
         bundles[0],
@@ -571,7 +573,7 @@ def _export(args, device) -> int:
         "test_index": args.test_index,
         "members": names,
         "quant": args.quant,
-        "fuse_1x1": False,
+        "fuse_1x1": fuse_1x1,
         "input_scale": config.input_scale,
         "platforms": [bundles[0].device.type],
         "params_baked": mesh is None and not args.no_bake_params,
@@ -622,7 +624,7 @@ def _serve(args, device) -> int:
 
         config = ExperimentConfig.from_json(json.dumps(meta["experiment"]))
         bundles, _ = _fold_members(config, WorkLayout(args.work_dir), meta["test_index"], device,
-                                   meta.get("quant", False))
+                                   meta.get("quant", False), meta.get("fuse_1x1", False))
         call_args.append(stack_variables([m.module.state_dict() for m in bundles]))
 
     keys = list(ispec)
@@ -707,6 +709,8 @@ def _ensemble(args, device) -> int:
         provider_kwargs["quant"] = args.quant
         if args.quant_blocks:
             provider_kwargs["quant_blocks"] = args.quant_blocks
+    if args.fuse_1x1:
+        provider_kwargs["fuse_1x1"] = True
     provider = make_prob_provider(config, layout, **provider_kwargs)
     if args.operation == "evaluate":
         res = evaluate_ensembles(
@@ -888,7 +892,6 @@ def main(argv=None, device=None) -> int:
     """Run one command; returns its exit code.  `device` is for tests
     ("cpu"); the command line leaves it None, the card."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     if args.command == "bench":
         print("bench: the port has no benchmark script yet (ROADMAP Queue 1 item 1); "
               "chip_smoke.py drives every path on the card meanwhile", file=sys.stderr)

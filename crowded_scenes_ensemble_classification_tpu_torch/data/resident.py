@@ -15,22 +15,58 @@ indices, shard-block-major, which the mesh steps gather from each
 position's own rows; `index` gives the original clip ids.  Without one,
 the rules are the JAX class's with one shard.
 
-Left out: `FlatRows`, which works around the TPU's (8, 128) tile padding of
-a 3-wide lane dimension (a dense uint8 tensor pads nothing here; ROADMAP
-Queue 1 item 8).  `from_pipeline` fills it from a `BatchPipeline` (decode
-or clip cache) once.
+`from_pipeline` fills it from a `BatchPipeline` (decode or clip cache)
+once.  `FlatRows` (JAX resident.py:54-110) is the flat (N, K) view of
+logically (N, *row_shape) rows, with JAX's host conveniences; the card pads
+no small last dimension, so `ResidentClips` keeps its dense tensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.mesh import Mesh
 from ..utils.device import resolve_device
+
+
+class FlatRows:
+    """(N, K) flat storage of logically (N, *row_shape) samples (JAX
+    data/resident.py:54-110): `densify()` is the (N, *row_shape) view,
+    and `shape`, `dtype`, `nbytes`, `len`, indexing (one dense row) and
+    `__array__` present the logical dense view."""
+
+    def __init__(self, flat: torch.Tensor, row_shape: Tuple[int, ...]):
+        self.flat = flat
+        self.row_shape = tuple(int(s) for s in row_shape)
+
+    def densify(self) -> torch.Tensor:
+        return self.flat.reshape((self.flat.shape[0],) + self.row_shape)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (int(self.flat.shape[0]),) + self.row_shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.flat.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return self.flat.numel() * self.flat.element_size()
+
+    def __len__(self) -> int:
+        return int(self.flat.shape[0])
+
+    def __getitem__(self, i) -> torch.Tensor:
+        return self.flat[i].reshape(self.row_shape)
+
+    def __array__(self, dtype=None, copy=None):
+        dense = self.densify().cpu().numpy()
+        return dense.astype(dtype) if dtype is not None else dense
 
 
 class ResidentClips:

@@ -14,6 +14,10 @@ modules there.
   `bench.py:1366-1390`): the main path's decode and augment, then turbo
   Farnebäck of the augmented clips' gray frames, then TwoStream members on
   the shared s2d stagings of rgb and flow.
+- The wire-fed main path, `wire_ensemble_step` (JAX `bench.py:946-971`):
+  the batch arrives as one step's ragged wire (`data.wire_format`) instead
+  of resident rows; unpack, the windowed augment on the plan's decisions,
+  then the main path's cast, staging, members and fusion.
 """
 
 from __future__ import annotations
@@ -23,12 +27,17 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..data.wire_format import i420_to_bgr_u8
+from ..data.wire_format import WirePlan, i420_to_bgr_u8, make_wire_unpack
 from ..flow.farneback import FLOW_CHUNK_PAIRS, TURBO_PARAMS, farneback_flow_batch, rgb_to_gray
 from ..models.common import s2d_stem_stage
 from ..models.i3d import I3D
 from ..models.two_stream_i3d import TwoStreamI3D
-from ..ops.augment import AugmentDecisions, crowd11_augment_from_decisions, draw_decisions
+from ..ops.augment import (
+    AugmentDecisions,
+    crowd11_augment_from_decisions,
+    crowd11_augment_windowed_from_decisions,
+    draw_decisions,
+)
 from .fusion import fuse_predictions, sum_weights
 from .members import _softmax_stack, check_member_form, shared_stem_probabilities
 
@@ -80,6 +89,28 @@ def resident_ensemble_step(
     the draws off the card)."""
     rows, decisions = _resident_batch(resident_i420, batch_index, generator, batch_size, staging)
     return ensemble_step_from_decisions(members, rows, decisions, frames, staging, out_hw)
+
+
+def wire_ensemble_step(
+    members: Sequence[I3D],
+    wire: torch.Tensor,
+    offsets,
+    plan: WirePlan,
+    step: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the main path fed by the wire (JAX bench.py:946-971):
+    `wire` is step `step`'s packed (cap,) u8 buffer of `plan`
+    (`pack_ragged_windows`; on the host, pinned by `pinned_wire`, it is
+    copied `non_blocking`), `offsets` its (B,) offsets.  Unpack on the
+    members' device, the windowed augment with the plan's decisions of the
+    step (salt/pepper kernel), cast once, one s2d staging, the members in
+    order → ((M, B, C) probabilities, (B,) SUM-fused predictions)."""
+    dev = next(members[0].parameters()).device
+    windows = make_wire_unpack(plan)(torch.as_tensor(wire).to(dev, non_blocking=True), offsets, step)
+    x = crowd11_augment_windowed_from_decisions(windows, plan.out_hw, plan.staging_hw, plan.decisions[step],
+                                                plan.crop_margin)
+    probs = shared_stem_probabilities(members, x.to(members[0].dtype))
+    return probs, fuse_predictions(probs, sum_weights(len(members)))
 
 
 def _resident_batch(resident_i420: torch.Tensor, batch_index: int, generator: torch.Generator,

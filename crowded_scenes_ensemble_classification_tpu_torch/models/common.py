@@ -12,14 +12,17 @@ pool here pads explicitly with `same_pads`.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple, Union
+import threading
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from ..core.lockstep import current_shard
+from ..core.lockstep import Shard, current_shard
 from ..ops.kernels.int8_conv import int8_conv3d, int8_input_channels, pack_int8_weights, quantize_int8
 from ..ops.kernels.stem_conv import s2d_stem_kernel, s2d_stem_stage, stem_conv_7x7x7_s2
 
@@ -89,6 +92,69 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
     return w
 
 
+# ----------------------------------------------------------------------
+# Rematerialisation (JAX `nn.remat`, models/i3d.py:176-253).  A
+# checkpointed call keeps none of its activations: autograd runs its
+# forward again inside the backward pass to get them back
+# (`torch.utils.checkpoint`, non-reentrant: the graph of the first forward
+# is kept and only its saved tensors are recomputed).  flax's remat throws
+# away the mutations of the recompute; here train-mode BatchNorm learns
+# that it is being recomputed from `_Remat`, and then updates no running
+# statistics and, inside a data-parallel step, takes the global moments
+# the first forward took instead of meeting the other positions again
+# (they are not there: the recompute runs on autograd's thread, alone).
+# ----------------------------------------------------------------------
+
+_remat_local = threading.local()
+
+
+class _Remat:
+    """One checkpointed call: the position it ran on (`current_shard()`)
+    and the global BatchNorm moments of its forward, in the order its
+    layers took them, which the recompute replays."""
+
+    def __init__(self, shard: Optional[Shard]):
+        self.shard = shard
+        self.moments: List[torch.Tensor] = []
+        self.replaying = False
+        self._next = 0
+
+    def record(self, moments: torch.Tensor) -> None:
+        self.moments.append(moments.detach())
+
+    def replay(self) -> torch.Tensor:
+        """The next recorded moments, as a leaf that asks for gradients, so
+        the ops after it save what the first forward's did."""
+        t = self.moments[self._next]
+        self._next += 1
+        return t.requires_grad_()
+
+    @contextlib.contextmanager
+    def active(self, replaying: bool):
+        prev = getattr(_remat_local, "call", None)
+        _remat_local.call, self.replaying, self._next = self, replaying, 0
+        try:
+            yield
+        finally:
+            _remat_local.call = prev
+
+
+def current_remat() -> Optional[_Remat]:
+    """The checkpointed call this thread is running, or None."""
+    return getattr(_remat_local, "call", None)
+
+
+def remat_call(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) rematerialised in the backward pass when autograd records it;
+    a plain call otherwise (eval, `no_grad`)."""
+    if not torch.is_grad_enabled():
+        return fn(x)
+    call = _Remat(current_shard())
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (call.active(False), call.active(True)))
+
+
 class KerasBatchNorm3d(nn.BatchNorm3d):
     """Keras BatchNormalization, eps 1e-3, momentum 0.99.  With scale=False
     (I3D, JAX models/common.py:96-105) the weight is a fixed 1, not a
@@ -108,7 +174,11 @@ class KerasBatchNorm3d(nn.BatchNorm3d):
     mean and biased variance in one pass, the positions' sums are added up,
     mean = Σy/n and the biased var = max(Σy²/n − mean², 0) (flax's),
     gradients flow through the sums, and one position updates the running
-    statistics."""
+    statistics.
+
+    Recomputed inside the backward pass of a checkpointed call
+    (`remat_call`) it updates no running statistics, and a data-parallel
+    layer takes the global moments its first forward recorded."""
 
     def __init__(self, features: int, scale: bool = False):
         super().__init__(features, eps=KERAS_BN_EPS, momentum=TORCH_BN_MOMENTUM)
@@ -120,16 +190,22 @@ class KerasBatchNorm3d(nn.BatchNorm3d):
             self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
             self.running_var.mul_(keep).add_(var, alpha=self.momentum)
 
-    def _global_forward(self, x: torch.Tensor, shard) -> torch.Tensor:
+    def _global_forward(self, x: torch.Tensor, shard, remat: Optional[_Remat]) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         var, mean = torch.var_mean(xf, (0, 2, 3, 4), correction=0)  # the shard's, in one pass
         n = x.numel() // x.shape[1]
         sums = torch.stack([mean, torch.addcmul(var, mean, mean)]) * n  # Σy, Σy² of the shard
-        (moments,) = shard.lockstep.sum(shard.position, [sums], x.device)
+        replaying = remat is not None and remat.replaying
+        if replaying:
+            moments = remat.replay()
+        else:
+            (moments,) = shard.lockstep.sum(shard.position, [sums], x.device)
+            if remat is not None:
+                remat.record(moments)
         mean, mean_sq = moments / (n // x.shape[0] * shard.total)
         var = torch.addcmul(mean_sq, mean, mean, value=-1.0).clamp_min(0.0)
         scale = torch.rsqrt(var + self.eps) * self.weight
-        if shard.updates_running_stats:
+        if shard.updates_running_stats and not replaying:
             self._update_running(mean.detach(), var.detach())
         view = lambda t: t.view(1, -1, 1, 1, 1)  # noqa: E731
         return torch.addcmul(view(self.bias - mean * scale), xf, view(scale)).to(x.dtype)
@@ -137,15 +213,17 @@ class KerasBatchNorm3d(nn.BatchNorm3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        shard = current_shard()
+        remat = current_remat()
+        shard = remat.shard if remat is not None else current_shard()
         if shard is not None:
-            return self._global_forward(x, shard)
+            return self._global_forward(x, shard, remat)
         y, mean, invstd = torch.ops.aten.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0,
                                                            self.eps)
-        # The biased variance comes back through 1/sqrt(var + eps): for a
-        # variance far below eps (a constant channel) the round trip can
-        # land an ulp of eps below 0, so it is clamped there.
-        self._update_running(mean, (invstd.detach().pow(-2) - self.eps).clamp_min_(0.0))
+        if remat is None or not remat.replaying:
+            # The biased variance comes back through 1/sqrt(var + eps): for
+            # a variance far below eps (a constant channel) the round trip
+            # can land an ulp of eps below 0, so it is clamped there.
+            self._update_running(mean, (invstd.detach().pow(-2) - self.eps).clamp_min_(0.0))
         return y
 
 
@@ -206,6 +284,46 @@ class ConvBN(nn.Module):
             return F.relu(self.bn(self.conv(x)).to(x.dtype))
         w = self.conv.weight.to(x.dtype)  # the f32 master weight of a trainable model, cast
         return F.relu(self.bn(conv3d_same(x, w, None, self.strides)))
+
+
+class ExternalConvBN(ConvBN):
+    """The state of a ConvBN whose conv runs outside it, fused with others
+    (the Inception block's `fuse_1x1`; JAX models/common.py:285-319): the
+    canonical `conv.weight` and `bn` (a ConvBN's state dict, key for key),
+    `kernel_value()` for the caller's concatenated conv, and `bn_relu` for
+    the BatchNorm + ReLU of its slice of that conv's output.  Its own
+    forward is ConvBN's."""
+
+    def kernel_value(self) -> torch.Tensor:
+        return self.conv.weight
+
+    def bn_relu(self, conv_out: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(conv_out))
+
+
+class ExternalQuantConvBN(ConvBN):
+    """A quant ConvBN whose static int8 conv runs outside it, fused with
+    others (JAX models/common.py:322-380): the state of ConvBN(quant) key
+    for key (`conv.weight`, `conv.act_absmax`, the baked `conv.k8` and
+    `conv.sw`, `bn`), `quant_state()` → (k8, sw, act_absmax) for the
+    caller's concatenated conv, the baked ones or the weights quantized now
+    (JAX's `_QuantConvState`), and `bn_relu` for the BatchNorm (f32) + ReLU
+    of its slice, cast to `dtype`.  Its own forward is ConvBN's in any
+    quant mode, which the 'dynamic' and 'calib' blocks run."""
+
+    def __init__(self, in_features: int, features: int, kernel: Tuple[int, int, int],
+                 generator: Optional[torch.Generator] = None, quant: Union[bool, str] = "static"):
+        super().__init__(in_features, features, kernel, generator=generator, quant=quant)
+
+    def quant_state(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        conv = self.conv
+        k8, sw = (conv.k8, conv.sw) if conv.k8 is not None else weight_qparams(conv.weight)
+        return k8, sw, conv.act_absmax
+
+    def bn_relu(self, conv_out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.training:
+            raise ValueError("quant ConvBN is inference-only")
+        return F.relu(self.bn(conv_out).to(dtype))
 
 
 # ----------------------------------------------------------------------
@@ -487,6 +605,37 @@ def s2d_stem_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     exact s2d rewrite: NTHWC (N, T, H, W, C) × canonical (F, C, 7, 7, 7) →
     NTHWC (N, T/2, H/2, W/2, F) (JAX models/common.py:424-447)."""
     return to_nthwc(_s2d_conv(s2d_stem_stage(x), weight))
+
+
+def _folded_conv(xf: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
+    """The (2,1,1)-strided conv with temporal pads (2, 3) of a folded NTHWC
+    staging → NTHWC."""
+    x = F.pad(to_ncdhw(xf), (0, 0, 0, 0, 2, 3))
+    return to_nthwc(F.conv3d(x, kf.to(xf.dtype).contiguous(memory_format=torch.channels_last_3d), stride=(2, 1, 1)))
+
+
+def s2d_stem_conv_wfold(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """`s2d_stem_conv` with the 4 width taps also folded into channels (JAX
+    models/common.py:495-514): the conv contracts over K = 4·4C, its input
+    the 4 width shifts of the staging concatenated in (dw, c) order.  An
+    exact rewrite, a plain cuDNN conv as JAX's is an XLA one."""
+    xs, k = s2d_stem_stage(x), s2d_stem_kernel(weight)  # (F, 4C, 7, 4, 4)
+    wo = xs.shape[3] - 3
+    xf = torch.cat([xs[:, :, :, dw:dw + wo] for dw in range(4)], dim=-1)
+    kf = k.permute(0, 4, 1, 2, 3).reshape(k.shape[0], -1, 7, 4, 1)  # in-channels in (dw, c) order
+    return _folded_conv(xf, kf)
+
+
+def s2d_stem_conv_hwfold(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """`s2d_stem_conv` with the 4 height and 4 width taps folded into
+    channels (JAX models/common.py:517-540): a (7, 1, 1) conv over K =
+    16·4C, its input the 16 shifts concatenated in (dh, dw, c) order.  An
+    exact rewrite, a plain cuDNN conv."""
+    xs, k = s2d_stem_stage(x), s2d_stem_kernel(weight)
+    ho, wo = xs.shape[2] - 3, xs.shape[3] - 3
+    xf = torch.cat([xs[:, :, dh:dh + ho, dw:dw + wo] for dh in range(4) for dw in range(4)], dim=-1)
+    kf = k.permute(0, 3, 4, 1, 2).reshape(k.shape[0], -1, 7, 1, 1)  # in-channels in (dh, dw, c) order
+    return _folded_conv(xf, kf)
 
 
 _S2D_KERNEL, _S2D_STRIDES, _S2D_PADS = (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))  # the s2d form's conv

@@ -17,6 +17,12 @@ branch stays on the max-pool kernel, unquantized, and the kernel stem
 (`stem_impl='pallas'`) and the s2d stem take no quant, as in JAX
 (i3d.py:255-267).
 
+`fuse_1x1` runs each block's three 1³ convs that read the block input as
+one conv of their concatenated kernels (a cuDNN conv; in static int8 one
+quantize pass and one launch of the int8 kernel), with the state dict
+unchanged.  `remat` / `remat_blocks` rematerialise the Mixed blocks in the
+backward pass (`models/common.remat_call`).
+
 `I3DKinetics` is the with-top Kinetics classifier that Keras-layout
 Kinetics checkpoints load into (`models/weights_io.py`).
 """
@@ -34,13 +40,20 @@ from ..ops.kernels.maxpool import max_pool_3x3x3_same
 from .c3d import dropout
 from .common import (
     ConvBN,
+    ExternalConvBN,
+    ExternalQuantConvBN,
     PallasStemConvBN,
     PrestagedS2DStemConvBN,
     S2DStemConvBN,
+    _QuantBuffers,
+    _static_conv,
     avg_pool_3d,
+    conv3d_same,
     flatten,
     lecun_normal_,
     max_pool_3d,
+    remat_call,
+    static_operands,
     to_ncdhw,
     to_nthwc,
 )
@@ -75,26 +88,92 @@ def block_out_features(spec: Tuple[int, ...]) -> int:
     return b0 + b1 + b2 + b3
 
 
-class InceptionBlock(nn.Module):
+class InceptionBlock(_QuantBuffers, nn.Module):
     """One Mixed_* block on NCDHW: 4 branches concatenated on channels
-    (JAX models/i3d.py:61-172)."""
+    (JAX models/i3d.py:61-172).
+
+    `fuse_1x1` (JAX i3d.py:111-151) runs the three 1³ convs that read the
+    block input (b0_1x1, b1_1x1, b2_1x1) as one conv whose kernel is their
+    concatenation on the output axis, and each branch's slice through its
+    own BatchNorm + ReLU; the branches are `ExternalConvBN`s, so the state
+    dict equals the unfused block's.  Unquantized it is one conv in the
+    block's dtype, trainable.  With the three sites in 'static' int8 the
+    block input is quantized once under the max of their `act_absmax` and
+    one int8 conv runs over the concatenated k8 and sw
+    (`ExternalQuantConvBN.quant_state`): bit for bit the unfused block's
+    when the three were calibrated on the same input, as they are.  Its
+    packed weights and scales are held as non-persistent buffers, computed
+    from the branches' state when they turn static, are baked or loaded
+    (`refresh_static_operands`), as a QuantConv holds its own.  'dynamic'
+    and 'calib' run unfused, as JAX's block falls through."""
 
     def __init__(self, in_features: int, spec, generator: Optional[torch.Generator] = None,
-                 quant: Union[bool, str] = False):
+                 quant: Union[bool, str] = False, fuse_1x1: bool = False):
         super().__init__()
         b0_c, b1_r, b1_c, b2_r, b2_c, b3_c = spec
         g, q = generator, quant
-        self.b0_1x1 = ConvBN(in_features, b0_c, (1, 1, 1), generator=g, quant=q)
-        self.b1_1x1 = ConvBN(in_features, b1_r, (1, 1, 1), generator=g, quant=q)
+        inputs = ExternalQuantConvBN if fuse_1x1 and quant else ExternalConvBN if fuse_1x1 else ConvBN
+        self.b0_1x1 = inputs(in_features, b0_c, (1, 1, 1), generator=g, quant=q)
+        self.b1_1x1 = inputs(in_features, b1_r, (1, 1, 1), generator=g, quant=q)
         self.b1_3x3 = ConvBN(b1_r, b1_c, (3, 3, 3), generator=g, quant=q)
-        self.b2_1x1 = ConvBN(in_features, b2_r, (1, 1, 1), generator=g, quant=q)
+        self.b2_1x1 = inputs(in_features, b2_r, (1, 1, 1), generator=g, quant=q)
         self.b2_3x3 = ConvBN(b2_r, b2_c, (3, 3, 3), generator=g, quant=q)
         self.b3_1x1 = ConvBN(in_features, b3_c, (1, 1, 1), generator=g, quant=q)
+        self.fuse_1x1 = fuse_1x1
+        self.quant = quant
+        self.widths = (b0_c, b1_r, b2_r)
+        if fuse_1x1 and quant:
+            self._register_static_operands()
+
+    def _inputs(self):
+        return self.b0_1x1, self.b1_1x1, self.b2_1x1
+
+    def _fused_static(self) -> bool:
+        return self.fuse_1x1 and bool(self.quant) and all(b.conv.quant_mode == "static" for b in self._inputs())
+
+    def _static_sources(self) -> Optional[tuple]:
+        """The branches' baked k8, sw and act_absmax, or None where a branch
+        is not static or not baked (then the fused operands are computed
+        in each call, from the weights quantized there)."""
+        if not self._fused_static() or any(b.conv.k8 is None for b in self._inputs()):
+            return None
+        return tuple(t for b in self._inputs() for t in b.quant_state())
+
+    def _compute_static_operands(self) -> tuple:
+        """`static_operands` of the concatenated kernel: k8 and sw
+        concatenated on the output axis, then packed as one kernel (each
+        packed buffer is padded apart), under the max of the three
+        act_absmax (JAX i3d.py:119-125)."""
+        k8, sw, act = zip(*(b.quant_state() for b in self._inputs()))
+        act = torch.maximum(torch.maximum(act[0], act[1]), act[2])
+        return static_operands(torch.cat(k8), torch.cat(sw), act / 127.0)
+
+    def _fused_inputs(self, x: torch.Tensor) -> list:
+        """The three input branches' outputs from one conv (module docstring)."""
+        if self.quant:
+            if self.training:
+                raise ValueError("quant ConvBN is inference-only")
+            ops = self.held_static_operands() if self._static_sources() is not None else \
+                self._compute_static_operands()
+            y = _static_conv(to_nthwc(x), ops, None, (1, 1, 1), (1, 1, 1), "SAME")  # f32 NTHWC
+        else:
+            w = torch.cat([b.kernel_value() for b in self._inputs()]).to(x.dtype)
+            y = to_nthwc(conv3d_same(x, w, None, (1, 1, 1)))
+        outs, start = [], 0
+        for b, width in zip(self._inputs(), self.widths):
+            part = to_ncdhw(y[..., start:start + width].contiguous())  # channels_last_3d, as an unfused conv's
+            outs.append(b.bn_relu(part, x.dtype) if self.quant else b.bn_relu(part))
+            start += width
+        return outs
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        branch_0 = self.b0_1x1(x)
-        branch_1 = self.b1_3x3(self.b1_1x1(x))
-        branch_2 = self.b2_3x3(self.b2_1x1(x))
+        if self.fuse_1x1 and (not self.quant or self._fused_static()):
+            branch_0, branch_1, branch_2 = self._fused_inputs(x)
+            branch_1, branch_2 = self.b1_3x3(branch_1), self.b2_3x3(branch_2)
+        else:
+            branch_0 = self.b0_1x1(x)
+            branch_1 = self.b1_3x3(self.b1_1x1(x))
+            branch_2 = self.b2_3x3(self.b2_1x1(x))
         branch_3 = to_ncdhw(max_pool_3x3x3_same(to_nthwc(x)))
         branch_3 = self.b3_1x1(branch_3)
         return torch.cat([branch_0, branch_1, branch_2, branch_3], dim=1)
@@ -113,7 +192,11 @@ class I3DTrunk(nn.Module):
     stem holds the same `Conv3d_1a_7x7` state.  `channels` is the input's:
     3 for RGB, 2 for TwoStream's flow trunk.  `quant` applies at every site
     (the three stem convs and the nine Mixed blocks) or, with
-    `quant_blocks`, at the named ones (JAX i3d.py:240-244)."""
+    `quant_blocks`, at the named ones (JAX i3d.py:240-244).  `fuse_1x1`
+    fuses every block's input 1³ convs (`InceptionBlock`).  remat=True
+    rematerialises all nine Mixed blocks in the backward pass, and
+    `remat_blocks` only the named ones (names of no block are ignored, as
+    in JAX); neither goes with `quant` (JAX i3d.py:231-234)."""
 
     def __init__(
         self,
@@ -124,10 +207,17 @@ class I3DTrunk(nn.Module):
         channels: int = RGB_CHANNELS,
         quant: Union[bool, str] = False,
         quant_blocks=None,
+        fuse_1x1: bool = False,
+        remat: bool = False,
+        remat_blocks=None,
     ):
         super().__init__()
         if stem_impl not in ("auto", "pallas"):
             raise ValueError(f"stem_impl must be 'auto' or 'pallas', got {stem_impl!r}")
+        if quant and (remat or remat_blocks):
+            raise ValueError("quant=True is incompatible with remat")
+        self.remat_blocks = frozenset(name for _, names in _BLOCK_GROUPS for name in names
+                                      if remat or (remat_blocks is not None and name in remat_blocks))
         g = generator
         blocks = resolve_quant_blocks(quant_blocks)
         site_quant = lambda name: quant if blocks is None or name in blocks else False  # noqa: E731
@@ -148,7 +238,7 @@ class I3DTrunk(nn.Module):
         for _, names in _BLOCK_GROUPS:
             for name in names:
                 setattr(self, name, InceptionBlock(features, INCEPTION_SPECS[name], generator=g,
-                                                   quant=site_quant(name)))
+                                                   quant=site_quant(name), fuse_1x1=fuse_1x1))
                 features = block_out_features(INCEPTION_SPECS[name])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -164,7 +254,8 @@ class I3DTrunk(nn.Module):
             if pool is not None:
                 x = max_pool_3d(x, *pool)
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                x = remat_call(block, x) if name in self.remat_blocks else block(x)
         return x
 
 
@@ -193,7 +284,8 @@ class I3D(nn.Module):
     cast in the forward, as the JAX dtype/param_dtype pair); None computes
     in the weights' dtype.  `quant` and `quant_blocks` quantize the trunk's
     convs (`I3DTrunk`); a quantized model keeps its conv weights in f32 and
-    computes in `compute_dtype` (`models.registry.build_model`)."""
+    computes in `compute_dtype` (`models.registry.build_model`).
+    `fuse_1x1`, `remat` and `remat_blocks` go to the trunk."""
 
     def __init__(
         self,
@@ -205,11 +297,14 @@ class I3D(nn.Module):
         generator: Optional[torch.Generator] = None,
         quant: Union[bool, str] = False,
         quant_blocks=None,
+        fuse_1x1: bool = False,
+        remat: bool = False,
+        remat_blocks=None,
     ):
         super().__init__()
         self.stem_prestaged = stem_prestaged
         self.trunk = I3DTrunk(stem_prestaged, s2d_stem, stem_impl, generator=generator, quant=quant,
-                              quant_blocks=quant_blocks)
+                              quant_blocks=quant_blocks, fuse_1x1=fuse_1x1, remat=remat, remat_blocks=remat_blocks)
         features = head_features(frames)
         self.predictions = nn.Linear(features, num_classes)
         lecun_normal_(self.predictions.weight, features, generator)

@@ -23,7 +23,7 @@ into a model built with quant='static', and a plain one into any quant model.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -64,6 +64,13 @@ def quant_sites(module: nn.Module) -> Dict[str, nn.Module]:
     return {name: m for name, m in module.named_modules() if getattr(m, "quant_mode", None)}
 
 
+def static_holders(module: nn.Module) -> List[nn.Module]:
+    """Every module that holds static operands: the quant sites and the
+    `fuse_1x1` Inception blocks of quantized sites (their concatenated
+    operands), which `refresh_static_operands` recomputes or drops."""
+    return [m for m in module.modules() if "static_wp" in m._buffers]
+
+
 def set_quant_mode(module: nn.Module, mode: str) -> nn.Module:
     """Switch every calibrated site between 'calib' and 'static' (JAX
     rebuilds the module with the other `quant`; the variables are the
@@ -74,6 +81,7 @@ def set_quant_mode(module: nn.Module, mode: str) -> nn.Module:
         if m.quant_mode == "dynamic":
             raise ValueError(f"{name} is a dynamic quant site: it has no calibrated stats")
         m.quant_mode = mode
+    for m in static_holders(module):
         m.refresh_static_operands()
     return module
 
@@ -116,7 +124,8 @@ def quantize_variables(module: nn.Module) -> nn.Module:
         for m in sites:
             if isinstance(m, QuantConv):
                 m.k8, m.sw = weight_qparams(m.weight)
-            m.refresh_static_operands()
+    for m in static_holders(module):
+        m.refresh_static_operands()
     return module
 
 

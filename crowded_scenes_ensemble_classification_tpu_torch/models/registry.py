@@ -98,8 +98,9 @@ def build_model(
     bundle in eval mode, conv and dense weights in `dtype`
     (`cast_for_inference`); with `trainable`, f32 master weights computing
     in `dtype`, in train mode.  model_kwargs forward to the module
-    (I3D's stem_impl, s2d_stem, stem_prestaged; TwoStream's stem_prestaged;
-    C3D's width and dropout_rate; R3D's width).  `quant` quantizes the
+    (I3D's stem_impl, s2d_stem, stem_prestaged, fuse_1x1, remat and
+    remat_blocks; TwoStream's stem_prestaged and fuse_1x1; C3D's width and
+    dropout_rate; R3D's width), as JAX's `**model_kwargs` do.  `quant` quantizes the
     convs for inference (see the module docstring); `quant_blocks` limits
     it to the named I3D sites (`models.quantize.resolve_quant_blocks`)."""
     spec = clip_spec(model_type)

@@ -33,8 +33,8 @@ class TwoStreamI3D(nn.Module):
     batch and shared by ensemble members (JAX two_stream_i3d.py:29-65).
     Returns float32 logits.  `compute_dtype`, when set, is the dtype the
     model computes in while its weights stay in theirs (as `I3D`).
-    `quant` and `quant_blocks` quantize both trunks alike (JAX
-    two_stream_i3d.py:37-53)."""
+    `quant` and `quant_blocks` quantize both trunks alike, and `fuse_1x1`
+    fuses both trunks' block-input 1³ convs (JAX two_stream_i3d.py:37-54)."""
 
     def __init__(
         self,
@@ -44,10 +44,11 @@ class TwoStreamI3D(nn.Module):
         generator: Optional[torch.Generator] = None,
         quant: Union[bool, str] = False,
         quant_blocks=None,
+        fuse_1x1: bool = False,
     ):
         super().__init__()
         self.stem_prestaged = stem_prestaged
-        q = dict(quant=quant, quant_blocks=quant_blocks)
+        q = dict(quant=quant, quant_blocks=quant_blocks, fuse_1x1=fuse_1x1)
         self.rgb_trunk = I3DTrunk(stem_prestaged, generator=generator, **q)
         self.flow_trunk = I3DTrunk(stem_prestaged, generator=generator, channels=FLOW_CHANNELS, **q)
         features = 2 * head_features(frames)

@@ -19,6 +19,15 @@ tail is the noise kernel on the card as on every other augmenting path.
 `crowd11_augment_gray_pair_batch` (JAX augment.py:132-200) applies the rgb
 stream's decisions to the Farnebäck gray pairs of the augmented-Farnebäck
 mode, whose salt and pepper are per-pixel `torch.where`s as there.
+
+The windowed form (JAX augment.py:219-391) is the policy on windows the
+host sliced: `augment_crop_decisions` is the host's view of the crop part of
+one step's decisions (drawn by `step_generator(seed, step)`, as every train
+step draws its own), `pack_windows_host` writes each clip's crop window, or
+its decode-time eval resize (`decode_time_eval_resize_u8`), into an
+out_hw buffer, and `crowd11_augment_windowed_from_decisions` resamples the
+window from the origin with the decisions' flip, then runs the noise
+kernel with their gates and seed.  It feeds the wire (`data.wire_format`).
 """
 
 from __future__ import annotations
@@ -64,17 +73,24 @@ class AugmentDecisions:
         return self._map(lambda t: t[start:stop])
 
 
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of one step's augment decisions, seeded by
+    (seed, step): a train step's draws, and a wire plan's."""
+    return torch.Generator().manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]))
+
+
 def draw_decisions(
     generator: torch.Generator,
     batch_size: int,
     staging_hw: Tuple[int, int],
     p: float = 0.75,
+    crop_margin: int = CROP_MARGIN,
 ) -> AugmentDecisions:
     """Draw the policy's decisions on the generator's device (a CPU
     generator keeps the draws off the card): crop gate, y0, x0, flip, salt
     gate, pepper gate, then the noise seed."""
     h, w = staging_hw
-    ch, cw = max(h - CROP_MARGIN, 1), max(w - CROP_MARGIN, 1)
+    ch, cw = max(h - crop_margin, 1), max(w - crop_margin, 1)
     dev = generator.device
     gate = lambda: torch.rand(batch_size, generator=generator, device=dev) < p  # noqa: E731
     do_crop = gate()
@@ -196,3 +212,101 @@ def crowd11_augment_gray_pair_batch(
     hits = gray_pair_noise_hits(decisions, (total, *gray.shape[1:]), gray.device)
     hits = hits[:, clip_offset:clip_offset + gray.shape[0]]
     return crowd11_augment_gray_pair_from_decisions(gray, gray_next, decisions, hits)
+
+
+# ----------------------------------------------------------------------
+# Window transfers (JAX augment.py:203-391): the host slices the crop
+# window the decisions name, the device does the arithmetic.
+# ----------------------------------------------------------------------
+
+
+def augment_crop_decisions(
+    seed: int,
+    batch_size: int,
+    staging_hw: Tuple[int, int],
+    p: float = 0.75,
+    crop_margin: int = CROP_MARGIN,
+    fold_step: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The host's numpy (do_crop (B,) bool, y0 (B,) int32, x0 (B,) int32):
+    the crop part of the decisions `draw_decisions` draws for step
+    `fold_step` (0 when None) from `step_generator(seed, step)` (JAX
+    augment.py:219-253, whose key becomes the seed)."""
+    d = draw_decisions(step_generator(seed, fold_step or 0), batch_size, staging_hw, p, crop_margin)
+    return d.do_crop.numpy(), d.y0.numpy().astype(np.int32), d.x0.numpy().astype(np.int32)
+
+
+def crowd11_augment_windowed_from_decisions(
+    windows: torch.Tensor,
+    out_hw: Tuple[int, int],
+    staging_hw: Tuple[int, int],
+    decisions: AugmentDecisions,
+    crop_margin: int = CROP_MARGIN,
+    clip_offset: int = 0,
+) -> torch.Tensor:
+    """The policy on pre-sliced windows (JAX augment.py:276-317):
+    (B, T, oh, ow, C) buffers whose top-left corner holds a cropped clip's
+    (H−margin)×(W−margin) window, or an uncropped clip's full frame already
+    resized to out_hw, → float32 (B, T, oh, ow, C).  Each clip is resampled
+    from the origin over its window (the identity for an uncropped one) with
+    the decisions' flip, then the salt/pepper kernel with their gates and
+    seed at `clip_offset` (`crowd11_augment_from_decisions`).  For cropped
+    clips the taps equal the unwindowed path's within an ulp of their
+    weights (JAX's own ≤ 2e-3 on the 0-255 scale)."""
+    d = decisions.to(windows.device)
+    _, _, bh, bw, _ = windows.shape
+    h, w = staging_hw
+    ch, cw = max(h - crop_margin, 1), max(w - crop_margin, 1)
+    ones = torch.ones(d.do_crop.shape, dtype=torch.float32, device=windows.device)
+    win_h = torch.where(d.do_crop, ones * ch, ones * bh)
+    win_w = torch.where(d.do_crop, ones * cw, ones * bw)
+    out = crop_resize(windows, out_hw, (ones * 0.0, ones * 0.0), (win_h, win_w), d.flip)
+    return salt_pepper(out, d.seed, d.salt, d.pepper, NOISE_RATIO, clip_offset)
+
+
+def crowd11_augment_windowed_batch(
+    windows: torch.Tensor,
+    out_hw: Tuple[int, int],
+    staging_hw: Tuple[int, int],
+    p: float,
+    generator: torch.Generator,
+    crop_margin: int = CROP_MARGIN,
+) -> torch.Tensor:
+    """Draw per-clip decisions for staging_hw clips from `generator` and
+    apply the windowed policy (JAX augment.py:320-336)."""
+    decisions = draw_decisions(generator, windows.shape[0], staging_hw, p, crop_margin)
+    return crowd11_augment_windowed_from_decisions(windows, out_hw, staging_hw, decisions, crop_margin)
+
+
+def decode_time_eval_resize_u8(clip_u8, out_hw: Tuple[int, int]) -> np.ndarray:
+    """A u8 (T, H, W, C) clip resized to u8 out_hw frames on the host, once
+    at decode or cache-build time (JAX augment.py:339-352; the reference's
+    cv2.resize on uint8 frames): the bilinear resize in f32, rounded half
+    to even and clipped to 0-255."""
+    x = torch.as_tensor(np.asarray(clip_u8))[None].float()
+    out = crop_resize(x, out_hw)[0].numpy()
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def pack_windows_host(
+    staging: np.ndarray,
+    eval_resized: np.ndarray,
+    do_crop: np.ndarray,
+    y0: np.ndarray,
+    x0: np.ndarray,
+    out_hw: Tuple[int, int],
+    crop_margin: int = CROP_MARGIN,
+) -> np.ndarray:
+    """The (B, T, oh, ow, C) u8 buffer of windows, assembled on the host by
+    indexing alone (JAX augment.py:355-391): a cropped clip's staging crop
+    window in the top-left corner, zeros around it; an uncropped clip's
+    decode-time resize."""
+    b, t, h, w, c = staging.shape
+    ch, cw = max(h - crop_margin, 1), max(w - crop_margin, 1)
+    buf = np.zeros((b, t) + tuple(out_hw) + (c,), np.uint8)
+    for i in range(b):
+        if do_crop[i]:
+            buf[i, :, :ch, :cw] = staging[i, :, y0[i]:y0[i] + ch, x0[i]:x0[i] + cw]
+        else:
+            buf[i] = eval_resized[i]
+    return buf

@@ -24,8 +24,9 @@ another.  Every stage takes a `mesh=` (`core.mesh`): training is then
 data-parallel over its data axis (`train.engine`, global-batch BatchNorm;
 a resident train split is sharded over it), and the probability functions
 shard the members and batches over it
-(`ensemble.members.member_probabilities`).  `fuse_1x1=True` has no working
-form and raises (left out, ROADMAP Queue 1 item 8).  With a
+(`ensemble.members.member_probabilities`); `fuse_1x1=True` runs I3D-family
+members with their block-input 1³ convs fused (`models.i3d.InceptionBlock`).
+With a
 torch.distributed group up (`parallel.distributed`), the recovery list is
 divided over its processes.
 """
@@ -592,10 +593,12 @@ def cache_probabilities(
     form has its own npz path (`probability_variant`).  `mesh` (a
     `core.mesh.Mesh`) shards the window form's members and batches over
     its member and data axes (`member_probabilities`); the long-video form
-    runs unsharded, as in JAX.  fuse_1x1=True (the JAX fused 1×1 convs) is
-    left out of the port (ROADMAP Queue 1 item 8)."""
-    if fuse_1x1:
-        raise ValueError("fuse_1x1 is not ported: the fused 1x1x1 convs are left out (ROADMAP Queue 1 item 8)")
+    runs unsharded, as in JAX.  fuse_1x1=True (I3D family; JAX
+    orchestration.py:664-670) builds the members with each Inception
+    block's three input 1³ convs fused into one (`models.i3d.
+    InceptionBlock`): the same model and checkpoints, so no npz path of its
+    own; a static member calibrates with the same `fuse_1x1` and
+    `quant_blocks` and runs its fused convs in static int8."""
     if input_scale is None:
         input_scale = config.input_scale
     flow_params = flow_schedule_params(config.flow_schedule)
@@ -618,7 +621,7 @@ def cache_probabilities(
         quant = False
     else:
         clip = config.clip
-        kw = {"stem_prestaged": True} if "I3D" in config.model_type else {}
+        kw = {"stem_prestaged": True, "fuse_1x1": fuse_1x1} if "I3D" in config.model_type else {}
         build = lambda q: build_model(config.model_type, config.num_classes, dtype=compute_dtype(config),  # noqa: E731
                                       device=resolve_device(device), quant=q, quant_blocks=policy, **kw)
         members = [build("calib" if quant == "static" else quant).module

@@ -62,7 +62,7 @@ from ..ensemble.members import (
     stack_variables,
     stacked_member_softmax,
 )
-from ..models.quantize import quant_sites
+from ..models.quantize import static_holders
 from ..models.registry import ModelBundle
 from ..utils.device import resolve_device
 
@@ -145,7 +145,7 @@ class _LeanGroupForward(nn.Module):
 def _meta_template(module: nn.Module) -> nn.Module:
     """A copy of `module` on the meta device, holding no static operands."""
     template = copy.deepcopy(module).to("meta")
-    for site in quant_sites(template).values():
+    for site in static_holders(template):
         site.refresh_static_operands()  # meta sources: drops the held operands
     return template
 
@@ -197,7 +197,7 @@ def export_ensemble(
         args = (stack_variables([m.state_dict() for m in modules[:len(modules) // groups]]),
                 {k: v[:batch // shards] for k, v in batch_example.items()})
     elif bake_params:
-        for site in (s for m in modules for s in quant_sites(m).values()):
+        for site in (s for m in modules for s in static_holders(m)):
             site.refresh_static_operands()  # a static site's packed weights enter the program as constants
         model, args = _ServingEnsemble(modules, w.to(first.device), **forward_kw), (batch_example,)
     else:

@@ -1,7 +1,6 @@
-"""Training: the steps, the epoch loop, the multi-member step, the Keras
-optimizers, callbacks and checkpoints (counterpart of the JAX package's
-`train/` and its exports, without the wire-fed step, a TPU transfer
-workaround)."""
+"""Training: the steps (dense, resident and wire-fed), the epoch loop, the
+multi-member step, the Keras optimizers, callbacks and checkpoints
+(counterpart of the JAX package's `train/` and its exports)."""
 
 from .callbacks import (  # noqa: F401
     EarlyStopping,
@@ -25,6 +24,7 @@ from .engine import (  # noqa: F401
     make_resident_eval_step,
     make_resident_train_step,
     make_train_step,
+    make_wire_train_step,
     store_history,
     train_policy,
 )

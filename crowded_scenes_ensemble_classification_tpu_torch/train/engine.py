@@ -36,8 +36,12 @@ the gradients add up onto the one module, and one optimizer step runs, so
 the update equals the unsharded step's.  A resident dataset is sharded over
 the same mesh and each position gathers from its own rows.  With
 `processes` the data axis continues in other processes
-(`parallel.distributed.ProcessSum`).  Not ported: the wire-fed step (a TPU
-transfer workaround, left out: ROADMAP Queue 1 item 8).
+(`parallel.distributed.ProcessSum`).
+
+`make_wire_train_step` (JAX engine.py:240-317) is fed by the ragged wire
+(`data.wire_format`) instead of a dense or resident batch: the step
+unpacks it, runs the windowed augment on the plan's decisions, then the
+same body as `make_train_step`.
 """
 
 from __future__ import annotations
@@ -65,8 +69,10 @@ from ..ops.augment import (
     AugmentDecisions,
     crowd11_augment_from_decisions,
     crowd11_augment_gray_pair_batch,
+    crowd11_augment_windowed_from_decisions,
     draw_decisions,
     identity_resize_batch,
+    step_generator,
 )
 from ..parallel.distributed import ProcessSum
 from .callbacks import EarlyStopping, LRPolicy, lr_policy_for
@@ -80,11 +86,6 @@ _DROPOUT_STREAM = 1  # the dropout generator's seed word after (seed, step)
 def _step_key(seed: int, step: int, *stream: int) -> int:
     return int(np.random.SeedSequence([seed, step, *stream]).generate_state(1, np.uint64)[0])
 
-
-def _augment_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of one step's augment decisions, seeded by
-    (seed, step)."""
-    return torch.Generator().manual_seed(_step_key(seed, step))
 
 
 def _dropout_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
@@ -114,6 +115,7 @@ def _preprocess(
     flow_from_augmented: bool = False,
     clip_offset: int = 0,
     global_batch: Optional[int] = None,
+    windowed: Optional[Tuple[Tuple[int, int], int]] = None,
 ) -> Dict[str, torch.Tensor]:
     """uint8 staged batch → float32 model inputs, on its device (JAX
     engine.py:40-120).  `decisions` augments the rgb (None: a plain
@@ -130,9 +132,12 @@ def _preprocess(
     the flow is of the unaugmented pairs.  A data-parallel position passes
     its rows' decisions (`AugmentDecisions.rows`), its first row
     `clip_offset` and the `global_batch` size, and draws the noise of those
-    rows of the global batch."""
+    rows of the global batch.  `windowed` = (staging_hw, crop_margin): the
+    rgb is the wire's window buffer, augmented by the windowed policy."""
     rgb = batch["rgb"]
-    if decisions is not None:
+    if decisions is not None and windowed is not None:
+        rgb = crowd11_augment_windowed_from_decisions(rgb, out_hw, windowed[0], decisions, windowed[1], clip_offset)
+    elif decisions is not None:
         rgb = crowd11_augment_from_decisions(rgb, out_hw, decisions, clip_offset)
     else:
         rgb = identity_resize_batch(rgb, out_hw)
@@ -270,8 +275,10 @@ def _make_train_body(
     mesh: Optional[Mesh] = None,
     data_axis: str = "data",
     processes: Optional[ProcessSum] = None,
+    windowed: Optional[Tuple[Tuple[int, int], int]] = None,
 ):
-    """The train body of every step: fn(state, parts, class_weights) with
+    """The train body of every step: fn(state, parts, class_weights,
+    decisions=None) with
     `parts` the batch's dense parts {"rgb" uint8 [+ "flow" | "gray",
     "gray_next"], "label", "valid"}, tensors on their devices: the whole
     batch on the module's device, or with a `mesh` one part a position of
@@ -282,7 +289,9 @@ def _make_train_body(
     multi_member.py:77), + l2 for R3D.
 
     - The augment decisions are drawn once for the global batch, from
-      (state.seed, state.step); each part applies its rows of them, the
+      (state.seed, state.step), or given (the wire's, with `windowed` =
+      (staging_hw, crop_margin) for its windowed policy); each part
+      applies its rows of them, the
       noise kernel at its clip offset; TwoStream flow is computed from each
       part's rows.
     - `_rows_sums` runs the forward of one part.  Unsharded it runs inline
@@ -308,7 +317,7 @@ def _make_train_body(
     def rows_sums(module: nn.Module, batch, decisions, start: int, total: int, class_weights, generator):
         """(Σ ce·w, [Σ mask, Σ w, correct]) of one part's rows [start, start + rows)."""
         inputs = _preprocess(batch, decisions, out_hw, bundle.two_stream, input_scale, flow_fast_warp, flow_params,
-                             flow_from_augmented, start, total)
+                             flow_from_augmented, start, total, windowed)
         labels = batch["label"].long()
         mask = batch["valid"].float()
         weights = mask * class_weights.to(mask.device)[labels]
@@ -317,13 +326,13 @@ def _make_train_body(
         correct = ((logits.detach().argmax(-1) == labels) * mask).sum()
         return (ce * weights).sum(), torch.stack([mask.sum(), weights.sum(), correct])
 
-    def train_step(state: TrainState, parts: Sequence[Dict[str, torch.Tensor]], class_weights):
+    def train_step(state: TrainState, parts: Sequence[Dict[str, torch.Tensor]], class_weights,
+                   decisions: Optional[AugmentDecisions] = None):
         rows = [int(part["label"].shape[0]) for part in parts]
         first, total = (0, sum(rows)) if processes is None else processes.row_span(sum(rows))
-        decisions = None
-        if augment:
+        if augment and decisions is None:
             _, _, h, w, _ = parts[0]["rgb"].shape
-            decisions = draw_decisions(_augment_generator(state.seed, state.step), total, (h, w), augment_p)
+            decisions = draw_decisions(step_generator(state.seed, state.step), total, (h, w), augment_p)
         state.optimizer.zero_grad(set_to_none=True)
         if mesh is None:
             numerator, sums = rows_sums(bundle.module, parts[0], decisions, 0, total, class_weights,
@@ -452,6 +461,66 @@ def make_train_step(
     def train_step(state: TrainState, batch, class_weights):
         _check_tx(state, tx)
         return body(state, parts(batch), class_weights)
+
+    return train_step
+
+
+def make_wire_train_step(
+    bundle: ModelBundle,
+    tx: OptimizerFactory,
+    plan,
+    augment_key: Optional[int] = None,
+    l2_weight: float = 0.0,
+    mesh: Optional[Mesh] = None,
+    data_axis: str = "data",
+    input_scale: float = 1.0,
+):
+    """The wire-fed train step (JAX engine.py:240-317): fn(state, wire,
+    offsets, step_idx, labels, valid, class_weights) → (state, metrics).
+
+    The batch arrives as the ragged wire (`data.wire_format`): a
+    `WirePlan`'s (cap,) u8 buffer, or with a `ShardedWirePlan` and a mesh
+    the (n_shards, cap) rows, one a position of `data_axis`; a pinned host
+    buffer (`pinned_wire`) is copied `non_blocking`.  The step unpacks it,
+    runs the windowed augment on the plan's decisions of step `step_idx`,
+    × input_scale, then the same loss and update body as `make_train_step`
+    (with a mesh, its data-parallel form, each position unpacking its own
+    wire row).  `augment_key`, when given, is the seed the plan was drawn
+    from (`plan_wire_steps`), which is checked: a plan drawn from
+    state.seed gives at step_idx = state.step the decisions
+    `make_train_step` draws, so on the same pixels the two steps agree.
+    Dropout masks come from (state.seed, state.step) as there.  RGB only:
+    TwoStream's flow is of unaugmented frames, which the wire does not
+    carry (JAX's reason)."""
+    from ..data.wire_format import ShardedWirePlan, make_sharded_wire_unpack, make_wire_unpack
+
+    if bundle.two_stream:
+        raise ValueError("wire-fed training is RGB-only (see docstring)")
+    if isinstance(plan, ShardedWirePlan):
+        if mesh is None:
+            raise ValueError("ShardedWirePlan requires a mesh")
+        unpack, base = make_sharded_wire_unpack(plan, mesh, data_axis), plan.base
+    else:
+        if mesh is not None:
+            raise ValueError("a wire-fed step over a mesh takes a ShardedWirePlan, one wire row a position")
+        unpack, base = make_wire_unpack(plan), plan
+    if augment_key is not None and base.seed is not None and base.seed != augment_key:
+        raise ValueError(f"augment_key {augment_key} is not the seed the plan was drawn from ({base.seed})")
+    body = _make_train_body(bundle, base.out_hw, True, base.p, l2_weight, input_scale, mesh=mesh,
+                            data_axis=data_axis, windowed=(base.staging_hw, base.crop_margin))
+    devices = [bundle.device] if mesh is None else _data_devices(bundle, mesh, data_axis)
+
+    def train_step(state: TrainState, wire, offsets, step_idx: int, labels, valid, class_weights):
+        _check_tx(state, tx)
+        step_idx = int(step_idx)
+        if mesh is None:
+            windows = [unpack(torch.as_tensor(wire).to(bundle.device, non_blocking=True), offsets, step_idx)]
+        else:
+            windows = unpack(wire, offsets, step_idx)
+        labels = split_positions(torch.as_tensor(labels), devices)
+        valid = split_positions(torch.as_tensor(valid), devices)
+        parts = [{"rgb": w, "label": lab, "valid": v} for w, lab, v in zip(windows, labels, valid)]
+        return body(state, parts, class_weights, decisions=base.decisions[step_idx])
 
     return train_step
 

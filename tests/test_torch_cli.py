@@ -646,13 +646,36 @@ def test_mesh_flags_run(torch, pcli, port, ws, tiny_builds, tmp_path, capsys, co
 
 
 @pytest.mark.parametrize("argv,error,words", [
-    (["probs", "--work-dir", "/w", "--fuse-1x1"], ValueError, "item 8"),
-    (["ensemble", "--work-dir", "/w", "--fuse-1x1"], ValueError, "item 8"),
+    (["probs", "--work-dir", "{w}", *BASE, "-t", "0", "--fuse-1x1"], None, "fuse_1x1"),
+    (["ensemble", "--work-dir", "{w}", *BASE, "--fuse-1x1"], None, "fuse_1x1"),
     (["convert", "--fetch-rgb", "rgb_kinetics_only", "--cache-dir", "{tmp}", "--out", "x.pt"], FileNotFoundError,
      "{tmp}/i3d_inception_rgb_kinetics_only_no_top.h5"),
     (["convert", "--rgb-h5", "a.h5", "--out", "x.msgpack"], ValueError, ".pt"),
 ])
-def test_unported_flags_raise(pcli, argv, error, words, tmp_path):
+def test_unported_flags_raise(torch, pcli, port, ws, tiny_builds, monkeypatch, capsys, argv, error, words, tmp_path):
+    """What the port refuses raises.  `probs` and `ensemble --fuse-1x1`,
+    refused until the fused 1³ convs were ported, run: every
+    cache_probabilities call takes fuse_1x1=True (each fold's reads test
+    fold 0's members, the ones the workspace holds), and the probabilities
+    equal the unfused cache's (C3D members: the rewrite is the I3D
+    family's, as in JAX)."""
+    if error is None:
+        orch = port.orchestration
+        real, seen = orch.cache_probabilities, []
+
+        def fold0(config, layout, t, *args, **kw):
+            seen.append(kw[words])
+            return real(config, layout, 0, *args, **kw)
+
+        monkeypatch.setattr(orch, "cache_probabilities", fold0)
+        assert pcli.main([a.replace("{w}", ws.work) for a in argv], device="cpu") == 0
+        capsys.readouterr()
+        assert seen and all(seen)
+        store = port.probability_store
+        fused = store.load_probabilities(real(ws.cfg, ws.layout, 0, device="cpu"))
+        unfused = store.load_probabilities(real(ws.cfg, ws.layout, 0, recompute=True, device="cpu"))
+        np.testing.assert_array_equal(fused["probs"], unfused["probs"])
+        return
     with pytest.raises(error, match=re.escape(words.replace("{tmp}", str(tmp_path)))):
         pcli.main([a.replace("{tmp}", str(tmp_path)) for a in argv], device="cpu")
     assert not os.listdir(tmp_path)

@@ -207,7 +207,7 @@ def test_sharded_augmented_step_equals_unsharded(torch, port, cpu_mesh, kind):
     kw = dict(input_scale=SCALE, flow_params=FLOW_PARAMS, flow_from_augmented=True) if two else \
         dict(input_scale=SCALE)
 
-    decisions = port.ops_augment.draw_decisions(engine._augment_generator(7, 0), B, (STAGING, STAGING), 0.75)
+    decisions = port.ops_augment.draw_decisions(port.ops_augment.step_generator(7, 0), B, (STAGING, STAGING), 0.75)
     tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
     args = ((OUT, OUT), two, SCALE, False, kw.get("flow_params"), two)
     full = engine._preprocess(tensors, decisions, *args)

@@ -333,10 +333,19 @@ def test_probability_npz_names_match_jax(orch, pconfig, workspace, monkeypatch, 
     assert pp == jp
 
 
-def test_cache_probabilities_refusals(orch, workspace):
+def test_cache_probabilities_refusals(torch, orch, workspace, cached):
+    """fuse_1x1=True, refused until the fused 1³ convs were ported, runs: no
+    npz path of its own and the probabilities of the unfused cache (C3D
+    members: the rewrite is the I3D family's, as in JAX).  The rest raise."""
+    from crowded_scenes_ensemble_classification_tpu_torch.ensemble.probability_store import load_probabilities
+
     pcfg, pl = workspace["port"]
-    for kw, words in ((dict(fuse_1x1=True), "item 8"),
-                      (dict(quant_blocks="mixed", quant="static"), "I3D-family"),
+    _, pp, _, p = cached["window"]
+    fused = orch.cache_probabilities(pcfg, pl, 0, "test", bundle=_tiny_bundle(torch), staging_hw=STAGING,
+                                     num_workers=2, recompute=True, fuse_1x1=True, device="cpu")
+    assert fused == pp
+    np.testing.assert_array_equal(load_probabilities(fused)["probs"], p["probs"])
+    for kw, words in ((dict(quant_blocks="mixed", quant="static"), "I3D-family"),
                       (dict(subset="val"), "unknown subset")):
         kw = dict(kw)
         subset = kw.pop("subset", "test")

@@ -756,7 +756,8 @@ def _kernel_walk(torch, ic, x8, wp, scale, bias, kernel, strides, pads, splits):
 # (x NTHWC, F, kernel, strides, pads): the prestaged stem on 4C = 12, ragged
 # C = 24 and 17 with asymmetric pads and a (1, 2, 1) stride, C = 3 and 2 on
 # the byte-gather layout (the R3D stem's 7³/2), a 1³/2 VALID projection,
-# and a small-M 3³ conv on C = 160 (K = 4,320, 34 stages) that splits K.
+# a small-M 3³ conv on C = 160 (K = 4,320, 34 stages) that splits K, and
+# Mixed_3b's fused 1³ conv (`fuse_1x1`: F = 64 + 96 + 16 = 176 on Cin = 192).
 WALK_CASES = [
     ((1, 6, 9, 9, 12), 13, (7, 4, 4), (2, 1, 1), ((2, 3), (0, 0), (0, 0))),
     ((2, 3, 5, 7, 24), 40, (3, 3, 3), (1, 1, 1), ((1, 1), (1, 1), (1, 1))),
@@ -765,6 +766,7 @@ WALK_CASES = [
     ((1, 4, 8, 8, 2), 16, (7, 7, 7), (2, 2, 2), ((2, 3), (2, 3), (2, 3))),
     ((2, 4, 6, 6, 64), 48, (1, 1, 1), (2, 2, 2), ((0, 0), (0, 0), (0, 0))),
     ((1, 2, 3, 3, 160), 20, (3, 3, 3), (1, 1, 1), ((1, 1), (1, 1), (1, 1))),
+    ((1, 2, 4, 4, 192), 176, (1, 1, 1), (1, 1, 1), ((0, 0), (0, 0), (0, 0))),
 ]
 
 
