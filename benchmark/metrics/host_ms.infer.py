@@ -1,0 +1,9 @@
+"""Host ms a step call of a probabilities entry, over all the window's calls (the benchmark's span, nothing synchronised inside)."""
+
+from benchmark import readers
+
+UNIT = "ms"
+
+
+def read(run):
+    return readers.host_ms(run, "batches")
